@@ -1,0 +1,23 @@
+"""mcqueens_torch — the PyTorch / CUDA port of :mod:`mcqueens`.
+
+The JAX package stays the reference; this package mirrors its module names so
+each counterpart is easy to find, and reproduces its board-mode
+``pallas_shared`` path bit for bit: the same seeds, block partition and
+counter-hash streams give the same trajectories, best boards, bins and
+histories.  It imports ``torch`` and numpy, never ``jax``.
+
+Layers (bottom-up):
+    core/     energy oracle, count tables, schedules, hash-based init
+    chain/    ChainSpec (static chain configuration)
+    kernels/  counter PRNG, block sizing, the carry, and the shared-site board
+              sampler with its hand-written CUDA kernel (csrc/)
+    dist/     run_chains / run_experiment on one device
+    cli/      the competition CLI
+    utils/    throughput reporting
+
+Every function that allocates takes an explicit ``device``; the CPU path is
+the kernels' plain-torch twins and is taken only when ``device="cpu"`` is
+asked for.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,152 @@
+"""Competition CLI: anneal hard, export the best board (PyTorch port).
+
+Same flags, defaults and export format as ``python -m mcqueens.cli.competition``
+except ``--kernel``, which accepts only ``pallas_shared`` (the shared-site
+board sampler, the one ported so far) and defaults to it, and ``--device``
+(default ``cuda``; ``cpu`` runs the kernel's plain-torch twin).  Flags of
+paths not ported yet (``--tempering``, ``--mesh``, ``--checkpoint-dir``,
+``--mcmc-type full_3d``, ``--q``, ``--exchange-interval``) are refused.
+
+    python -m mcqueens_torch.cli.competition [--n 15] [--n-runs 10]
+        [--n-steps 100000] [--beta-start 1.0] [--beta-end 3.0] [--seed 42]
+        [--device cuda] [--outdir .]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--n", type=int, default=15)
+    parser.add_argument("--n-runs", type=int, default=10)
+    parser.add_argument("--n-steps", type=int, default=100000)
+    parser.add_argument("--init-mode", default="random")
+    parser.add_argument("--mcmc-type", default="board",
+                        choices=("board", "full_3d"))
+    parser.add_argument("--q", type=int, default=None, metavar="Q")
+    parser.add_argument("--beta-start", type=float, default=1.0)
+    parser.add_argument("--beta-end", type=float, default=3.0)
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--early-stop-patience", type=int, default=None)
+    parser.add_argument("--kernel", default="pallas_shared",
+                        choices=("pallas_shared",),
+                        help="the shared-site board sampler (hand-written "
+                             "CUDA kernel on --device cuda)")
+    parser.add_argument("--history-stride", type=int, default=None,
+                        help="default: n_steps // 1024 (one kernel launch "
+                             "per history point)")
+    parser.add_argument("--n-bins", type=int, default=None,
+                        help="acceptance-rate bins (default 100, shrunk so "
+                             "n_steps * n_bins fits int32)")
+    parser.add_argument("--tempering", type=int, default=0, metavar="L")
+    parser.add_argument("--mesh", action="store_true")
+    parser.add_argument("--outdir", default=".")
+    parser.add_argument("--checkpoint-dir", default=None, metavar="DIR")
+    parser.add_argument("--exchange-interval", type=int, default=1,
+                        metavar="SEGS")
+    parser.add_argument("--resume-from", default=None, metavar="BOARD_TXT",
+                        help="warm-start every run from a previously exported "
+                             "best_heights file (i,j,k lines)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device: cuda (the CUDA kernel) or cpu "
+                             "(its plain-torch twin)")
+    args = parser.parse_args(argv)
+
+    not_ported = {
+        "--tempering": args.tempering != 0,
+        "--mesh": args.mesh,
+        "--checkpoint-dir": args.checkpoint_dir is not None,
+        "--mcmc-type full_3d": args.mcmc_type != "board",
+        "--q": args.q is not None,
+        "--exchange-interval": args.exchange_interval != 1,
+    }
+    refused = [flag for flag, given in not_ported.items() if given]
+    if refused:
+        parser.error(f"{', '.join(refused)}: not ported to mcqueens_torch "
+                     "yet (ROADMAP.md queue 1); use python -m "
+                     "mcqueens.cli.competition")
+
+    from mcqueens_torch.chain.spec import ChainSpec
+    from mcqueens_torch.core.schedules import build_schedule
+    from mcqueens_torch.dist import runner
+    from mcqueens_torch.utils import profiling
+
+    stride = args.history_stride
+    if stride is None:
+        # one kernel launch per history point: keep chunks big
+        stride = max(1, args.n_steps // 1024)
+    n_bins = args.n_bins
+    if n_bins is None:
+        n_bins = max(1, min(100, (2 ** 31 - 1) // max(args.n_steps, 1)))
+
+    initial_states = None
+    if args.resume_from:
+        board = np.zeros((args.n, args.n), np.int32)
+        with open(args.resume_from) as f:
+            for line in f:
+                i, j, k = (int(x) for x in line.strip().split(","))
+                board[i, j] = k
+        initial_states = np.repeat(board[None], args.n_runs, axis=0)
+
+    schedule = build_schedule(
+        "linear_annealing", args.n_steps,
+        beta_start=args.beta_start, beta_end=args.beta_end,
+    )
+    if initial_states is not None:
+        spec = ChainSpec(
+            N=args.n, n_steps=args.n_steps, schedule=schedule,
+            init_mode=args.init_mode, mcmc_type=args.mcmc_type,
+            early_stop_patience=args.early_stop_patience,
+            history_stride=stride, kernel=args.kernel, n_bins=n_bins,
+        )
+        res = runner.run_chains(
+            args.seed + np.arange(args.n_runs, dtype=np.uint32), spec,
+            device=args.device, verbose=True, initial_states=initial_states,
+        )
+    else:
+        res = runner.run_experiment(
+            N=args.n, n_steps=args.n_steps, init_mode=args.init_mode,
+            schedule=schedule, n_runs=args.n_runs, base_seed=args.seed,
+            device=args.device, mcmc_type=args.mcmc_type,
+            early_stop_patience=args.early_stop_patience,
+            verbose=True, history_stride=stride, kernel=args.kernel,
+            n_bins=n_bins,
+        )
+
+    order = np.argsort(res.best_energy, kind="stable")
+    shown = [int(res.best_energy[r]) for r in order[:20]]
+    suffix = " ..." if args.n_runs > 20 else ""
+    print(f"Best energies: {shown}{suffix}")
+    if args.n_runs > 20:
+        print(f"(over {args.n_runs} runs: min {int(res.best_energy.min())}, "
+              f"mean {res.best_energy.mean():.1f})")
+    best = res.best_state[order[0]]
+    print(best)
+    print(profiling.throughput_of(res))
+
+    _export(args, best)
+    return 0
+
+
+def _export(args, best) -> None:
+    """Write the winning board as ``i,j,k`` lines to
+    ``<outdir>/competition_results/best_heights_{N}_{timestamp}.txt``."""
+    out_dir = os.path.join(args.outdir, "competition_results")
+    os.makedirs(out_dir, exist_ok=True)
+    ts = time.strftime("%Y%m%d_%H%M")
+    path = os.path.join(out_dir, f"best_heights_{args.n}_{ts}.txt")
+    with open(path, "w") as f:
+        for i in range(args.n):
+            for j in range(args.n):
+                f.write(f"{i},{j},{best[i, j]}\n")
+    print(f"wrote {path}")
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,91 @@
+"""Line-family count tables, port of :mod:`mcqueens.core.tables`.
+
+For distinct cells the 7 attack relations are mutually exclusive and each is
+a family of parallel lines, so ``E = sum over lines of C(count, 2)``.  The
+port uses the tables to score initial boards (plain torch ``scatter_add_``:
+the JAX package leaves this to XLA too, so there is no kernel here).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def family_sizes(N: int, full3d: bool = False):
+    """Flat size of each family's count table."""
+    D = 2 * N - 1
+    sizes = [N * N, N * N] + [N * D] * 6 + [D * D] * 4
+    if full3d:
+        sizes.append(N * N)
+    return sizes
+
+
+def family_offsets(N: int, full3d: bool = False):
+    """Start offset of each family within the flat table."""
+    offs = [0]
+    for s in family_sizes(N, full3d)[:-1]:
+        offs.append(offs[-1] + s)
+    return offs
+
+
+def table_size(N: int, full3d: bool = False) -> int:
+    return sum(family_sizes(N, full3d))
+
+
+def line_indices(i, j, k, N: int, full3d: bool = False) -> torch.Tensor:
+    """Flat table indices of the 12 (13) lines through cell (i, j, k).
+
+    ``i, j, k`` are equally-shaped (or broadcastable) int tensors; the
+    family axis is appended last.
+    """
+    D = 2 * N - 1
+    offs = family_offsets(N, full3d)
+    idx = [
+        offs[0] + i * N + k,                       # ik
+        offs[1] + j * N + k,                       # jk
+        offs[2] + k * D + (i - j + N - 1),         # k_dm
+        offs[3] + k * D + (i + j),                 # k_dp
+        offs[4] + j * D + (i - k + N - 1),         # j_dm
+        offs[5] + j * D + (i + k),                 # j_dp
+        offs[6] + i * D + (j - k + N - 1),         # i_dm
+        offs[7] + i * D + (j + k),                 # i_dp
+        offs[8] + (j - i + N - 1) * D + (k - i + N - 1),   # s_mm
+        offs[9] + (j - i + N - 1) * D + (k + i),           # s_mp
+        offs[10] + (j + i) * D + (k - i + N - 1),          # s_pm
+        offs[11] + (j + i) * D + (k + i),                  # s_pp
+    ]
+    if full3d:
+        idx.append(offs[12] + i * N + j)           # ij
+    idx = torch.broadcast_tensors(*idx)
+    return torch.stack(idx, dim=-1)
+
+
+def build_board_table(heights: torch.Tensor) -> torch.Tensor:
+    """Count tables ``(..., table_size)`` int32 of board states ``(..., N, N)``."""
+    N = heights.shape[-1]
+    batch = heights.shape[:-2]
+    ii = torch.arange(N, dtype=torch.int64, device=heights.device)
+    i_g, j_g = (g.reshape(-1) for g in torch.meshgrid(ii, ii, indexing="ij"))
+    k = heights.reshape(batch + (N * N,)).to(torch.int64)
+    idx = line_indices(i_g, j_g, k, N).reshape(batch + (-1,))
+    table = torch.zeros(batch + (table_size(N),), dtype=torch.int32,
+                        device=heights.device)
+    return table.scatter_add_(-1, idx, torch.ones_like(idx, dtype=torch.int32))
+
+
+def table_energy(table: torch.Tensor) -> torch.Tensor:
+    """E = sum over lines of C(count, 2), over the last axis, as int32."""
+    t = table.to(torch.int32)
+    return (t * (t - 1) // 2).sum(dim=-1, dtype=torch.int32)
+
+
+def batch_energies(states: torch.Tensor, energy_fn,
+                   chunk: int = 8192) -> torch.Tensor:
+    """``energy_fn`` over axis 0 in slices of at most ``chunk`` states.
+
+    ``energy_fn`` maps a batch of states to their energies.  The slices
+    bound the (chunk, table_size) scratch: a whole 32768-board batch at
+    N=16 would hold ~1 GB of int32 tables at once.
+    """
+    return torch.cat([energy_fn(states[s:s + chunk])
+                      for s in range(0, states.shape[0], chunk)])

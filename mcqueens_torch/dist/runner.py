@@ -1,0 +1,252 @@
+"""Multi-run orchestration on one device, port of :mod:`mcqueens.dist.runner`.
+
+All runs are one batch of chains on ``device``.  Long runs execute as
+equal-length segments (:func:`plan_segments`, unchanged from the JAX package
+so segment boundaries and histories match) while the host reads each
+segment's energy history.  Only the board-mode ``pallas_shared`` sampler
+(:mod:`mcqueens_torch.kernels.board_shared`) is ported; every other
+combination raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mcqueens_torch.chain.spec import ChainSpec
+from mcqueens_torch.kernels import board_shared
+
+_MAX_SEGMENT_ELEMS = 64 * 1024 * 1024
+_MAX_SEGMENT_PROPOSALS = 2 ** 31
+
+
+def plan_segments(n_outer: int, n_padded: int, history_stride: int,
+                  min_segments: int = 1) -> tuple[int, int]:
+    """Split ``n_outer`` history chunks into host-visible segments;
+    returns ``(n_segs, seg_outer)`` with ``n_segs * seg_outer >= n_outer``.
+
+    The caps (64M history points, 2^31 proposals per segment) are the JAX
+    package's; keeping them keeps the segment boundaries identical.
+    """
+    elems_cap = max(1, _MAX_SEGMENT_ELEMS // max(1, n_padded))
+    work_cap = max(
+        1, _MAX_SEGMENT_PROPOSALS // max(1, n_padded * history_stride))
+    max_outer_per_seg = min(elems_cap, work_cap)
+    n_segs = max(min_segments, -(-n_outer // max_outer_per_seg), 1)
+    n_segs = min(n_segs, n_outer) or 1
+    seg_outer = -(-n_outer // n_segs)
+    return n_segs, seg_outer
+
+
+@dataclasses.dataclass
+class ChainResult:
+    """Batched results for R chains (axis 0 = run/chain index), as host
+    numpy arrays; ``device`` names where the chains ran."""
+
+    spec: ChainSpec
+    energy_history: np.ndarray   # (R, P) int32
+    history_steps: np.ndarray    # (P,) int64 step index of each history point
+    history_len: np.ndarray      # (R,) reference-equivalent history length
+    final_energy: np.ndarray     # (R,)
+    final_state: np.ndarray      # (R, N, N) heights
+    best_energy: np.ndarray      # (R,)
+    best_state: np.ndarray       # (R, N, N)
+    steps_to_best: np.ndarray    # (R,) best_step of each chain
+    stop_step: np.ndarray        # (R,) early-stop step (n_steps if none)
+    accept_bins: np.ndarray      # (R, n_bins)
+    total_bins: np.ndarray       # (R, n_bins)
+    wall_time: float             # whole-batch wall clock (seconds)
+    run_times: np.ndarray        # (R,) wall_time for every run of the batch
+    device: str
+
+    @property
+    def n_runs(self) -> int:
+        return self.energy_history.shape[0]
+
+    @property
+    def proposals(self) -> int:
+        """Total proposed moves across the batch (for throughput reporting)."""
+        return int(self.total_bins.sum())
+
+    @property
+    def moves_per_sec(self) -> float:
+        return self.proposals / max(self.wall_time, 1e-9)
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but "
+                           "torch.cuda.is_available() is False")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def _modules(spec: ChainSpec):
+    if spec.kernel == "pallas_shared" and spec.mcmc_type == "board":
+        return board_shared
+    raise NotImplementedError(
+        f"kernel={spec.kernel!r} mcmc_type={spec.mcmc_type!r} is not "
+        "ported yet (ROADMAP.md queue 1: full_3d is item 4, the per-chain "
+        "kernels item 5, the scan paths item 6)")
+
+
+def validate_initial_states(initial_states, spec: ChainSpec, n_runs: int):
+    """Explicit board warm starts: shape (n_runs, N, N), heights in [0, N)."""
+    arr = np.asarray(initial_states)
+    want = (n_runs, spec.N, spec.N)
+    if arr.shape != want:
+        raise ValueError(f"initial_states must have shape {want}, got {arr.shape}")
+    if ((arr < 0) | (arr >= spec.N)).any():
+        raise ValueError(f"All heights must be in [0, {spec.N - 1}]")
+    return arr.astype(np.int32)
+
+
+def run_chains(
+    seeds,
+    spec: ChainSpec,
+    *,
+    device,
+    mesh=None,
+    verbose: bool = False,
+    min_segments: int = 1,
+    checkpointer=None,
+    profile_dir: Optional[str] = None,
+    initial_states=None,
+) -> ChainResult:
+    """Run one chain per seed as one batch on ``device`` ("cpu" or "cuda").
+
+    ``mesh``, ``checkpointer`` and ``profile_dir`` are not ported yet
+    (ROADMAP.md queue 1 items 3 and 7) and raise if set.
+    """
+    dev = _device(device)
+    if mesh is not None:
+        raise NotImplementedError("multi-device chain sharding is not "
+                                  "ported yet (ROADMAP.md queue 1 item 7)")
+    if checkpointer is not None:
+        raise NotImplementedError("checkpointing is not ported yet "
+                                  "(ROADMAP.md queue 1 item 3)")
+    if profile_dir is not None:
+        raise NotImplementedError("profiler traces are not ported yet "
+                                  "(ROADMAP.md queue 1 item 7)")
+    mod = _modules(spec)
+    seeds = np.asarray(seeds, dtype=np.uint32)
+    n_runs = seeds.shape[0]
+    if initial_states is not None:
+        initial_states = validate_initial_states(initial_states, spec, n_runs)
+
+    n_outer = spec.n_outer
+    if verbose:
+        min_segments = max(min_segments, 10)
+    n_segs, seg_outer = plan_segments(
+        n_outer, n_runs, spec.history_stride, min_segments)
+
+    t0 = time.time()
+    carry = mod.init_carry_batch(seeds, spec, initial_states=initial_states,
+                                 device=dev)
+    e0 = carry.energy.reshape(-1).cpu().numpy()
+    history_chunks = []
+    for seg in range(n_segs):
+        carry, ys = mod.run_segment(carry, seg * seg_outer, spec, seg_outer)
+        history_chunks.append(ys.cpu().numpy())  # (seg_outer, C)
+        if verbose:
+            done_steps = min((seg + 1) * seg_outer * spec.history_stride,
+                             spec.n_steps)
+            e = carry.energy[:n_runs].cpu().numpy()
+            print(f"[mcqueens] step {done_steps}/{spec.n_steps}: "
+                  f"mean E={e.mean():.2f} min E={e.min()}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.time() - t0
+    host = {name: getattr(carry, name).cpu().numpy() for name in (
+        "energy", "best_energy", "best_step", "stop_step", "heights",
+        "best_heights", "accept_bins", "total_bins")}
+    if verbose:
+        total_props = int(host["total_bins"].sum())
+        print(f"[mcqueens] {total_props:.3e} proposals in {wall:.2f}s "
+              f"= {total_props / max(wall, 1e-9):.3e} moves/s")
+
+    hist = np.concatenate(history_chunks, axis=0)[:n_outer]  # (n_outer, C)
+    energy_history = np.concatenate([e0[None, :], hist], axis=0).T  # (C, P)
+    history_steps = np.minimum(
+        np.arange(n_outer + 1, dtype=np.int64) * spec.history_stride,
+        spec.n_steps)
+    stop_step = host["stop_step"].reshape(-1)
+    # A run stopping at step s recorded ceil(s / stride) points plus the
+    # initial one (the reference breaks before appending).
+    stopped = stop_step < spec.n_steps
+    pts = -(-stop_step // spec.history_stride)
+    history_len = (np.where(stopped, pts, n_outer) + 1).astype(np.int64)
+
+    N = spec.N
+    s = slice(0, n_runs)
+    return ChainResult(
+        spec=spec,
+        energy_history=energy_history[s],
+        history_steps=history_steps,
+        history_len=history_len[s],
+        final_energy=host["energy"].reshape(-1)[s],
+        final_state=host["heights"].astype(np.int64).reshape(-1, N, N)[s],
+        best_energy=host["best_energy"].reshape(-1)[s],
+        best_state=host["best_heights"].astype(np.int64).reshape(
+            -1, N, N)[s],
+        steps_to_best=host["best_step"].reshape(-1)[s],
+        stop_step=stop_step[s],
+        accept_bins=host["accept_bins"][s],
+        total_bins=host["total_bins"][s],
+        wall_time=wall,
+        run_times=np.full((n_runs,), wall),
+        device=str(dev),
+    )
+
+
+def run_experiment(
+    N: int,
+    n_steps: int,
+    init_mode: str,
+    schedule,
+    n_runs: int,
+    base_seed: int = 0,
+    *,
+    device,
+    mcmc_type: str = "board",
+    early_stop_patience=100000,
+    verbose: bool = False,
+    mesh=None,
+    history_stride: int = 1,
+    kernel: str = "tables",
+    n_bins: int = 100,
+    checkpointer=None,
+    Q: Optional[int] = None,
+) -> ChainResult:
+    """Experiment entry point: ``n_runs`` chains with seeds
+    ``base_seed + r``, as :func:`mcqueens.dist.runner.run_experiment`."""
+    if early_stop_patience in (None, "None", "null"):
+        early_stop_patience = None
+    spec = ChainSpec(
+        N=N,
+        n_steps=n_steps,
+        schedule=schedule,
+        init_mode=init_mode,
+        mcmc_type=mcmc_type,
+        early_stop_patience=(None if mcmc_type == "full_3d"
+                             else early_stop_patience),
+        history_stride=history_stride,
+        kernel=kernel,
+        n_bins=n_bins,
+        Q=Q,
+    )
+    seeds = base_seed + np.arange(n_runs, dtype=np.int64)
+    return run_chains(
+        np.asarray(seeds, dtype=np.uint32),
+        spec,
+        device=device,
+        mesh=mesh,
+        verbose=verbose,
+        checkpointer=checkpointer,
+    )

@@ -1,0 +1,330 @@
+"""Shared-site board Metropolis, port of :mod:`mcqueens.kernels.board_shared`.
+
+Every chain in a block of ``block_size`` chains proposes the same site
+``(i, j)`` each step, drawn from a block-keyed hash; each chain draws its own
+new height ``(old + 1 + kr) % N`` and its own accept word from its seed's
+counter stream (:mod:`mcqueens_torch.kernels.prng`).  A move at ``(i, j)``
+changes conflicts only on row i, column j and the two diagonals through
+``(i, j)``, so
+
+    dE = sum over those cells (h', at line offset delta != 0) of
+         [h' == new] + [(h' - new)^2 == delta^2]
+       - [h' == old] - [(h' - old)^2 == delta^2]
+
+(equal to the JAX kernel's four-block sum plus 8).  Accept when
+``u < exp(-beta(step) * dE)``.  Patience early-stop, exact best boards
+(``best_step = step + 1``) and per-bin accept/total counts follow the JAX
+kernel step for step, so the same seeds and block partition give the same
+trajectories bit for bit.
+
+One chunk of ``n_inner`` steps has two implementations over the same
+chains-minor state (:class:`SegmentState`), both updating it in place:
+
+  * :func:`segment_cuda` launches the hand-written CUDA kernel
+    (``csrc/board_shared.cu``) and counts the launch in
+    :data:`KERNEL_LAUNCHES`;
+  * :func:`segment_reference` is its plain-torch twin (vectorised over
+    chains, a Python loop over steps).
+
+:func:`segment_call` takes the twin only for CPU tensors and the kernel only
+for CUDA tensors; there is no fallback between them.  The per-step betas are
+evaluated once per chunk by :func:`chunk_betas` and handed to either one, so
+the kernel and the twin share one beta by construction.
+
+Only the main-path mode is ported: ``track_best=True`` with no per-chain
+beta row and no freeze row (``run_segment_tempered`` and
+``recover_best_heights`` are not ported yet).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from mcqueens_torch.chain.spec import ChainSpec
+from mcqueens_torch.core import fastinit
+from mcqueens_torch.core import tables as tables_mod
+from mcqueens_torch.kernels import prng, sizing
+from mcqueens_torch.kernels.carry import BoardCarry
+
+DEFAULT_BLOCK = 2048
+_SITE_MUL = prng._i32(0x2545F491)
+_SITE_SALT = prng._i32(0x9E3779B9)
+
+# Launches of the CUDA kernel in this process (read and reset by callers
+# that check the main path really ran on the card).
+KERNEL_LAUNCHES = 0
+
+
+def _sn(N: int) -> int:
+    return -(-N // 8) * 8
+
+
+def block_size(n_chains: int, spec=None) -> int:
+    """Chains per block: the JAX package's partition, which fixes which
+    chains share a site stream (5 (SN*N, block) layouts in its VMEM
+    estimate)."""
+    cap = DEFAULT_BLOCK
+    if spec is not None:
+        cap = sizing.block_cap(5 * _sn(spec.N) * spec.N, DEFAULT_BLOCK)
+    return sizing.block_size(n_chains, cap)
+
+
+def padded_chains(n_chains: int, spec=None) -> int:
+    blk = block_size(n_chains, spec)
+    return -(-n_chains // blk) * blk
+
+
+def init_carry_batch(seeds, spec: ChainSpec, block: int | None = None,
+                     initial_states=None, *, device) -> BoardCarry:
+    """Carry on ``device`` from per-chain integer seeds, padded to whole
+    blocks.
+
+    Padding chains get seeds ``seeds[-1] + 1 + arange`` (uint32) and, with
+    ``initial_states``, repeat the last warm start.  Block ``b`` seeds its
+    site stream with ``int32(seeds[0]) + 7919 * b``.
+    """
+    seeds = np.asarray(seeds).astype(np.uint32)
+    C0 = seeds.shape[0]
+    if block is None:
+        block = block_size(C0, spec)
+    C = -(-C0 // block) * block
+    if C > C0:
+        seeds = np.concatenate(
+            [seeds, seeds[-1] + np.arange(1, C - C0 + 1, dtype=np.uint32)])
+    n_blocks = C // block
+    seeds_t = torch.from_numpy(seeds.view(np.int32).copy()).to(device)
+    N = spec.N
+    if initial_states is not None:
+        h2d = torch.as_tensor(np.asarray(initial_states, np.int32),
+                              device=device)
+        if C > h2d.shape[0]:
+            h2d = torch.cat([h2d, h2d[-1:].expand(C - h2d.shape[0], N, N)])
+    else:
+        h2d = fastinit.board_init_batch(seeds_t, N, spec.init_mode)
+    heights = h2d.reshape(C, N * N).to(torch.int32).contiguous()
+    e0 = tables_mod.batch_energies(
+        h2d, lambda h: tables_mod.table_energy(
+            tables_mod.build_board_table(h)))[:, None].to(torch.int32)
+    block_seeds = (int(seeds_t[0]) + 7919 * torch.arange(
+        n_blocks, dtype=torch.int32, device=device))[:, None]
+    zeros = torch.zeros((C, 1), dtype=torch.int32, device=device)
+    return BoardCarry(
+        block_seeds=block_seeds,
+        chain_seeds=seeds_t[:, None].clone(),
+        heights=heights,
+        best_heights=heights.clone(),
+        energy=e0,
+        best_energy=e0.clone(),
+        best_step=zeros,
+        no_improve=zeros.clone(),
+        stop_step=zeros + spec.n_steps,
+        accept_bins=torch.zeros((C, spec.n_bins), dtype=torch.int32,
+                                device=device),
+        total_bins=torch.zeros((C, spec.n_bins), dtype=torch.int32,
+                               device=device),
+    )
+
+
+@dataclasses.dataclass
+class SegmentState:
+    """One segment's working state, chains minor (contiguous int32).
+
+    A warp of CUDA threads (one chain each) then reads one cell index of 32
+    neighbouring chains per load.  The chunk implementations update these
+    tensors in place.
+    """
+
+    heights: torch.Tensor       # (N*N, C)
+    best_heights: torch.Tensor  # (N*N, C)
+    energy: torch.Tensor        # (C,)
+    best_energy: torch.Tensor   # (C,)
+    best_step: torch.Tensor     # (C,)
+    no_improve: torch.Tensor    # (C,)
+    stop_step: torch.Tensor     # (C,)
+    accept_bins: torch.Tensor   # (n_bins, C)
+    total_bins: torch.Tensor    # (n_bins, C)
+    chain_seeds: torch.Tensor   # (C,)
+    block_seeds: torch.Tensor   # (n_blocks,)
+
+
+_ROWS = ("energy", "best_energy", "best_step", "no_improve", "stop_step",
+         "chain_seeds")
+_PLANES = ("heights", "best_heights", "accept_bins", "total_bins")
+
+
+def segment_state(carry: BoardCarry) -> SegmentState:
+    """Transpose a carry into a fresh chains-minor :class:`SegmentState`."""
+    kw = {name: getattr(carry, name).t().contiguous() for name in _PLANES}
+    kw.update({name: getattr(carry, name).reshape(-1).clone()
+               for name in _ROWS})
+    kw["block_seeds"] = carry.block_seeds.reshape(-1).clone()
+    return SegmentState(**kw)
+
+
+def carry_of(st: SegmentState) -> BoardCarry:
+    """Inverse of :func:`segment_state`."""
+    kw = {name: getattr(st, name).t().contiguous() for name in _PLANES}
+    kw.update({name: getattr(st, name)[:, None].clone() for name in _ROWS})
+    kw["block_seeds"] = st.block_seeds[:, None].clone()
+    return BoardCarry(**kw)
+
+
+def chunk_betas(spec: ChainSpec, step0: int, n_inner: int,
+                device) -> torch.Tensor:
+    """(n_inner,) float32 betas of steps ``step0 ..``: int32 step ->
+    float32 -> schedule, as the JAX kernel evaluates them per step."""
+    steps = torch.arange(step0, step0 + n_inner, dtype=torch.int32,
+                         device=device)
+    return spec.schedule(steps).to(torch.float32).contiguous()
+
+
+def segment_reference(st: SegmentState, step0: int, n_inner: int,
+                      spec: ChainSpec, beta: torch.Tensor) -> None:
+    """Plain-torch twin of the CUDA kernel: advance every chain by
+    ``n_inner`` steps from global step ``step0``, in place."""
+    N, NN = spec.N, spec.N * spec.N
+    nb, n_steps = spec.n_bins, spec.n_steps
+    patience = spec.early_stop_patience
+    C = st.energy.shape[0]
+    c_blk = C // st.block_seeds.shape[0]
+    site_base = (st.block_seeds * _SITE_MUL + _SITE_SALT).repeat_interleave(
+        c_blk)
+    g = prng.chain_streams(st.chain_seeds)
+    x = torch.arange(N, dtype=torch.int32, device=st.energy.device)[:, None]
+    h, bh = st.heights, st.best_heights
+    e, be, bs = st.energy.clone(), st.best_energy.clone(), st.best_step.clone()
+    ni, stp = st.no_improve.clone(), st.stop_step.clone()
+    # Steps at or past n_steps are inactive for every chain: nothing changes.
+    for t in range(max(0, min(n_inner, n_steps - step0))):
+        gstep = step0 + t
+        active = stp >= n_steps
+        cell = (prng.lowbias32(site_base ^ gstep) & 0x7FFFFFFF) % NN
+        i, j = cell // N, cell % N
+        w0, w1 = prng.step_words(g, gstep)
+        kr = w0 % (N - 1)
+        u = prng.uniform01(w1)
+        old = h.gather(0, cell[None].long())[0]
+        new = (old + 1 + kr) % N
+        # The four lines through (i, j), as (N, C) cell indices: row i at
+        # column offset x - j; column j, diagonal and antidiagonal at row
+        # offset d = x - i.
+        d, dj = x - i, x - j
+        jd, ja = j + d, j - d
+        idx = torch.cat([i * N + x, x * N + j, x * N + jd.clamp(0, N - 1),
+                         x * N + ja.clamp(0, N - 1)])
+        valid = torch.cat([dj != 0, d != 0,
+                           (d != 0) & (jd >= 0) & (jd < N),
+                           (d != 0) & (ja >= 0) & (ja < N)])
+        d2 = torch.cat([dj * dj, d * d, d * d, d * d])
+        hp = h.gather(0, idx.long())
+        dn, do = hp - new, hp - old
+        net = ((dn == 0).int() - (do == 0).int()
+               + (dn * dn == d2).int() - (do * do == d2).int())
+        de = torch.where(valid, net, 0).sum(0, dtype=torch.int32)
+        accept = u < torch.exp(-beta[t] * de.to(torch.float32))
+        upd = accept & active
+        h.scatter_(0, cell[None].long(), torch.where(upd, new, old)[None])
+        e = e + torch.where(upd, de, 0)
+        improved = upd & (e < be)
+        bh.copy_(torch.where(improved[None], h, bh))
+        be = torch.where(improved, e, be)
+        bs = torch.where(improved, gstep + 1, bs)
+        ni = torch.where(active, torch.where(improved, 0, ni + 1), ni)
+        if patience is not None:
+            stp = torch.where(active & (ni >= patience), gstep, stp)
+        b = min(gstep * nb // n_steps, nb - 1)
+        st.accept_bins[b] += upd.int()
+        st.total_bins[b] += active.int()
+    for name, val in (("energy", e), ("best_energy", be), ("best_step", bs),
+                      ("no_improve", ni), ("stop_step", stp)):
+        getattr(st, name).copy_(val)
+
+
+def _check_cuda_state(st: SegmentState, spec: ChainSpec, n_inner: int,
+                      beta: torch.Tensor) -> None:
+    NN, C = spec.N * spec.N, st.energy.shape[0]
+    n_blocks = st.block_seeds.shape[0]
+    want = {
+        "heights": (NN, C), "best_heights": (NN, C),
+        "accept_bins": (spec.n_bins, C), "total_bins": (spec.n_bins, C),
+        "block_seeds": (n_blocks,),
+        **{name: (C,) for name in _ROWS},
+    }
+    dev = st.heights.device
+    for name, shape in want.items():
+        t = getattr(st, name)
+        if t.device != dev or t.dtype != torch.int32:
+            raise ValueError(f"{name}: want int32 on {dev}, got {t.dtype} "
+                             f"on {t.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: want contiguous {shape}, got "
+                             f"{tuple(t.shape)}")
+    if beta.device != dev or beta.dtype != torch.float32 or (
+            tuple(beta.shape) != (n_inner,)) or not beta.is_contiguous():
+        raise ValueError(f"beta: want contiguous float32 ({n_inner},) on "
+                         f"{dev}")
+    if C == 0 or n_blocks == 0 or C % n_blocks:
+        raise ValueError(f"{C} chains do not split into {n_blocks} blocks")
+
+
+def segment_cuda(st: SegmentState, step0: int, n_inner: int,
+                 spec: ChainSpec, beta: torch.Tensor) -> None:
+    """Advance every chain by ``n_inner`` steps with the CUDA kernel
+    (asynchronous on the current stream; counts the launch)."""
+    global KERNEL_LAUNCHES
+    from mcqueens_torch.kernels import _build
+
+    _check_cuda_state(st, spec, n_inner, beta)
+    if not 0 <= step0 <= 2 ** 31 - 1 - n_inner:
+        raise ValueError(f"step0={step0} + n_inner={n_inner} overflows int32")
+    lib = _build.load_library()
+    dev = st.heights.device
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (
+        st.heights, st.best_heights, st.energy, st.best_energy,
+        st.best_step, st.no_improve, st.stop_step, st.accept_bins,
+        st.total_bins, st.chain_seeds, st.block_seeds, beta)]
+    C = st.energy.shape[0]
+    patience = spec.early_stop_patience
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mcq_board_shared_segment(
+            *ptrs, step0, n_inner, spec.N, C,
+            C // st.block_seeds.shape[0], spec.n_steps, spec.n_bins,
+            -1 if patience is None else patience, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"board_shared CUDA kernel launch failed "
+                           f"(cudaError {err})")
+    KERNEL_LAUNCHES += 1
+
+
+def segment_call(st: SegmentState, step0: int, n_inner: int,
+                 spec: ChainSpec) -> None:
+    """One chunk of ``n_inner`` steps: the twin for CPU state, the CUDA
+    kernel for CUDA state, and an error for anything else."""
+    dev = st.heights.device
+    beta = chunk_betas(spec, step0, n_inner, dev)
+    if dev.type == "cpu":
+        segment_reference(st, step0, n_inner, spec, beta)
+    elif dev.type == "cuda":
+        segment_cuda(st, step0, n_inner, spec, beta)
+    else:
+        raise ValueError(f"board_shared runs on cpu or cuda, not {dev}")
+
+
+def run_segment(carry: BoardCarry, start_outer: int, spec: ChainSpec,
+                n_outer: int):
+    """``n_outer`` chunks of ``history_stride`` steps from chunk
+    ``start_outer``; returns ``(carry, ys)`` with ``ys`` the ``(n_outer, C)``
+    int32 energies after each chunk (one kernel launch per chunk)."""
+    stride = spec.history_stride
+    st = segment_state(carry)
+    ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
+                     device=st.energy.device)
+    for o in range(n_outer):
+        segment_call(st, (int(start_outer) + o) * stride, stride, spec)
+        ys[o].copy_(st.energy)
+    return carry_of(st), ys

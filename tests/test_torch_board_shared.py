@@ -1,0 +1,268 @@
+"""Parity of the port's shared-site board path with the JAX package (CPU).
+
+The JAX side runs its Pallas kernel in interpret mode, as
+``tests/test_shared_kernel.py`` does; the port runs the kernel's plain-torch
+twin (``segment_reference``), which ``chip_smoke.py`` holds against the CUDA
+kernel on the card.  Tolerance: none.  Every array is compared bitwise; the
+one allowed exception, an accept test landing within one float32 ulp of
+``exp(-beta * dE)``, has not occurred in these runs (it would show as a
+mismatch here and be logged in ROADMAP.md queue 3).
+"""
+
+import contextlib
+import glob
+import io
+import os
+
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from mcqueens.chain.spec import ChainSpec as JaxSpec
+from mcqueens.cli import competition as jax_competition
+from mcqueens.core import schedules as jschedules
+from mcqueens.dist import runner as jrunner
+from mcqueens.kernels import board_shared as jbs
+from mcqueens_torch.chain.spec import ChainSpec
+from mcqueens_torch.cli import competition
+from mcqueens_torch.core import schedules
+from mcqueens_torch.dist import runner
+from mcqueens_torch.kernels import board_shared
+from mcqueens_torch.kernels.carry import carry_from_numpy, carry_to_numpy
+from tests import _oracle
+
+RESULT_FIELDS = ("energy_history", "history_steps", "history_len",
+                 "final_energy", "final_state", "best_energy", "best_state",
+                 "steps_to_best", "stop_step", "accept_bins", "total_bins")
+
+# name -> (ChainSpec kwargs, schedule kwargs)
+CASES = {
+    "n5": (dict(N=5, n_steps=400),
+           dict(sched_type="linear_annealing", beta_start=0.5, beta_end=3.0)),
+    # 330 steps: the last 50-step chunk runs 20 steps past n_steps, which
+    # must change nothing (bins included).
+    "n16": (dict(N=16, n_steps=330),
+            dict(sched_type="linear_annealing", beta_start=0.5,
+                 beta_end=3.0)),
+    "early_stop": (dict(N=5, n_steps=300, early_stop_patience=40),
+                   dict(sched_type="constant", beta_const=50.0)),
+}
+SEEDS = 3 + np.arange(8, dtype=np.uint32)
+
+
+def _specs(case, **over):
+    case_kw, sched = CASES[case]
+    kw = dict(init_mode="random", mcmc_type="board", kernel="pallas_shared",
+              history_stride=50)
+    kw.update(case_kw)
+    kw.update(over)
+    return (
+        JaxSpec(schedule=jschedules.build_schedule(n_steps=kw["n_steps"],
+                                                   **sched), **kw),
+        ChainSpec(schedule=schedules.build_schedule(n_steps=kw["n_steps"],
+                                                    **sched), **kw),
+    )
+
+
+def _jax_run(spec, **kw):
+    with pltpu.force_tpu_interpret_mode():
+        return jrunner.run_chains(SEEDS, spec, **kw)
+
+
+def _assert_same_results(want, got):
+    for name in RESULT_FIELDS:
+        np.testing.assert_array_equal(getattr(got, name),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+
+
+def _assert_same_carry(want, got):
+    want = {k: np.asarray(v) for k, v in want._asdict().items()}
+    got = carry_to_numpy(got)
+    assert set(want) == set(got)
+    for name in want:
+        assert got[name].dtype == np.int32, name
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def jax_n5():
+    """The JAX N=5 run, shared by the tests that extend or resume it."""
+    return _jax_run(_specs("n5")[0])
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_run_chains_parity(case, jax_n5):
+    jspec, spec = _specs(case)
+    want = jax_n5 if case == "n5" else _jax_run(jspec)
+    got = runner.run_chains(SEEDS, spec, device="cpu")
+    _assert_same_results(want, got)
+    assert got.device == "cpu"
+    if case == "early_stop":
+        assert (got.stop_step < spec.n_steps).any()
+    for r in range(got.n_runs):
+        assert got.best_energy[r] == _oracle.board_energy(got.best_state[r])
+    assert (got.total_bins.sum(axis=1) <= spec.n_steps).all()
+
+
+def test_run_chains_warm_start_parity():
+    jspec, spec = _specs("n5")
+    starts = np.random.default_rng(2).integers(0, 5, size=(8, 5, 5))
+    want = _jax_run(jspec, initial_states=starts)
+    got = runner.run_chains(SEEDS, spec, device="cpu", initial_states=starts)
+    _assert_same_results(want, got)
+    for r in range(8):
+        assert got.energy_history[r, 0] == _oracle.board_energy(starts[r])
+
+
+def test_multi_block_segment_and_carry_resume_parity():
+    """Three 128-chain blocks (block seeds, per-block site streams), and a
+    carry crossing over: 200 JAX steps, then 200 port steps == 400 JAX
+    steps."""
+    jspec, spec = _specs("n5", history_stride=200)
+    seeds = np.arange(384, dtype=np.uint32) * 7
+    with pltpu.force_tpu_interpret_mode():
+        jcarry = jbs.init_carry_batch(seeds, jspec, block=128)
+        jmid, jys1 = jbs.run_segment(jcarry, np.int32(0), jspec, 1)
+        jend, jys2 = jbs.run_segment(jmid, np.int32(1), jspec, 1)
+    jys = np.concatenate([np.asarray(jys1), np.asarray(jys2)])
+    carry = board_shared.init_carry_batch(seeds, spec, block=128,
+                                          device="cpu")
+    assert carry.block_seeds.shape == (3, 1)
+    _assert_same_carry(jcarry, carry)
+    end, ys = board_shared.run_segment(carry, 0, spec, 2)
+    _assert_same_carry(jend, end)
+    np.testing.assert_array_equal(ys.numpy(), jys)
+
+    mid = carry_from_numpy({k: np.asarray(v)
+                            for k, v in jmid._asdict().items()}, "cpu")
+    resumed, ys2 = board_shared.run_segment(mid, 1, spec, 1)
+    _assert_same_carry(jend, resumed)
+    np.testing.assert_array_equal(ys2.numpy(), np.asarray(jys2))
+    # and back: the numpy round trip is lossless
+    _assert_same_carry(jend, carry_from_numpy(carry_to_numpy(resumed),
+                                              "cpu"))
+    with pytest.raises(ValueError, match="lack fields"):
+        carry_from_numpy({"heights": np.zeros((1, 1), np.int32)}, "cpu")
+
+
+def test_padding_seeds_and_warm_starts_match():
+    """10 runs pad to one 128-chain block: seeds seeds[-1]+1.. (uint32
+    wrap), warm starts repeat the last board."""
+    jspec, spec = _specs("n5")
+    seeds = np.arange(2 ** 32 - 5, 2 ** 32 + 5, dtype=np.uint64).astype(
+        np.uint32)
+    starts = np.random.default_rng(5).integers(0, 5, size=(10, 5, 5))
+    for kw in ({}, {"initial_states": starts}):
+        want = jbs.init_carry_batch(seeds, jspec, **kw)
+        got = board_shared.init_carry_batch(seeds, spec, device="cpu", **kw)
+        _assert_same_carry(want, got)
+
+
+def test_steps_past_n_steps_change_nothing():
+    _, spec = _specs("n16")
+    carry = board_shared.init_carry_batch(SEEDS, spec, device="cpu")
+    carry, _ = board_shared.run_segment(carry, 0, spec, spec.n_outer)
+    after, ys = board_shared.run_segment(carry, spec.n_outer, spec, 2)
+    for name, want in carry_to_numpy(carry).items():
+        np.testing.assert_array_equal(carry_to_numpy(after)[name], want)
+    assert (ys.numpy() == carry.energy.numpy().reshape(-1)).all()
+
+
+def test_klarner_stays_optimal():
+    spec = ChainSpec(N=11, n_steps=60, init_mode="klarner",
+                     schedule=schedules.build_schedule("constant", 60,
+                                                       beta_const=100.0),
+                     kernel="pallas_shared", history_stride=60)
+    res = runner.run_chains(np.arange(2, dtype=np.uint32), spec,
+                            device="cpu")
+    assert (res.energy_history == 0).all() and (res.best_energy == 0).all()
+
+
+def _cli(main, argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv) == 0
+    return buf.getvalue()
+
+
+def _exported(outdir):
+    (path,) = glob.glob(os.path.join(outdir, "competition_results",
+                                     "best_heights_6_*.txt"))
+    with open(path) as f:
+        return f.read()
+
+
+def test_competition_cli_parity(tmp_path):
+    """The whole slice: both CLIs export the same board.  A 50-step
+    history stride keeps the JAX interpret-mode run short."""
+    argv = ["--kernel", "pallas_shared", "--n", "6", "--n-runs", "8",
+            "--n-steps", "400", "--history-stride", "50"]
+    with pltpu.force_tpu_interpret_mode():
+        jout = _cli(jax_competition.main, argv + ["--outdir",
+                                                  str(tmp_path / "jax")])
+    out = _cli(competition.main, argv + ["--device", "cpu", "--outdir",
+                                         str(tmp_path / "torch")])
+    board = _exported(tmp_path / "torch")
+    assert board == _exported(tmp_path / "jax")
+
+    def best_line(text):
+        return next(ln for ln in text.splitlines()
+                    if ln.startswith("Best energies"))
+
+    assert best_line(out) == best_line(jout)
+    best = np.zeros((6, 6), np.int64)
+    for line in board.splitlines():
+        i, j, k = map(int, line.split(","))
+        best[i, j] = k
+    best_e = _oracle.board_energy(best)
+    assert f"Best energies: [{best_e}," in out
+    # warm start from the exported board
+    resume = str(tmp_path / "torch" / "competition_results" / "start.txt")
+    with open(resume, "w") as f:
+        f.write(board)
+    out2 = _cli(competition.main, argv + [
+        "--device", "cpu", "--resume-from", resume, "--outdir",
+        str(tmp_path / "resume")])
+    assert int(best_line(out2).split("[")[1].split(",")[0]) <= best_e
+
+
+@pytest.mark.parametrize("flags", [
+    ["--tempering", "4"], ["--mesh"], ["--checkpoint-dir", "ck"],
+    ["--mcmc-type", "full_3d"], ["--q", "5"], ["--kernel", "tables"],
+    ["--exchange-interval", "3"],
+])
+def test_cli_refuses_unported_flags(flags, capsys):
+    with pytest.raises(SystemExit) as exc:
+        competition.main(["--n", "5", "--device", "cpu"] + flags)
+    assert exc.value.code == 2
+
+
+def test_runner_refuses_unported_paths():
+    _, spec = _specs("n5")
+    for kw in (dict(mesh=object()), dict(checkpointer=object()),
+               dict(profile_dir="trace")):
+        with pytest.raises(NotImplementedError):
+            runner.run_chains(SEEDS, spec, device="cpu", **kw)
+    for other in (dict(kernel="tables"), dict(kernel="pallas"),
+                  dict(mcmc_type="full_3d")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            runner.run_chains(SEEDS, _specs("n5", **other)[1], device="cpu")
+
+
+def test_cuda_request_without_gpu_raises():
+    """No fallback: asking for CUDA where there is none is an error."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; chip_smoke.py covers the CUDA path")
+    _, spec = _specs("n5")
+    with pytest.raises(RuntimeError, match="cuda"):
+        runner.run_chains(SEEDS, spec, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        competition.main(["--n", "5", "--n-runs", "2", "--n-steps", "10"])
+    st = board_shared.segment_state(
+        board_shared.init_carry_batch(SEEDS, spec, device="cpu"))
+    st = board_shared.SegmentState(**{
+        k: v.to("meta") for k, v in vars(st).items()})
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        board_shared.segment_call(st, 0, 50, spec)
