@@ -3,26 +3,37 @@
 
     python3 chip_smoke.py
 
-Phases, each printed on its own line; any failure raises and the script
-exits non-zero without printing a result:
+Phases, each printed on its own lines with its seconds; any failure raises
+and the script exits non-zero without printing a result:
 
 1. device: CUDA must be available (no CPU fallback); prints the card,
    ``nvidia-smi``'s name and power limit, and the torch/CUDA versions.
-2. build: compiles ``mcqueens_torch/kernels/csrc/board_shared.cu`` with nvcc.
-3. kernel vs twin: one chunk through the CUDA kernel and one through its
+2. build: compiles every ``mcqueens_torch/kernels/csrc/*.cu`` (one nvcc per
+   source, in parallel, linked into one library) and prints each kernel's
+   registers and spills.
+3. kernel vs twin: one launch through each CUDA kernel and one through its
    plain-torch twin (``segment_reference``), both on the card from the same
-   ``init_carry_batch`` state and betas; every carry field (the energy is
-   the chunk's history point) must be equal (``torch.equal``, tolerance
-   none), and each side is timed alone.  Shapes: the main path's
-   chunk (N=16, 32768 chains, 48 steps), N=16 at 4096 chains (two blocks)
-   for 2048 steps, N=5 with patience early-stop, N=11 klarner at beta=100
-   (energies stay 0), and a chunk starting past step 2^24 (float32 step
-   rounding in beta).
-4. the slice end to end: ``mcqueens_torch.cli.competition.main`` at N=16,
-   32768 runs, 50000 steps; the exported board is re-scored with the
-   oracle, and the kernel's launch count must equal the chunks run.
-5. throughput: proposed moves/s at ``bench.py``'s configuration (N=16,
-   linear 1->5 over 2^24 steps, 32768-step chunks) at 32768 and 4096 chains.
+   ``init_carry_batch`` state, betas and beta scales; every state field must
+   be equal (``torch.equal``, tolerance none), and each side is timed alone.
+   Board shapes: the main-path chunk (N=16, 32768 chains, 48 steps), N=16
+   at 4096 chains for 2048 steps, N=5 with patience early-stop, N=11
+   klarner at beta=100, a chunk past step 2^24, and the tempered mode (N=16,
+   32768 chains, 48 steps, 16-level ladder).  Full-3D shapes: the floors
+   slice's launch (N=15, Q=225, 65536 chains, 16-level ladder 0.8->7, 44
+   steps: the last mover chunk is 4 steps), the Q_max launch (N=8, Q=48,
+   4096 chains, 4096 steps), N=5/Q=13 with patience at a cold beta, N=3/Q=26
+   (nearly every candidate occupied), and a launch past step 2^24.
+4. the main paths end to end, each with the launch counts zeroed just
+   before it and read just after (each must equal the launches it ran):
+   the board CLI (N=16, 32768 runs, 50000 steps); the board tempered CLI
+   (16 levels); the full-3D floors-campaign search cut to 125000 steps (N=15,
+   65536 runs, 16 levels 0.8->7, stride 62500); the Q_max certificate
+   search of ``tools/qmax.py`` (N=8, Q=48, 4096 chains, 2^18 steps), which
+   must reach energy 0.  Every exported state is re-scored by the oracle.
+5. throughput: proposed moves/s of the board kernel at ``bench.py``'s
+   configuration (N=16, linear 1->5 over 2^24 steps, 32768-step chunks) and
+   of the full-3D kernel at the campaign's (N=15, Q=225, linear 0.8->7 over
+   8M steps, 62500-step chunks), each at two chain counts.
 
 Then one JSON line describing the kernels, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``.
@@ -46,18 +57,35 @@ import torch  # noqa: E402
 
 from mcqueens_torch.chain.spec import ChainSpec  # noqa: E402
 from mcqueens_torch.cli import competition  # noqa: E402
-from mcqueens_torch.core.energy import board_energy  # noqa: E402
+from mcqueens_torch.core.energy import board_energy, full3d_energy  # noqa: E402
 from mcqueens_torch.core.schedules import build_schedule  # noqa: E402
-from mcqueens_torch.dist.runner import plan_segments  # noqa: E402
-from mcqueens_torch.kernels import _build, board_shared  # noqa: E402
-from mcqueens_torch.kernels.carry import FIELDS  # noqa: E402
+from mcqueens_torch.dist import runner  # noqa: E402
+from mcqueens_torch.kernels import _build, board_shared, full3d_shared  # noqa: E402
+from mcqueens_torch.search.tempering import geometric_ladder  # noqa: E402
 
-KERNEL_SOURCE = "mcqueens_torch/kernels/csrc/board_shared.cu"
-KERNEL_REPLACES = "mcqueens/kernels/board_shared.py:176"
+KERNELS = {
+    board_shared: dict(
+        name="board_shared_kernel",
+        source="mcqueens_torch/kernels/csrc/board_shared.cu",
+        replaces="mcqueens/kernels/board_shared.py:176"),
+    full3d_shared: dict(
+        name="full3d_shared_kernel",
+        source="mcqueens_torch/kernels/csrc/full3d_shared.cu",
+        replaces="mcqueens/kernels/full3d_shared.py:135"),
+}
+INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 units (NVIDIA H100 white paper)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+@contextlib.contextmanager
+def timed(name):
+    t0 = time.perf_counter()
+    yield
+    phase(name, f"phase took {time.perf_counter() - t0:.1f} s")
 
 
 def nvidia_smi(query):
@@ -72,6 +100,14 @@ def spec_of(N, n_steps, stride, schedule, **kw):
                      kernel="pallas_shared", history_stride=stride, **kw)
 
 
+def lin(n, b0, b1):
+    return build_schedule("linear_annealing", n, beta_start=b0, beta_end=b1)
+
+
+def const(n, b):
+    return build_schedule("constant", n, beta_const=b)
+
+
 def cuda_ms(fn, reps=1):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -84,40 +120,285 @@ def cuda_ms(fn, reps=1):
     return start.elapsed_time(end) / reps
 
 
-def compare_case(name, spec, n_chains, start_outer=0, seed0=0):
-    """One chunk through the kernel and through the twin, on the card, from
-    one ``init_carry_batch`` state and one beta tensor; returns
-    (max_abs_err, kernel_ms, twin_ms, the kernel's final carry)."""
+class Bounds:
+    """Least time the card could take for a launch's work: the larger of
+    its bytes (each input read once, each output written once) over the HBM
+    rate and its int32 operations over the int32 instruction rate."""
+
+    def __init__(self):
+        props = torch.cuda.get_device_properties(0)
+        mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+        self.int_ops_per_s = props.multi_processor_count * (
+            INT32_LANES_PER_SM * mhz * 1e6)
+        phase("bound", f"{props.multi_processor_count} SMs x "
+              f"{INT32_LANES_PER_SM} int32 lanes x {mhz:.0f} MHz = "
+              f"{self.int_ops_per_s:.4e} int32 ops/s; HBM "
+              f"{HBM_BYTES_PER_S:.3e} B/s")
+
+    def of(self, ops, nbytes):
+        t_ops = ops / self.int_ops_per_s * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return ((t_ops, "operations") if t_ops >= t_bytes
+                else (t_bytes, "bytes"))
+
+
+def board_work(spec, C, active):
+    """(int32 ops, bytes) of one board launch with ``active`` proposals:
+    12 ops per scored line cell (the site's row, column and both diagonals,
+    averaged over the N^2 sites the site hash draws uniformly) plus 32 for
+    the four hashes of a step."""
+    N = spec.N
+    cells = 0
+    for i in range(N):
+        for j in range(N):
+            cells += 2 * (N - 1)
+            for x in range(N):
+                d = x - i
+                cells += (d != 0 and 0 <= j + d < N) + (
+                    d != 0 and 0 <= j - d < N)
+    ops = active * (12 * cells / (N * N) + 32)
+    words = 2 * N * N * C + 2 * spec.n_bins * C + 5 * C
+    return ops, 4 * (2 * words + C + spec.history_stride)
+
+
+def full3d_work(spec, C, active_per_chain):
+    """(int32 ops, bytes) of one full-3D launch: ~22 int32 ops per (queen,
+    target) pair, with the targets of a chain the candidates of its active
+    steps plus the mover's cell once per 8-step chunk (the JAX kernel's
+    count, ``docs/DESIGN.md``)."""
+    a = active_per_chain.to(torch.int64)
+    targets = int((a + (a + 7) // 8).sum())
+    ops = targets * spec.q_eff * 22
+    words = 6 * spec.q_eff * C + 2 * spec.n_bins * C + 5 * C
+    return ops, 4 * (2 * words + 2 * C + spec.history_stride)
+
+
+def compare_case(mod, name, spec, n_chains, start_outer=0, seed0=0,
+                 ladder=None):
+    """One launch through the kernel and through the twin, on the card, from
+    one ``init_carry_batch`` state and one beta tensor; returns a dict with
+    max_abs_err, both times, the kernel's state and the launch's work."""
     seeds = seed0 + np.arange(n_chains, dtype=np.uint32)
-    carry = board_shared.init_carry_batch(seeds, spec, device="cuda")
+    carry = mod.init_carry_batch(seeds, spec, device="cuda")
+    C = int(carry.energy.shape[0])
     step0, n_inner = start_outer * spec.history_stride, spec.history_stride
     beta = board_shared.chunk_betas(spec, step0, n_inner, carry.device)
-    k_st = board_shared.segment_state(carry)
-    t_st = board_shared.segment_state(carry)
-    kernel_ms = cuda_ms(lambda: board_shared.segment_cuda(
-        k_st, step0, n_inner, spec, beta))
-    twin_ms = cuda_ms(lambda: board_shared.segment_reference(
-        t_st, step0, n_inner, spec, beta))
-    # The energy after the chunk is the chunk's history point, so the carry
-    # fields cover the history too.
-    kc, tc = board_shared.carry_of(k_st), board_shared.carry_of(t_st)
+    scale = None
+    if ladder is not None:
+        scale = torch.from_numpy(np.tile(ladder, -(-C // len(ladder)))[:C]
+                                 ).to(carry.device)
+    k_st, t_st = mod.segment_state(carry), mod.segment_state(carry)
+    launches = mod.KERNEL_LAUNCHES
+    kernel_ms = cuda_ms(lambda: mod.segment_cuda(
+        k_st, step0, n_inner, spec, beta, scale))
+    # Comparison launches are not the main path's: take this one back.
+    mod.KERNEL_LAUNCHES = launches
+    twin_ms = cuda_ms(lambda: mod.segment_reference(
+        t_st, step0, n_inner, spec, beta, scale))
+    # The energy after the launch is its history point, so the state fields
+    # cover the history too.
     err = 0
-    for field in FIELDS:
-        a, b = getattr(kc, field), getattr(tc, field)
+    for field in vars(k_st):
+        a, b = getattr(k_st, field), getattr(t_st, field)
         if not torch.equal(a, b):
             err = max(err, int((a.long() - b.long()).abs().max()))
             phase("compare", f"{name}: field {field} differs "
                   f"({int((a != b).sum())} entries)")
     if err:
         raise AssertionError(f"kernel != twin on {name}: max abs err {err}")
-    props = int(kc.total_bins.sum()) - int(carry.total_bins.sum())
-    phase("compare", f"{name}: kernel == twin on all {len(FIELDS)} carry "
-          f"fields; {props} proposals; kernel {kernel_ms:.3f} ms, twin "
-          f"{twin_ms:.1f} ms")
-    return err, kernel_ms, twin_ms, kc
+    active = (k_st.total_bins.sum(0) - carry.total_bins.sum(1)).to(
+        torch.int64)
+    work = (board_work(spec, C, int(active.sum())) if mod is board_shared
+            else full3d_work(spec, C, active))
+    phase("compare", f"{name}: kernel == twin on all {len(vars(k_st))} "
+          f"state fields; {int(active.sum())} proposals; kernel "
+          f"{kernel_ms:.3f} ms, twin {twin_ms:.1f} ms")
+    return dict(err=err, kernel_ms=kernel_ms, twin_ms=twin_ms, st=k_st,
+                spec=spec, work=work, n_chains=n_chains)
+
+
+def run_cli(argv):
+    """``competition.main(argv)`` into a fresh directory; returns (stdout,
+    the exported i,j,k rows)."""
+    with tempfile.TemporaryDirectory() as outdir:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = competition.main(argv + ["--device", "cuda", "--outdir",
+                                          outdir])
+        (path,) = [os.path.join(root, f) for root, _, files in
+                   os.walk(outdir) for f in files]
+        rows = np.loadtxt(path, delimiter=",", dtype=np.int64, ndmin=2)
+    if rc != 0:
+        raise AssertionError(f"competition.main returned {rc}")
+    return buf.getvalue(), rows
+
+
+def reported_best(text):
+    return int(re.search(r"Best energies: \[(-?\d+)", text).group(1))
+
+
+def zero_launches():
+    for mod in KERNELS:
+        mod.KERNEL_LAUNCHES = 0
+
+
+def check_launches(path, want):
+    """The launches of each kernel since :func:`zero_launches` must be the
+    ones the path ran (``want``: module -> count, absent means 0)."""
+    got = {mod: mod.KERNEL_LAUNCHES for mod in KERNELS}
+    for mod, n in got.items():
+        if n != want.get(mod, 0):
+            raise AssertionError(f"{path}: {KERNELS[mod]['name']} launched "
+                                 f"{n} times, expected {want.get(mod, 0)}")
+    return got
+
+
+def board_slice():
+    n_runs, n_steps = 32768, 50000
+    stride = max(1, n_steps // 1024)
+    n_segs, seg_outer = runner.plan_segments(-(-n_steps // stride), n_runs,
+                                             stride, min_segments=10)
+    zero_launches()
+    text, rows = run_cli(["--n", "16", "--n-runs", str(n_runs), "--n-steps",
+                          str(n_steps)])
+    got = check_launches("board slice", {board_shared: n_segs * seg_outer})
+    best = np.zeros((16, 16), np.int64)
+    best[rows[:, 0], rows[:, 1]] = rows[:, 2]
+    reported = reported_best(text)
+    rescored = int(board_energy(torch.from_numpy(best)))
+    if rescored != reported:
+        raise AssertionError(f"exported board scores {rescored}, CLI "
+                             f"reported {reported}")
+    rate = re.search(r"= ([0-9.e+]+) moves/s", text).group(1)
+    phase("slice", f"board competition N=16 runs={n_runs} steps={n_steps} "
+          f"stride={stride}: best energy {reported} (oracle re-score "
+          f"{rescored}); {got[board_shared]} kernel launches; {rate} "
+          f"moves/s reported by the CLI")
+    return got[board_shared]
+
+
+def board_tempered_slice():
+    n_runs, n_steps = 32768, 50000
+    n_outer = -(-n_steps // max(1, n_steps // 1024))
+    zero_launches()
+    text, rows = run_cli(["--n", "16", "--n-runs", str(n_runs), "--n-steps",
+                          str(n_steps), "--tempering", "16"])
+    got = check_launches("board tempered slice", {board_shared: n_outer})
+    best = np.zeros((16, 16), np.int64)
+    best[rows[:, 0], rows[:, 1]] = rows[:, 2]
+    reported = reported_best(text)
+    rescored = int(board_energy(torch.from_numpy(best)))
+    if rescored != reported:
+        raise AssertionError(f"tempered board scores {rescored}, CLI "
+                             f"reported {reported}")
+    rate = re.search(r"= ([0-9.e+]+) moves/s", text).group(1)
+    phase("slice", f"board tempered competition N=16 runs={n_runs} "
+          f"steps={n_steps} ladder 16: best energy {reported} (oracle "
+          f"re-score {rescored}); {got[board_shared]} kernel launches; "
+          f"{rate} moves/s reported by the CLI")
+
+
+def full3d_slice():
+    """The floors campaign's fresh search (tools/full3d_floors_campaign.py),
+    cut only in steps: 8M -> 125000 (two rounds and one exchange sweep)."""
+    N, n_runs, n_steps, stride = 15, 65536, 125000, 62500
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    text, rows = run_cli([
+        "--n", str(N), "--mcmc-type", "full_3d", "--n-runs", str(n_runs),
+        "--kernel", "pallas_shared", "--tempering", "16",
+        "--history-stride", str(stride), "--n-steps", str(n_steps),
+        "--beta-start", "0.8", "--beta-end", "7", "--seed", "31337"])
+    got = check_launches("full3d slice",
+                         {full3d_shared: -(-n_steps // stride)})
+    if rows.shape != (N * N, 3) or len({tuple(r) for r in rows}) != N * N:
+        raise AssertionError(f"export is not {N * N} distinct cells")
+    if rows.min() < 0 or rows.max() >= N:
+        raise AssertionError("export has a coordinate outside [0, N)")
+    reported = reported_best(text)
+    rescored = int(full3d_energy(torch.from_numpy(rows)))
+    if rescored != reported:
+        raise AssertionError(f"exported placement scores {rescored}, CLI "
+                             f"reported {reported}")
+    rate = re.search(r"= ([0-9.e+]+) moves/s", text).group(1)
+    phase("slice", f"full_3d floors search N={N} runs={n_runs} "
+          f"steps={n_steps} stride={stride} ladder 16 (0.8->7): best energy "
+          f"{reported} (oracle re-score {rescored}, {N * N} distinct cells); "
+          f"{got[full3d_shared]} kernel launches; {rate} moves/s reported "
+          f"by the CLI; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    return got[full3d_shared]
+
+
+def qmax_search():
+    """tools/qmax.py's first budget at N=8, Q=48 (the TPU run certified
+    Q_max(8,3) >= 48 with it): energy 0 must be reached."""
+    N, Q, n_steps = 8, 48, 1 << 18
+    spec = spec_of(N, n_steps, max(1, n_steps // 64), lin(n_steps, 0.5, 5.0),
+                   mcmc_type="full_3d", Q=Q)
+    zero_launches()
+    res = runner.run_chains(np.arange(4096, dtype=np.uint32), spec,
+                            device="cuda")
+    got = check_launches("qmax search", {full3d_shared: spec.n_outer})
+    r = int(np.argmin(res.best_energy))
+    best = res.best_state[r]
+    e = int(res.best_energy[r])
+    rescored = int(full3d_energy(torch.from_numpy(best)))
+    if e != 0 or rescored != 0 or len({tuple(q) for q in best.tolist()}) != Q:
+        raise AssertionError(f"Q_max search N={N} Q={Q}: best energy {e}, "
+                             f"oracle {rescored}: no certificate")
+    phase("slice", f"Q_max search N={N} Q={Q} 4096 chains {n_steps} steps: "
+          f"best energy 0 (oracle re-score 0, {Q} distinct cells) on chain "
+          f"{r}; {got[full3d_shared]} kernel launches; "
+          f"{res.moves_per_sec:.4e} moves/s")
+
+
+def throughput(mod, label, spec, chain_counts, bounds):
+    seg_steps = spec.history_stride
+    for chains in chain_counts:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        carry = mod.init_carry_batch(np.arange(chains, dtype=np.uint32),
+                                     spec, device="cuda")
+        torch.cuda.synchronize()
+        phase("throughput", f"{label} chains={chains}: init_carry_batch "
+              f"{time.perf_counter() - t0:.3f} s, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+        carry, _ = mod.run_segment(carry, 0, spec, 1)
+        torch.cuda.synchronize()
+        seg, t0 = 1, time.perf_counter()
+        while True:
+            carry, _ = mod.run_segment(carry, seg, spec, 1)
+            seg += 1
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            if elapsed >= 3.0:
+                break
+        rate = (seg - 1) * seg_steps * chains / elapsed
+        st = mod.segment_state(carry)
+        beta = board_shared.chunk_betas(spec, seg * seg_steps, seg_steps,
+                                        st.energy.device)
+        before = st.total_bins.sum(0)
+        k_ms = cuda_ms(lambda: mod.segment_cuda(
+            st, seg * seg_steps, seg_steps, spec, beta))
+        active = (st.total_bins.sum(0) - before).to(torch.int64)
+        work = (board_work(spec, chains, int(active.sum()))
+                if mod is board_shared else full3d_work(spec, chains, active))
+        bound_ms, bound_by = bounds.of(*work)
+        phase("throughput", f"{label} chains={chains}: {rate:.4e} proposed "
+              f"moves/s over {seg - 1} x {seg_steps}-step run_segment calls "
+              f"({elapsed:.2f} s); kernel alone {k_ms:.1f} ms per "
+              f"{seg_steps}-step chunk = "
+              f"{seg_steps * chains / k_ms * 1e3:.4e} moves/s; bound "
+              f"{bound_ms:.1f} ms ({bound_by}) = {bound_ms / k_ms:.3f} of "
+              f"the kernel's time")
+    phase("throughput", "nvidia-smi clocks.sm,power.draw,temperature.gpu: "
+          + nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
 
 
 def main():
+    t_start = time.perf_counter()
     # 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -128,142 +409,147 @@ def main():
           f"CUDA {torch.version.cuda}; {torch.cuda.device_count()} device(s)")
 
     # 2. build ------------------------------------------------------------
-    existed = _build.library_path().exists()
-    t0 = time.perf_counter()
-    _build.load_library()
-    build_s = time.perf_counter() - t0
-    log = _build.library_path().with_suffix(".log")
-    ptxas = [ln.strip() for ln in (log.read_text().splitlines()
-                                   if log.exists() else [])
-             if "registers" in ln or "spill" in ln]
-    phase("build", f"{'loaded existing' if existed else 'nvcc built'} "
-          f"{_build.library_path().name} in {build_s:.2f} s; "
-          + " | ".join(ptxas))
+    with timed("build"):
+        existed = _build.library_path().exists()
+        t0 = time.perf_counter()
+        _build.load_library()
+        build_s = time.perf_counter() - t0
+        phase("build", f"{'loaded existing' if existed else 'nvcc built'} "
+              f"{_build.library_path().name} from "
+              f"{len(_build.SOURCES)} sources in {build_s:.2f} s")
+        log = _build.library_path().with_suffix(".log")
+        names = [k["name"] for k in KERNELS.values()]
+        kernel = None
+        for ln in (log.read_text().splitlines() if log.exists() else []):
+            if "Compiling entry function" in ln:
+                kernel = next(n for n in names if n in ln)
+            elif kernel and ("registers" in ln or "spill" in ln):
+                phase("build", f"{kernel}: {ln.strip()}")
+        bounds = Bounds()
 
     # 3. kernel vs twin ---------------------------------------------------
-    lin = build_schedule("linear_annealing", 2048, beta_start=1.0,
-                         beta_end=5.0)
-    cases = [
-        ("main-path chunk N=16 C=32768 48 steps",
-         spec_of(16, 50000, 48, build_schedule(
-             "linear_annealing", 50000, beta_start=1.0, beta_end=3.0)),
-         32768, 0, 42),
-        ("N=16 C=4096 2048 steps", spec_of(16, 2048, 2048, lin), 4096, 0, 0),
-        ("N=5 patience 40 beta=50", spec_of(
-            5, 600, 600, build_schedule("constant", 600, beta_const=50.0),
-            early_stop_patience=40), 1024, 0, 3),
-        ("N=11 klarner beta=100", spec_of(
-            11, 256, 256, build_schedule("constant", 256, beta_const=100.0),
-            init_mode="klarner"), 256, 0, 0),
-        ("N=16 C=4096 step0 > 2^24", spec_of(
-            16, 2 ** 25, 1024, build_schedule(
-                "linear_annealing", 2 ** 25, beta_start=1.0, beta_end=5.0),
-            n_bins=50), 4096, 16387, 0),
+    ladder = geometric_ladder(0.8, 7.0, 16)
+    board_cases = [
+        ("board main-path chunk N=16 C=32768 48 steps",
+         spec_of(16, 50000, 48, lin(50000, 1.0, 3.0)), 32768, 0, 42, None),
+        ("board N=16 C=4096 2048 steps", spec_of(16, 2048, 2048,
+                                                 lin(2048, 1.0, 5.0)),
+         4096, 0, 0, None),
+        ("board N=5 patience 40 beta=50", spec_of(
+            5, 600, 600, const(600, 50.0), early_stop_patience=40),
+         1024, 0, 3, None),
+        ("board N=11 klarner beta=100", spec_of(
+            11, 256, 256, const(256, 100.0), init_mode="klarner"),
+         256, 0, 0, None),
+        ("board N=16 C=4096 step0 > 2^24", spec_of(
+            16, 2 ** 25, 1024, lin(2 ** 25, 1.0, 5.0), n_bins=50),
+         4096, 16387, 0, None),
+        ("board tempered N=16 C=32768 48 steps ladder 16",
+         spec_of(16, 50000, 48, const(50000, 1.0)), 32768, 0, 42,
+         geometric_ladder(1.0, 3.0, 16)),
     ]
-    max_err, kernel_ms, twin_ms = 0, None, None
-    for name, spec, n_chains, start_outer, seed0 in cases:
-        err, k_ms, t_ms, kc = compare_case(name, spec, n_chains, start_outer,
-                                           seed0)
-        max_err = max(max_err, err)
-        if name.startswith("N=16 C=4096 2048"):
-            kernel_ms, twin_ms = k_ms, t_ms
-        if "patience" in name:
-            stopped = int((kc.stop_step < spec.n_steps).sum())
-            if stopped == 0:
-                raise AssertionError("no chain early-stopped")
-            phase("compare", f"{name}: {stopped}/{n_chains} chains stopped")
-        if "klarner" in name:
-            if int(kc.energy.abs().max()) or int(kc.best_energy.abs().max()):
-                raise AssertionError("klarner energies left 0")
-    step0 = 16387 * 1024
-    if float(np.float32(step0 + 1)) == step0 + 1:
-        raise AssertionError("the >2^24 case does not exercise rounding")
+    full3d_cases = [
+        ("full3d floors launch N=15 Q=225 C=65536 44 steps ladder 16",
+         spec_of(15, 125000, 44, const(125000, 1.0), mcmc_type="full_3d"),
+         65536, 0, 31337, ladder),
+        ("full3d Q_max launch N=8 Q=48 C=4096 4096 steps",
+         spec_of(8, 1 << 18, 4096, lin(1 << 18, 0.5, 5.0),
+                 mcmc_type="full_3d", Q=48), 4096, 0, 0, None),
+        ("full3d N=5 Q=13 patience 40 beta=50", spec_of(
+            5, 600, 600, const(600, 50.0), mcmc_type="full_3d", Q=13,
+            early_stop_patience=40), 1024, 0, 3, None),
+        ("full3d N=3 Q=26 lazy-dominated", spec_of(
+            3, 512, 512, lin(512, 0.5, 3.0), mcmc_type="full_3d", Q=26),
+         256, 0, 0, None),
+        ("full3d N=8 Q=48 step0 > 2^24", spec_of(
+            8, 2 ** 25, 1028, lin(2 ** 25, 0.5, 5.0), mcmc_type="full_3d",
+            Q=48, n_bins=50), 4096, 16330, 0, None),
+    ]
+    results = {}
+    with timed("compare"):
+        for mod, cases in ((board_shared, board_cases),
+                           (full3d_shared, full3d_cases)):
+            for name, spec, n_chains, start_outer, seed0, lad in cases:
+                res = compare_case(mod, name, spec, n_chains, start_outer,
+                                   seed0, lad)
+                results[name] = dict(res, mod=mod)
+                st = res["st"]
+                if "patience" in name:
+                    stopped = int((st.stop_step < spec.n_steps).sum())
+                    if stopped == 0:
+                        raise AssertionError(f"{name}: no chain stopped")
+                    phase("compare", f"{name}: {stopped}/{n_chains} chains "
+                          f"stopped")
+                if "klarner" in name and (int(st.energy.abs().max())
+                                          or int(st.best_energy.abs().max())):
+                    raise AssertionError("klarner energies left 0")
+                if "2^24" in name:
+                    step0 = start_outer * spec.history_stride
+                    if step0 <= 2 ** 24 or float(np.float32(step0 + 1)) == (
+                            step0 + 1):
+                        raise AssertionError(f"{name} does not exercise "
+                                             "float32 step rounding")
+                if "lazy" in name:
+                    share = float(st.accept_bins.sum() / st.total_bins.sum())
+                    phase("compare", f"{name}: accept share {share:.4f} "
+                          f"(1 of 27 candidates is free)")
 
-    # 4. the slice end to end ---------------------------------------------
-    n_runs, n_steps = 32768, 50000
-    stride = max(1, n_steps // 1024)
-    n_segs, seg_outer = plan_segments(-(-n_steps // stride), n_runs, stride,
-                                      min_segments=10)
-    with tempfile.TemporaryDirectory() as outdir:
-        buf = io.StringIO()
-        board_shared.KERNEL_LAUNCHES = 0
-        with contextlib.redirect_stdout(buf):
-            rc = competition.main([
-                "--kernel", "pallas_shared", "--n", "16", "--n-runs",
-                str(n_runs), "--n-steps", str(n_steps), "--device", "cuda",
-                "--outdir", outdir])
-        launches = board_shared.KERNEL_LAUNCHES
-        text = buf.getvalue()
-        (path,) = [os.path.join(root, f) for root, _, files in
-                   os.walk(outdir) for f in files]
-        best = np.zeros((16, 16), np.int64)
-        with open(path) as f:
-            for line in f:
-                i, j, k = map(int, line.split(","))
-                best[i, j] = k
-    if rc != 0:
-        raise AssertionError(f"competition.main returned {rc}")
-    reported = int(re.search(r"Best energies: \[(-?\d+)", text).group(1))
-    rescored = int(board_energy(torch.from_numpy(best)))
-    rate = re.search(r"= ([0-9.e+]+) moves/s", text).group(1)
-    if rescored != reported:
-        raise AssertionError(f"exported board scores {rescored}, CLI "
-                             f"reported {reported}")
-    if launches != n_segs * seg_outer:
-        raise AssertionError(f"{launches} kernel launches, expected "
-                             f"{n_segs * seg_outer}")
-    phase("slice", f"competition N=16 runs={n_runs} steps={n_steps} "
-          f"stride={stride}: best energy {reported} (oracle re-score "
-          f"{rescored}); {launches} kernel launches; {rate} moves/s "
-          f"reported by the CLI")
+    # 4. the main paths end to end ---------------------------------------
+    with timed("slice board"):
+        board_launches = board_slice()
+    with timed("slice board tempered"):
+        board_tempered_slice()
+    with timed("slice full3d floors"):
+        full3d_launches = full3d_slice()
+    with timed("slice qmax"):
+        qmax_search()
 
-    # 5. throughput at bench.py's configuration ---------------------------
-    horizon, seg_steps = 2 ** 24, 32768
-    bench_spec = spec_of(16, horizon, seg_steps, build_schedule(
-        "linear_annealing", horizon, beta_start=1.0, beta_end=5.0))
-    rates = {}
-    for chains in (32768, 4096):
-        carry = board_shared.init_carry_batch(
-            np.arange(chains, dtype=np.uint32), bench_spec, device="cuda")
-        carry, _ = board_shared.run_segment(carry, 0, bench_spec, 1)
-        torch.cuda.synchronize()
-        seg, t0 = 1, time.perf_counter()
-        while True:
-            carry, _ = board_shared.run_segment(carry, seg, bench_spec, 1)
-            seg += 1
-            torch.cuda.synchronize()
-            elapsed = time.perf_counter() - t0
-            if elapsed >= 3.0:
-                break
-        rates[chains] = (seg - 1) * seg_steps * chains / elapsed
-        st = board_shared.segment_state(carry)
-        beta = board_shared.chunk_betas(bench_spec, seg * seg_steps,
-                                        seg_steps, st.energy.device)
-        k_ms = cuda_ms(lambda: board_shared.segment_cuda(
-            st, seg * seg_steps, seg_steps, bench_spec, beta))
-        phase("throughput", f"N=16 chains={chains}: {rates[chains]:.4e} "
-              f"proposed moves/s over {seg - 1} x {seg_steps}-step "
-              f"run_segment calls ({elapsed:.2f} s); kernel alone "
-              f"{k_ms:.1f} ms per {seg_steps}-step chunk = "
-              f"{seg_steps * chains / k_ms * 1e3:.4e} moves/s")
-    phase("throughput", "nvidia-smi clocks.sm,power.draw,temperature.gpu: "
-          + nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
+    # 5. throughput -------------------------------------------------------
+    with timed("throughput board"):
+        horizon = 2 ** 24
+        throughput(board_shared, "board N=16 (bench.py configuration)",
+                   spec_of(16, horizon, 32768, lin(horizon, 1.0, 5.0)),
+                   (32768, 4096), bounds)
+    with timed("throughput full3d"):
+        horizon = 8_000_000
+        throughput(full3d_shared, "full_3d N=15 Q=225 (campaign chunks)",
+                   spec_of(15, horizon, 62500, lin(horizon, 0.8, 7.0),
+                           mcmc_type="full_3d"),
+                   (65536, 4096), bounds)
 
     leaked = sorted(m for m in set(sys.modules) - _PRELOADED
                     if m == "jax" or m.startswith(("jax.", "mcqueens.")))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
 
-    print(json.dumps({"kernels": [{
-        "name": "board_shared_kernel",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": twin_ms,
-    }]}))
+    rows = []
+    for mod, launches, case in (
+            (board_shared, board_launches, "board N=16 C=4096 2048 steps"),
+            (full3d_shared, full3d_launches,
+             "full3d floors launch N=15 Q=225 C=65536 44 steps ladder 16")):
+        res = results[case]
+        bound_ms, bound_by = bounds.of(*res["work"])
+        phase("bound", f"{KERNELS[mod]['name']} on '{case}': "
+              f"{res['work'][0]:.4e} int32 ops, {res['work'][1]:.4e} bytes "
+              f"-> bound {bound_ms:.4f} ms ({bound_by}); kernel "
+              f"{res['kernel_ms']:.4f} ms = "
+              f"{bound_ms / res['kernel_ms']:.3f} of the bound")
+        rows.append({
+            **KERNELS[mod],
+            "route": "cuda",
+            "launches": launches,
+            "max_abs_err": max(r["err"] for r in results.values()
+                               if r["mod"] is mod),
+            "ms": res["kernel_ms"],
+            "plain_ms": res["twin_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # No single PyTorch call computes a Metropolis launch.
+            "library_ms": None,
+        })
+    phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} "
+          f"s")
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

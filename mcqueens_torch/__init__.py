@@ -1,16 +1,19 @@
 """mcqueens_torch — the PyTorch / CUDA port of :mod:`mcqueens`.
 
 The JAX package stays the reference; this package mirrors its module names so
-each counterpart is easy to find, and reproduces its board-mode
-``pallas_shared`` path bit for bit: the same seeds, block partition and
-counter-hash streams give the same trajectories, best boards, bins and
-histories.  It imports ``torch`` and numpy, never ``jax``.
+each counterpart is easy to find, and reproduces its ``pallas_shared``
+paths (boards and full-3D placements, plain or parallel-tempered) bit for
+bit: the same seeds, block partition and counter-hash streams give the same
+trajectories, best states, bins and histories.  It imports ``torch`` and
+numpy, never ``jax``.
 
 Layers (bottom-up):
     core/     energy oracle, count tables, schedules, hash-based init
     chain/    ChainSpec (static chain configuration)
-    kernels/  counter PRNG, block sizing, the carry, and the shared-site board
-              sampler with its hand-written CUDA kernel (csrc/)
+    kernels/  counter PRNG, block sizing, the carries, and the shared-site
+              board and full-3D samplers with their hand-written CUDA kernels
+              (csrc/)
+    search/   parallel tempering (replica exchange)
     dist/     run_chains / run_experiment on one device
     cli/      the competition CLI
     utils/    throughput reporting

@@ -1,14 +1,16 @@
-"""Competition CLI: anneal hard, export the best board (PyTorch port).
+"""Competition CLI: anneal hard, export the best placement (PyTorch port).
 
-Same flags, defaults and export format as ``python -m mcqueens.cli.competition``
-except ``--kernel``, which accepts only ``pallas_shared`` (the shared-site
-board sampler, the one ported so far) and defaults to it, and ``--device``
-(default ``cuda``; ``cpu`` runs the kernel's plain-torch twin).  Flags of
-paths not ported yet (``--tempering``, ``--mesh``, ``--checkpoint-dir``,
-``--mcmc-type full_3d``, ``--q``, ``--exchange-interval``) are refused.
+Same flags, defaults, guards and export format as
+``python -m mcqueens.cli.competition`` except ``--kernel``, which accepts only
+``pallas_shared`` (the shared-site samplers, the ones ported so far) and
+defaults to it, and ``--device`` (default ``cuda``; ``cpu`` runs the
+kernels' plain-torch twins).  ``--mcmc-type board|full_3d``, ``--q`` and
+``--tempering`` with ``--exchange-interval`` run as in the JAX CLI;
+``--mesh`` and ``--checkpoint-dir`` are not ported yet and are refused.
 
     python -m mcqueens_torch.cli.competition [--n 15] [--n-runs 10]
         [--n-steps 100000] [--beta-start 1.0] [--beta-end 3.0] [--seed 42]
+        [--mcmc-type board|full_3d] [--q Q] [--tempering L]
         [--device cuda] [--outdir .]
 """
 
@@ -28,49 +30,61 @@ def main(argv=None) -> int:
     parser.add_argument("--n-steps", type=int, default=100000)
     parser.add_argument("--init-mode", default="random")
     parser.add_argument("--mcmc-type", default="board",
-                        choices=("board", "full_3d"))
-    parser.add_argument("--q", type=int, default=None, metavar="Q")
+                        choices=("board", "full_3d"),
+                        help="board, or full_3d (a full_3d export lists "
+                             "the Q queens)")
+    parser.add_argument("--q", type=int, default=None, metavar="Q",
+                        help="full_3d only: queen count (default N^2)")
     parser.add_argument("--beta-start", type=float, default=1.0)
     parser.add_argument("--beta-end", type=float, default=3.0)
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--early-stop-patience", type=int, default=None)
     parser.add_argument("--kernel", default="pallas_shared",
                         choices=("pallas_shared",),
-                        help="the shared-site board sampler (hand-written "
-                             "CUDA kernel on --device cuda)")
+                        help="the shared-site samplers (hand-written CUDA "
+                             "kernels on --device cuda)")
     parser.add_argument("--history-stride", type=int, default=None,
                         help="default: n_steps // 1024 (one kernel launch "
                              "per history point)")
     parser.add_argument("--n-bins", type=int, default=None,
                         help="acceptance-rate bins (default 100, shrunk so "
                              "n_steps * n_bins fits int32)")
-    parser.add_argument("--tempering", type=int, default=0, metavar="L")
+    parser.add_argument("--tempering", type=int, default=0, metavar="L",
+                        help="parallel tempering with an L-level geometric "
+                             "beta ladder spanning [beta-start, beta-end] "
+                             "(constant in time).  Chain c sits at ladder "
+                             "level c %% L.")
     parser.add_argument("--mesh", action="store_true")
     parser.add_argument("--outdir", default=".")
     parser.add_argument("--checkpoint-dir", default=None, metavar="DIR")
     parser.add_argument("--exchange-interval", type=int, default=1,
-                        metavar="SEGS")
+                        metavar="SEGS",
+                        help="tempering: replica-exchange sweeps every this "
+                             "many history-stride segments")
     parser.add_argument("--resume-from", default=None, metavar="BOARD_TXT",
                         help="warm-start every run from a previously exported "
                              "best_heights file (i,j,k lines)")
     parser.add_argument("--device", default="cuda",
-                        help="torch device: cuda (the CUDA kernel) or cpu "
-                             "(its plain-torch twin)")
+                        help="torch device: cuda (the CUDA kernels) or cpu "
+                             "(their plain-torch twins)")
     args = parser.parse_args(argv)
 
     not_ported = {
-        "--tempering": args.tempering != 0,
         "--mesh": args.mesh,
         "--checkpoint-dir": args.checkpoint_dir is not None,
-        "--mcmc-type full_3d": args.mcmc_type != "board",
-        "--q": args.q is not None,
-        "--exchange-interval": args.exchange_interval != 1,
     }
     refused = [flag for flag, given in not_ported.items() if given]
     if refused:
         parser.error(f"{', '.join(refused)}: not ported to mcqueens_torch "
                      "yet (ROADMAP.md queue 1); use python -m "
                      "mcqueens.cli.competition")
+    if args.q is not None:
+        if args.mcmc_type != "full_3d":
+            parser.error("--q only applies to --mcmc-type full_3d "
+                         "(board mode is always N^2 queens)")
+        if not 1 <= args.q < args.n ** 3:
+            parser.error(f"--q must be in [1, N^3) (N^3={args.n ** 3}; "
+                         "a free cell must exist for the move proposal)")
 
     from mcqueens_torch.chain.spec import ChainSpec
     from mcqueens_torch.core.schedules import build_schedule
@@ -87,12 +101,49 @@ def main(argv=None) -> int:
 
     initial_states = None
     if args.resume_from:
-        board = np.zeros((args.n, args.n), np.int32)
         with open(args.resume_from) as f:
-            for line in f:
-                i, j, k = (int(x) for x in line.strip().split(","))
-                board[i, j] = k
-        initial_states = np.repeat(board[None], args.n_runs, axis=0)
+            rows = [[int(x) for x in line.strip().split(",")] for line in f]
+        if args.mcmc_type == "board":
+            state = np.zeros((args.n, args.n), np.int32)
+            for i, j, k in rows:
+                state[i, j] = k
+        else:
+            state = np.asarray(rows, np.int32)  # (Q, 3) queens
+        initial_states = np.repeat(state[None], args.n_runs, axis=0)
+
+    if args.tempering:
+        from mcqueens_torch.search import tempering
+
+        spec = ChainSpec(
+            N=args.n, n_steps=args.n_steps,
+            schedule=build_schedule("constant", args.n_steps,
+                                    beta_const=1.0),
+            init_mode=args.init_mode, mcmc_type=args.mcmc_type,
+            history_stride=stride, kernel=args.kernel, Q=args.q,
+            n_bins=n_bins,
+        )
+        ladder = tempering.geometric_ladder(
+            args.beta_start, args.beta_end, args.tempering)
+        out = tempering.run_tempered(
+            args.seed + np.arange(args.n_runs, dtype=np.uint32), spec,
+            ladder, device=args.device, swap_seed=args.seed,
+            initial_states=initial_states, verbose=True,
+            exchange_interval=args.exchange_interval,
+        )
+        order = np.argsort(out["best_energy"], kind="stable")
+        shown = [int(out["best_energy"][r]) for r in order[:20]]
+        print(f"Best energies: {shown}{' ...' if args.n_runs > 20 else ''}")
+        if args.n_runs > 20:
+            print(f"(over {args.n_runs} runs: min "
+                  f"{int(out['best_energy'].min())}, "
+                  f"mean {out['best_energy'].mean():.1f})")
+        best = out["best_state"][order[0]]
+        print(best)
+        print(f"{out['proposals']:.3e} proposals in {out['wall_time']:.1f}s "
+              f"= {out['proposals'] / max(out['wall_time'], 1e-9):.3e} "
+              f"moves/s")
+        _export(args, best)
+        return 0
 
     schedule = build_schedule(
         "linear_annealing", args.n_steps,
@@ -103,7 +154,8 @@ def main(argv=None) -> int:
             N=args.n, n_steps=args.n_steps, schedule=schedule,
             init_mode=args.init_mode, mcmc_type=args.mcmc_type,
             early_stop_patience=args.early_stop_patience,
-            history_stride=stride, kernel=args.kernel, n_bins=n_bins,
+            history_stride=stride, kernel=args.kernel, Q=args.q,
+            n_bins=n_bins,
         )
         res = runner.run_chains(
             args.seed + np.arange(args.n_runs, dtype=np.uint32), spec,
@@ -116,7 +168,7 @@ def main(argv=None) -> int:
             device=args.device, mcmc_type=args.mcmc_type,
             early_stop_patience=args.early_stop_patience,
             verbose=True, history_stride=stride, kernel=args.kernel,
-            n_bins=n_bins,
+            n_bins=n_bins, Q=args.q,
         )
 
     order = np.argsort(res.best_energy, kind="stable")
@@ -135,16 +187,21 @@ def main(argv=None) -> int:
 
 
 def _export(args, best) -> None:
-    """Write the winning board as ``i,j,k`` lines to
-    ``<outdir>/competition_results/best_heights_{N}_{timestamp}.txt``."""
+    """Write the winning state as ``i,j,k`` lines to
+    ``<outdir>/competition_results/best_heights_{N}_{timestamp}.txt``: a
+    board's N^2 columns, or a full_3d state's Q queens."""
     out_dir = os.path.join(args.outdir, "competition_results")
     os.makedirs(out_dir, exist_ok=True)
     ts = time.strftime("%Y%m%d_%H%M")
     path = os.path.join(out_dir, f"best_heights_{args.n}_{ts}.txt")
     with open(path, "w") as f:
-        for i in range(args.n):
-            for j in range(args.n):
-                f.write(f"{i},{j},{best[i, j]}\n")
+        if args.mcmc_type == "full_3d":
+            for i, j, k in best:
+                f.write(f"{i},{j},{k}\n")
+        else:
+            for i in range(args.n):
+                for j in range(args.n):
+                    f.write(f"{i},{j},{best[i, j]}\n")
     print(f"wrote {path}")
 
 

@@ -1,8 +1,9 @@
-"""Attack predicate and oracle board energy, port of :mod:`mcqueens.core.energy`.
+"""Attack predicate and oracle energies, port of :mod:`mcqueens.core.energy`.
 
 Two queens attack iff one of the 7 relations of the reference holds (board
-mode drops ``same_ij``).  These O(N^4) forms are the oracle the sampler's
-incremental energies are checked against; they never run in the hot loop.
+mode drops ``same_ij``).  These O(N^4) / O(Q^2) forms are the oracle the
+samplers' incremental energies are checked against; they never run in the
+hot loop.
 """
 
 from __future__ import annotations
@@ -50,3 +51,38 @@ def board_energy(heights: torch.Tensor) -> torch.Tensor:
         board_mode=True,
     )
     return torch.triu(att, diagonal=1).sum(dim=(-2, -1), dtype=torch.int32)
+
+
+def board_conflicts(heights: torch.Tensor, i: int, j: int,
+                    k: int) -> torch.Tensor:
+    """Queens of an ``(N, N)`` board attacking the hypothetical position
+    ``(i, j, k)``, the queen of column ``(i, j)`` itself excluded."""
+    N = heights.shape[-1]
+    ii = torch.arange(N, dtype=torch.int32, device=heights.device)
+    i_flat, j_flat = (g.reshape(-1) for g in
+                      torch.meshgrid(ii, ii, indexing="ij"))
+    att = attacks((i, j, k), (i_flat, j_flat,
+                              heights.reshape(-1).to(torch.int32)),
+                  board_mode=True)
+    self_mask = (i_flat == i) & (j_flat == j)
+    return (att & ~self_mask).sum(dtype=torch.int32)
+
+
+def full3d_energy(queens: torch.Tensor) -> torch.Tensor:
+    """Pairwise energy of full-3D states ``(..., Q, 3)`` -> ``(...)`` int32."""
+    q = queens.to(torch.int32)
+    i, j, k = q[..., 0], q[..., 1], q[..., 2]
+    att = attacks(
+        (i[..., :, None], j[..., :, None], k[..., :, None]),
+        (i[..., None, :], j[..., None, :], k[..., None, :]),
+    )
+    return torch.triu(att, diagonal=1).sum(dim=(-2, -1), dtype=torch.int32)
+
+
+def full3d_conflicts(queens: torch.Tensor, q_idx: int, pos) -> torch.Tensor:
+    """Conflicts of queen ``q_idx`` of a ``(Q, 3)`` state if placed at
+    ``pos`` (an ``(i, j, k)`` triple), every other queen counted."""
+    q = queens.to(torch.int32)
+    att = attacks(tuple(pos), (q[:, 0], q[:, 1], q[:, 2]))
+    mask = torch.arange(q.shape[0], device=q.device) != q_idx
+    return (att & mask).sum(dtype=torch.int32)

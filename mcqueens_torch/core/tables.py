@@ -2,7 +2,8 @@
 
 For distinct cells the 7 attack relations are mutually exclusive and each is
 a family of parallel lines, so ``E = sum over lines of C(count, 2)``.  The
-port uses the tables to score initial boards (plain torch ``scatter_add_``:
+port uses the tables to score initial boards and full-3D placements (plain
+torch ``scatter_add_``:
 the JAX package leaves this to XLA too, so there is no kernel here).
 """
 
@@ -73,6 +74,18 @@ def build_board_table(heights: torch.Tensor) -> torch.Tensor:
     return table.scatter_add_(-1, idx, torch.ones_like(idx, dtype=torch.int32))
 
 
+def build_full3d_table(queens: torch.Tensor, N: int) -> torch.Tensor:
+    """Count tables ``(..., table_size)`` int32 of full-3D states
+    ``(..., Q, 3)`` (distinct cells)."""
+    batch = queens.shape[:-2]
+    q = queens.to(torch.int64)
+    idx = line_indices(q[..., 0], q[..., 1], q[..., 2], N,
+                       full3d=True).reshape(batch + (-1,))
+    table = torch.zeros(batch + (table_size(N, full3d=True),),
+                        dtype=torch.int32, device=queens.device)
+    return table.scatter_add_(-1, idx, torch.ones_like(idx, dtype=torch.int32))
+
+
 def table_energy(table: torch.Tensor) -> torch.Tensor:
     """E = sum over lines of C(count, 2), over the last axis, as int32."""
     t = table.to(torch.int32)
@@ -85,7 +98,8 @@ def batch_energies(states: torch.Tensor, energy_fn,
 
     ``energy_fn`` maps a batch of states to their energies.  The slices
     bound the (chunk, table_size) scratch: a whole 32768-board batch at
-    N=16 would hold ~1 GB of int32 tables at once.
+    N=16 would hold ~1 GB of int32 tables at once, a 65536-chain full-3D
+    batch at N=15 ~1.7 GB.
     """
     return torch.cat([energy_fn(states[s:s + chunk])
                       for s in range(0, states.shape[0], chunk)])

@@ -3,9 +3,10 @@
 All runs are one batch of chains on ``device``.  Long runs execute as
 equal-length segments (:func:`plan_segments`, unchanged from the JAX package
 so segment boundaries and histories match) while the host reads each
-segment's energy history.  Only the board-mode ``pallas_shared`` sampler
-(:mod:`mcqueens_torch.kernels.board_shared`) is ported; every other
-combination raises ``NotImplementedError``.
+segment's energy history.  The ``pallas_shared`` samplers are ported, for
+boards (:mod:`mcqueens_torch.kernels.board_shared`) and for full-3D
+placements (:mod:`mcqueens_torch.kernels.full3d_shared`); every other kernel
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from mcqueens_torch.chain.spec import ChainSpec
-from mcqueens_torch.kernels import board_shared
+from mcqueens_torch.kernels import board_shared, full3d_shared
 
 _MAX_SEGMENT_ELEMS = 64 * 1024 * 1024
 _MAX_SEGMENT_PROPOSALS = 2 ** 31
@@ -52,9 +53,9 @@ class ChainResult:
     history_steps: np.ndarray    # (P,) int64 step index of each history point
     history_len: np.ndarray      # (R,) reference-equivalent history length
     final_energy: np.ndarray     # (R,)
-    final_state: np.ndarray      # (R, N, N) heights
+    final_state: np.ndarray      # (R, N, N) heights or (R, Q, 3) queens
     best_energy: np.ndarray      # (R,)
-    best_state: np.ndarray       # (R, N, N)
+    best_state: np.ndarray       # (R, N, N) or (R, Q, 3)
     steps_to_best: np.ndarray    # (R,) best_step of each chain
     stop_step: np.ndarray        # (R,) early-stop step (n_steps if none)
     accept_bins: np.ndarray      # (R, n_bins)
@@ -88,23 +89,50 @@ def _device(device) -> torch.device:
 
 
 def _modules(spec: ChainSpec):
-    if spec.kernel == "pallas_shared" and spec.mcmc_type == "board":
-        return board_shared
+    if spec.kernel == "pallas_shared":
+        return board_shared if spec.mcmc_type == "board" else full3d_shared
     raise NotImplementedError(
         f"kernel={spec.kernel!r} mcmc_type={spec.mcmc_type!r} is not "
-        "ported yet (ROADMAP.md queue 1: full_3d is item 4, the per-chain "
-        "kernels item 5, the scan paths item 6)")
+        "ported yet (ROADMAP.md queue 1: the per-chain kernels are item 5, "
+        "the scan paths item 6)")
 
 
 def validate_initial_states(initial_states, spec: ChainSpec, n_runs: int):
-    """Explicit board warm starts: shape (n_runs, N, N), heights in [0, N)."""
+    """Explicit warm starts: (n_runs, N, N) board heights in [0, N), or
+    (n_runs, Q, 3) full-3D queens on distinct cells of [0, N)^3."""
     arr = np.asarray(initial_states)
-    want = (n_runs, spec.N, spec.N)
+    board = spec.mcmc_type == "board"
+    want = (n_runs, spec.N, spec.N) if board else (n_runs, spec.q_eff, 3)
     if arr.shape != want:
         raise ValueError(f"initial_states must have shape {want}, got {arr.shape}")
     if ((arr < 0) | (arr >= spec.N)).any():
-        raise ValueError(f"All heights must be in [0, {spec.N - 1}]")
+        what = "heights" if board else "coordinates"
+        raise ValueError(f"All {what} must be in [0, {spec.N - 1}]")
+    if not board:
+        for r in range(n_runs):
+            if len({tuple(q) for q in arr[r].tolist()}) != spec.q_eff:
+                raise ValueError("Two queens occupy the same (i,j,k) cell.")
     return arr.astype(np.int32)
+
+
+_STATE = {"board": ("heights", "best_heights"),
+          "full_3d": ("qi", "qj", "qk", "best_qi", "best_qj", "best_qk")}
+
+
+def state_fields(spec: ChainSpec) -> tuple[str, ...]:
+    """Carry fields read back at the end of a run."""
+    return ("energy", "best_energy", "best_step", "stop_step", "accept_bins",
+            "total_bins") + _STATE[spec.mcmc_type]
+
+
+def states_of(host: dict, spec: ChainSpec):
+    """``(best_state, final_state)`` from host carry arrays: (C, N, N)
+    int64 boards, or (C, Q, 3) int32 queens stacked from the planes."""
+    if spec.mcmc_type == "board":
+        return tuple(host[name].astype(np.int64).reshape(-1, spec.N, spec.N)
+                     for name in ("best_heights", "heights"))
+    return (np.stack([host[f"best_q{a}"] for a in "ijk"], axis=-1),
+            np.stack([host[f"q{a}"] for a in "ijk"], axis=-1))
 
 
 def run_chains(
@@ -163,9 +191,8 @@ def run_chains(
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.time() - t0
-    host = {name: getattr(carry, name).cpu().numpy() for name in (
-        "energy", "best_energy", "best_step", "stop_step", "heights",
-        "best_heights", "accept_bins", "total_bins")}
+    host = {name: getattr(carry, name).cpu().numpy()
+            for name in state_fields(spec)}
     if verbose:
         total_props = int(host["total_bins"].sum())
         print(f"[mcqueens] {total_props:.3e} proposals in {wall:.2f}s "
@@ -183,7 +210,7 @@ def run_chains(
     pts = -(-stop_step // spec.history_stride)
     history_len = (np.where(stopped, pts, n_outer) + 1).astype(np.int64)
 
-    N = spec.N
+    best_state, final_state = states_of(host, spec)
     s = slice(0, n_runs)
     return ChainResult(
         spec=spec,
@@ -191,10 +218,9 @@ def run_chains(
         history_steps=history_steps,
         history_len=history_len[s],
         final_energy=host["energy"].reshape(-1)[s],
-        final_state=host["heights"].astype(np.int64).reshape(-1, N, N)[s],
+        final_state=final_state[s],
         best_energy=host["best_energy"].reshape(-1)[s],
-        best_state=host["best_heights"].astype(np.int64).reshape(
-            -1, N, N)[s],
+        best_state=best_state[s],
         steps_to_best=host["best_step"].reshape(-1)[s],
         stop_step=stop_step[s],
         accept_bins=host["accept_bins"][s],

@@ -1,11 +1,12 @@
 """Build and bind the port's CUDA kernels.
 
-``nvcc`` compiles ``csrc/board_shared.cu`` into a shared library with a plain
-C entry point, loaded with ``ctypes`` (no PyTorch headers, so the build takes
-seconds).  The library goes to ``build/mcqueens_torch/`` at the root of the
-checkout, named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as is.  Nothing is built or imported
-until a CUDA launch asks for it.
+Every ``csrc/*.cu`` source has a plain C entry point (no PyTorch headers, so
+a build takes seconds).  ``nvcc`` compiles the sources in parallel, one
+process each, all started together, and links the objects into one shared
+library loaded with ``ctypes``.  The library goes to ``build/mcqueens_torch/``
+at the root of the checkout, named by a hash of all the sources and the
+flags, so an edited source is rebuilt and an unchanged tree is loaded as is.
+Nothing is built or imported until a CUDA launch asks for it.
 """
 
 from __future__ import annotations
@@ -18,12 +19,19 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-SOURCE = _PKG / "csrc" / "board_shared.cu"
+SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG.parents[1] / "build" / "mcqueens_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC",
 )
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Entry point -> argument types (pointers, then ints, then the stream).
+ENTRY_POINTS = {
+    "mcq_board_shared_segment": [_P] * 13 + [_I] * 8 + [_P],
+    "mcq_full3d_shared_segment": [_P] * 17 + [_I] * 9 + [_P],
+}
 
 
 def _nvcc() -> str:
@@ -31,44 +39,66 @@ def _nvcc() -> str:
 
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): the "
-                           "board_shared kernel is built with nvcc")
+                           "port's kernels are built with nvcc")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
 def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"board_shared_{key.hexdigest()[:16]}.so"
+    """Where the library for the current sources and flags lives."""
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        key.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"mcqueens_kernels_{key.hexdigest()[:16]}.so"
+
+
+def _run(cmd) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                           f"\n{proc.stdout}{proc.stderr}")
+    return " ".join(cmd) + "\n" + proc.stdout + proc.stderr
 
 
 def build() -> Path:
     """Compile the kernel library unless it is already built; return it.
 
-    The compiler's output (``-Xptxas=-v``: registers, spills) is kept
-    beside the library as ``.log``.
+    The compilers' output (``-Xptxas=-v``: registers, spills per kernel) is
+    kept beside the library as ``.log``.
     """
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    procs = [subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(SOURCES, objs)]
+    logs, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        text = proc.communicate()[0]
+        logs.append(f"{' '.join(proc.args)}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{text}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    logs.append(_run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                      *map(str, objs)]))
+    out.with_suffix(".log").write_text("\n".join(logs))
     os.replace(tmp, out)
+    for obj in objs:
+        obj.unlink()
     return out
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """The built library with its entry point's argument types declared."""
+    """The built library with its entry points' argument types declared."""
     lib = ctypes.CDLL(str(build()))
-    fn = lib.mcq_board_shared_segment
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name, argtypes in ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

@@ -31,9 +31,11 @@ for CUDA tensors; there is no fallback between them.  The per-step betas are
 evaluated once per chunk by :func:`chunk_betas` and handed to either one, so
 the kernel and the twin share one beta by construction.
 
-Only the main-path mode is ported: ``track_best=True`` with no per-chain
-beta row and no freeze row (``run_segment_tempered`` and
-``recover_best_heights`` are not ported yet).
+Two modes are ported: the main path (``track_best=True``, no freeze row)
+and the tempered mode, where chain ``c`` samples at
+``schedule(step) * beta_scale[c]`` (:func:`run_segment_tempered`, for
+:mod:`mcqueens_torch.search.tempering`).  The freeze mode behind
+``recover_best_heights`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -183,7 +185,8 @@ def chunk_betas(spec: ChainSpec, step0: int, n_inner: int,
 
 
 def segment_reference(st: SegmentState, step0: int, n_inner: int,
-                      spec: ChainSpec, beta: torch.Tensor) -> None:
+                      spec: ChainSpec, beta: torch.Tensor,
+                      beta_scale: torch.Tensor | None = None) -> None:
     """Plain-torch twin of the CUDA kernel: advance every chain by
     ``n_inner`` steps from global step ``step0``, in place."""
     N, NN = spec.N, spec.N * spec.N
@@ -225,7 +228,8 @@ def segment_reference(st: SegmentState, step0: int, n_inner: int,
         net = ((dn == 0).int() - (do == 0).int()
                + (dn * dn == d2).int() - (do * do == d2).int())
         de = torch.where(valid, net, 0).sum(0, dtype=torch.int32)
-        accept = u < torch.exp(-beta[t] * de.to(torch.float32))
+        bt = beta[t] if beta_scale is None else beta[t] * beta_scale
+        accept = u < torch.exp(-bt * de.to(torch.float32))
         upd = accept & active
         h.scatter_(0, cell[None].long(), torch.where(upd, new, old)[None])
         e = e + torch.where(upd, de, 0)
@@ -245,7 +249,7 @@ def segment_reference(st: SegmentState, step0: int, n_inner: int,
 
 
 def _check_cuda_state(st: SegmentState, spec: ChainSpec, n_inner: int,
-                      beta: torch.Tensor) -> None:
+                      beta: torch.Tensor, beta_scale) -> None:
     NN, C = spec.N * spec.N, st.energy.shape[0]
     n_blocks = st.block_seeds.shape[0]
     want = {
@@ -263,22 +267,26 @@ def _check_cuda_state(st: SegmentState, spec: ChainSpec, n_inner: int,
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name}: want contiguous {shape}, got "
                              f"{tuple(t.shape)}")
-    if beta.device != dev or beta.dtype != torch.float32 or (
-            tuple(beta.shape) != (n_inner,)) or not beta.is_contiguous():
-        raise ValueError(f"beta: want contiguous float32 ({n_inner},) on "
-                         f"{dev}")
+    for name, t, shape in (("beta", beta, (n_inner,)),
+                           ("beta_scale", beta_scale, (C,))):
+        if t is not None and (t.device != dev or t.dtype != torch.float32
+                              or tuple(t.shape) != shape
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name}: want contiguous float32 {shape} on "
+                             f"{dev}")
     if C == 0 or n_blocks == 0 or C % n_blocks:
         raise ValueError(f"{C} chains do not split into {n_blocks} blocks")
 
 
 def segment_cuda(st: SegmentState, step0: int, n_inner: int,
-                 spec: ChainSpec, beta: torch.Tensor) -> None:
+                 spec: ChainSpec, beta: torch.Tensor,
+                 beta_scale: torch.Tensor | None = None) -> None:
     """Advance every chain by ``n_inner`` steps with the CUDA kernel
     (asynchronous on the current stream; counts the launch)."""
     global KERNEL_LAUNCHES
     from mcqueens_torch.kernels import _build
 
-    _check_cuda_state(st, spec, n_inner, beta)
+    _check_cuda_state(st, spec, n_inner, beta, beta_scale)
     if not 0 <= step0 <= 2 ** 31 - 1 - n_inner:
         raise ValueError(f"step0={step0} + n_inner={n_inner} overflows int32")
     lib = _build.load_library()
@@ -287,6 +295,8 @@ def segment_cuda(st: SegmentState, step0: int, n_inner: int,
         st.heights, st.best_heights, st.energy, st.best_energy,
         st.best_step, st.no_improve, st.stop_step, st.accept_bins,
         st.total_bins, st.chain_seeds, st.block_seeds, beta)]
+    ptrs.append(ctypes.c_void_p(
+        None if beta_scale is None else beta_scale.data_ptr()))
     C = st.energy.shape[0]
     patience = spec.early_stop_patience
     with torch.cuda.device(dev):
@@ -302,17 +312,31 @@ def segment_cuda(st: SegmentState, step0: int, n_inner: int,
 
 
 def segment_call(st: SegmentState, step0: int, n_inner: int,
-                 spec: ChainSpec) -> None:
+                 spec: ChainSpec,
+                 beta_scale: torch.Tensor | None = None) -> None:
     """One chunk of ``n_inner`` steps: the twin for CPU state, the CUDA
     kernel for CUDA state, and an error for anything else."""
     dev = st.heights.device
     beta = chunk_betas(spec, step0, n_inner, dev)
     if dev.type == "cpu":
-        segment_reference(st, step0, n_inner, spec, beta)
+        segment_reference(st, step0, n_inner, spec, beta, beta_scale)
     elif dev.type == "cuda":
-        segment_cuda(st, step0, n_inner, spec, beta)
+        segment_cuda(st, step0, n_inner, spec, beta, beta_scale)
     else:
         raise ValueError(f"board_shared runs on cpu or cuda, not {dev}")
+
+
+def _run(carry: BoardCarry, beta_scale, start_outer: int, spec: ChainSpec,
+         n_outer: int):
+    stride = spec.history_stride
+    st = segment_state(carry)
+    ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
+                     device=st.energy.device)
+    for o in range(n_outer):
+        segment_call(st, (int(start_outer) + o) * stride, stride, spec,
+                     beta_scale)
+        ys[o].copy_(st.energy)
+    return carry_of(st), ys
 
 
 def run_segment(carry: BoardCarry, start_outer: int, spec: ChainSpec,
@@ -320,11 +344,13 @@ def run_segment(carry: BoardCarry, start_outer: int, spec: ChainSpec,
     """``n_outer`` chunks of ``history_stride`` steps from chunk
     ``start_outer``; returns ``(carry, ys)`` with ``ys`` the ``(n_outer, C)``
     int32 energies after each chunk (one kernel launch per chunk)."""
-    stride = spec.history_stride
-    st = segment_state(carry)
-    ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
-                     device=st.energy.device)
-    for o in range(n_outer):
-        segment_call(st, (int(start_outer) + o) * stride, stride, spec)
-        ys[o].copy_(st.energy)
-    return carry_of(st), ys
+    return _run(carry, None, start_outer, spec, n_outer)
+
+
+def run_segment_tempered(carry: BoardCarry, beta_scale, start_outer: int,
+                         spec: ChainSpec, n_outer: int):
+    """:func:`run_segment` with chain ``c`` sampling at
+    ``spec.schedule(step) * beta_scale[c]`` (a ``(C,)`` float32 scale)."""
+    beta_scale = torch.as_tensor(beta_scale, dtype=torch.float32,
+                                 device=carry.device).reshape(-1).contiguous()
+    return _run(carry, beta_scale, start_outer, spec, n_outer)

@@ -1,7 +1,8 @@
 // Shared-site board Metropolis for Hopper (sm_90a).
 //
 // Replaces the TPU Pallas kernel mcqueens/kernels/board_shared.py:_kernel in
-// its main-path mode (track_best, no per-chain beta row, no freeze row).
+// its main-path mode (track_best, no freeze row) and its tempered mode (a
+// per-chain beta scale row).
 // Plain-torch twin: mcqueens_torch/kernels/board_shared.py:segment_reference.
 //
 // One thread per chain.  Chains [b*c_blk, (b+1)*c_blk) form semantic block
@@ -29,7 +30,9 @@
 // the JAX kernel computes), % only on non-negative operands (C truncates
 // where jnp floors), expf (not __expf), built with -fmad=false and without
 // --use_fast_math.  The per-step betas come from the wrapper, which
-// evaluates the schedule once per chunk for the kernel and the twin alike.
+// evaluates the schedule once per chunk for the kernel and the twin alike;
+// a tempered chain multiplies its beta by its own scale in float32 before
+// the exp, as the JAX kernel does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,8 +64,8 @@ __global__ void __launch_bounds__(128) board_shared_kernel(
     int32_t* __restrict__ stop_step, int32_t* __restrict__ accept_bins,
     int32_t* __restrict__ total_bins, const int32_t* __restrict__ chain_seeds,
     const int32_t* __restrict__ block_seeds, const float* __restrict__ beta,
-    int step0, int n_inner, int N, int C, int c_blk, int n_steps, int n_bins,
-    int patience) {
+    const float* __restrict__ beta_scale, int step0, int n_inner, int N,
+    int C, int c_blk, int n_steps, int n_bins, int patience) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
   int st = stop_step[c];
@@ -79,6 +82,8 @@ __global__ void __launch_bounds__(128) board_shared_kernel(
       (uint32_t)block_seeds[c / c_blk] * 0x2545F491u + 0x9E3779B9u;
   const uint32_t s = (uint32_t)chain_seeds[c];
   const uint32_t g = s * 0x85EBCA6Bu + lowbias32(s);
+  const bool tempered = beta_scale != nullptr;
+  const float scale = tempered ? beta_scale[c] : 1.0f;
   int e = energy[c];
   int be = best_energy[c];
   int bs = best_step[c];
@@ -120,7 +125,9 @@ __global__ void __launch_bounds__(128) board_shared_kernel(
       }
     }
 
-    const bool accept = u < expf(-beta[t] * (float)de);
+    float bt = beta[t];
+    if (tempered) bt = bt * scale;
+    const bool accept = u < expf(-bt * (float)de);
     if (accept) {
       h[(size_t)cell * sC] = new_k;
       e += de;
@@ -152,14 +159,15 @@ __global__ void __launch_bounds__(128) board_shared_kernel(
 // Launch one chunk on `stream`; returns cudaGetLastError() (0 on success).
 // All pointers are device pointers to contiguous arrays: heights and
 // best_heights (N*N, C); energy .. stop_step, chain_seeds (C); accept_bins,
-// total_bins (n_bins, C); block_seeds (C / c_blk); beta (n_inner) float32.
-// patience < 0 disables early stopping.
+// total_bins (n_bins, C); block_seeds (C / c_blk); beta (n_inner) float32;
+// beta_scale (C) float32, or null for an untempered run.  patience < 0
+// disables early stopping.
 extern "C" int mcq_board_shared_segment(
     void* heights, void* best_heights, void* energy, void* best_energy,
     void* best_step, void* no_improve, void* stop_step, void* accept_bins,
     void* total_bins, const void* chain_seeds, const void* block_seeds,
-    const void* beta, int step0, int n_inner, int N, int C, int c_blk,
-    int n_steps, int n_bins, int patience, void* stream) {
+    const void* beta, const void* beta_scale, int step0, int n_inner, int N,
+    int C, int c_blk, int n_steps, int n_bins, int patience, void* stream) {
   const int threads = 128;
   const int blocks = (C + threads - 1) / threads;
   board_shared_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
@@ -167,7 +175,7 @@ extern "C" int mcq_board_shared_segment(
       (int32_t*)best_energy, (int32_t*)best_step, (int32_t*)no_improve,
       (int32_t*)stop_step, (int32_t*)accept_bins, (int32_t*)total_bins,
       (const int32_t*)chain_seeds, (const int32_t*)block_seeds,
-      (const float*)beta, step0, n_inner, N, C, c_blk, n_steps, n_bins,
-      patience);
+      (const float*)beta, (const float*)beta_scale, step0, n_inner, N, C,
+      c_blk, n_steps, n_bins, patience);
   return (int)cudaGetLastError();
 }

@@ -229,9 +229,9 @@ def test_competition_cli_parity(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--tempering", "4"], ["--mesh"], ["--checkpoint-dir", "ck"],
-    ["--mcmc-type", "full_3d"], ["--q", "5"], ["--kernel", "tables"],
-    ["--exchange-interval", "3"],
+    ["--tempering", "4", "--mesh"], ["--mesh"], ["--checkpoint-dir", "ck"],
+    ["--mcmc-type", "full_3d", "--checkpoint-dir", "ck"], ["--q", "5"],
+    ["--kernel", "tables"], ["--exchange-interval", "3", "--kernel", "naive"],
 ])
 def test_cli_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -246,7 +246,7 @@ def test_runner_refuses_unported_paths():
         with pytest.raises(NotImplementedError):
             runner.run_chains(SEEDS, spec, device="cpu", **kw)
     for other in (dict(kernel="tables"), dict(kernel="pallas"),
-                  dict(mcmc_type="full_3d")):
+                  dict(kernel="pallas", mcmc_type="full_3d")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             runner.run_chains(SEEDS, _specs("n5", **other)[1], device="cpu")
 
