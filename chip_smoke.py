@@ -23,17 +23,33 @@ and the script exits non-zero without printing a result:
    steps: the last mover chunk is 4 steps), the Q_max launch (N=8, Q=48,
    4096 chains, 4096 steps), N=5/Q=13 with patience at a cold beta, N=3/Q=26
    (nearly every candidate occupied), and a launch past step 2^24.
+   Per-chain board (metropolis) shapes: the pod-scale chunk (N=20, 4096
+   chains, 256 steps), the bench shape (N=16, 32768 chains, 48 steps), N=32
+   (128 chains, 512 steps), N=5 with patience, N=11 klarner at beta=100,
+   N=2, 1000 chains (padded to 1024) and a launch past step 2^24 with 50
+   bins.  Per-chain full-3D shapes: N=12/Q=144 and N=15/Q=225 at 4096
+   chains, N=3/Q=26 (attempt runs past 32), N=2/Q=7, N=5/Q=13 with
+   patience, N=11 klarner at beta=100 and a launch past step 2^24.
 4. the main paths end to end, each with the launch counts zeroed just
    before it and read just after (each must equal the launches it ran):
    the board CLI (N=16, 32768 runs, 50000 steps); the board tempered CLI
    (16 levels); the full-3D floors-campaign search cut to 125000 steps (N=15,
    65536 runs, 16 levels 0.8->7, stride 62500); the Q_max certificate
    search of ``tools/qmax.py`` (N=8, Q=48, 4096 chains, 2^18 steps), which
-   must reach energy 0.  Every exported state is re-scored by the oracle.
+   must reach energy 0; ``configs/pod_scale.yaml``'s run (N=20, 4096 runs,
+   kernel pallas) cut to 2^19 steps; ``configs/beyond_reference.yaml``'s
+   sweep through ``drivers.measure_min_energy_vs_n`` (10 N, random and
+   klarner, 128 runs) cut to 62500 steps, where klarner at N = 17, 19, 23,
+   29, 31 must report 0; and ``config.yaml``'s beta_start_end_pairs section
+   through ``drivers.run_beta_start_end_pairs`` as full_3d with kernel
+   pallas (N=12, 4096 runs, 2^17 steps).  Configs are dicts through
+   ``parse_config``; every reported best state is re-scored by the oracle.
 5. throughput: proposed moves/s of the board kernel at ``bench.py``'s
    configuration (N=16, linear 1->5 over 2^24 steps, 32768-step chunks) and
    of the full-3D kernel at the campaign's (N=15, Q=225, linear 0.8->7 over
-   8M steps, 62500-step chunks), each at two chain counts.
+   8M steps, 62500-step chunks), each at two chain counts; then the
+   per-chain kernels at the same board configuration and at N=15, Q=225
+   with 8192-step chunks.
 
 Then one JSON line describing the kernels, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``.
@@ -60,7 +76,10 @@ from mcqueens_torch.cli import competition  # noqa: E402
 from mcqueens_torch.core.energy import board_energy, full3d_energy  # noqa: E402
 from mcqueens_torch.core.schedules import build_schedule  # noqa: E402
 from mcqueens_torch.dist import runner  # noqa: E402
-from mcqueens_torch.kernels import _build, board_shared, full3d_shared  # noqa: E402
+from mcqueens_torch.experiments import drivers  # noqa: E402
+from mcqueens_torch.experiments.config import parse_config  # noqa: E402
+from mcqueens_torch.kernels import (_build, board_shared, full3d_pallas,  # noqa: E402
+                                    full3d_shared, metropolis_pallas)
 from mcqueens_torch.search.tempering import geometric_ladder  # noqa: E402
 
 KERNELS = {
@@ -72,7 +91,17 @@ KERNELS = {
         name="full3d_shared_kernel",
         source="mcqueens_torch/kernels/csrc/full3d_shared.cu",
         replaces="mcqueens/kernels/full3d_shared.py:135"),
+    metropolis_pallas: dict(
+        name="metropolis_kernel",
+        source="mcqueens_torch/kernels/csrc/metropolis.cu",
+        replaces="mcqueens/kernels/metropolis_pallas.py:152"),
+    full3d_pallas: dict(
+        name="full3d_pallas_kernel",
+        source="mcqueens_torch/kernels/csrc/full3d_pallas.cu",
+        replaces="mcqueens/kernels/full3d_pallas.py:158"),
 }
+# The per-chain samplers keep their state chains major, (C, n_bins) bins.
+PER_CHAIN = (metropolis_pallas, full3d_pallas)
 INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 units (NVIDIA H100 white paper)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
@@ -95,9 +124,14 @@ def nvidia_smi(query):
     return out.stdout.strip().splitlines()[0]
 
 
-def spec_of(N, n_steps, stride, schedule, **kw):
+def spec_of(N, n_steps, stride, schedule, kernel="pallas_shared", **kw):
     return ChainSpec(N=N, n_steps=n_steps, schedule=schedule,
-                     kernel="pallas_shared", history_stride=stride, **kw)
+                     kernel=kernel, history_stride=stride, **kw)
+
+
+def pspec_of(N, n_steps, stride, schedule, **kw):
+    """A spec of the per-chain (independent chains) samplers."""
+    return spec_of(N, n_steps, stride, schedule, kernel="pallas", **kw)
 
 
 def lin(n, b0, b1):
@@ -142,12 +176,9 @@ class Bounds:
                 else (t_bytes, "bytes"))
 
 
-def board_work(spec, C, active):
-    """(int32 ops, bytes) of one board launch with ``active`` proposals:
-    12 ops per scored line cell (the site's row, column and both diagonals,
-    averaged over the N^2 sites the site hash draws uniformly) plus 32 for
-    the four hashes of a step."""
-    N = spec.N
+def line_cells(N):
+    """Off-site cells on the row, column and both diagonals of a site,
+    averaged over the N^2 sites (both board kernels draw sites uniformly)."""
     cells = 0
     for i in range(N):
         for j in range(N):
@@ -156,9 +187,60 @@ def board_work(spec, C, active):
                 d = x - i
                 cells += (d != 0 and 0 <= j + d < N) + (
                     d != 0 and 0 <= j - d < N)
-    ops = active * (12 * cells / (N * N) + 32)
+    return cells / (N * N)
+
+
+def board_work(spec, C, active):
+    """(int32 ops, bytes) of one board launch with ``active`` proposals:
+    12 ops per scored line cell (the site's row, column and both diagonals,
+    averaged over the N^2 sites the site hash draws uniformly) plus 32 for
+    the four hashes of a step."""
+    N = spec.N
+    ops = active * (12 * line_cells(N) + 32)
     words = 2 * N * N * C + 2 * spec.n_bins * C + 5 * C
     return ops, 4 * (2 * words + C + spec.history_stride)
+
+
+def metropolis_work(spec, C, active):
+    """(int32 ops, bytes) of one per-chain board launch with ``active``
+    proposals, counted from ``csrc/metropolis.cu``: 12 ops per scored line
+    cell (the same lines as the shared-site kernel), 24 for the three hashes
+    of a step and 16 for its site, height and bin arithmetic."""
+    N = spec.N
+    ops = active * (12 * line_cells(N) + 40)
+    words = 2 * N * N * C + 2 * spec.n_bins * C + 5 * C
+    return ops, 4 * (2 * words + C + spec.history_stride)
+
+
+def full3d_pallas_work(spec, C, active):
+    """(int32 ops, bytes) of one per-chain full-3D launch with ``active``
+    proposals, counted from ``csrc/full3d_pallas.cu``: 22 ops per (queen,
+    target) pair for the Q-1 other queens against the new and the old cell,
+    40 for the step's hashes and bookkeeping, and 12 per rejection attempt,
+    N^3 / (N^3 - Q) attempts expected."""
+    N, Q = spec.N, spec.q_eff
+    n_words = -(-N ** 3 // 32)
+    attempts = N ** 3 / (N ** 3 - Q)
+    ops = active * (44 * (Q - 1) + 40 + 12 * attempts)
+    words = 7 * Q * C + n_words * C + 2 * spec.n_bins * C + 5 * C
+    return ops, 4 * (2 * words + C + spec.history_stride)
+
+
+def work_of(mod, spec, C, active_per_chain):
+    """(int32 ops, bytes) of one launch of ``mod``'s kernel."""
+    active = int(active_per_chain.sum())
+    if mod is board_shared:
+        return board_work(spec, C, active)
+    if mod is full3d_shared:
+        return full3d_work(spec, C, active_per_chain)
+    if mod is metropolis_pallas:
+        return metropolis_work(spec, C, active)
+    return full3d_pallas_work(spec, C, active)
+
+
+def chain_totals(mod, st):
+    """(C,) int64 proposals each chain has counted in a segment state."""
+    return st.total_bins.sum(1 if mod in PER_CHAIN else 0).to(torch.int64)
 
 
 def full3d_work(spec, C, active_per_chain):
@@ -187,14 +269,15 @@ def compare_case(mod, name, spec, n_chains, start_outer=0, seed0=0,
     if ladder is not None:
         scale = torch.from_numpy(np.tile(ladder, -(-C // len(ladder)))[:C]
                                  ).to(carry.device)
+    extra = () if scale is None else (scale,)
     k_st, t_st = mod.segment_state(carry), mod.segment_state(carry)
     launches = mod.KERNEL_LAUNCHES
     kernel_ms = cuda_ms(lambda: mod.segment_cuda(
-        k_st, step0, n_inner, spec, beta, scale))
+        k_st, step0, n_inner, spec, beta, *extra))
     # Comparison launches are not the main path's: take this one back.
     mod.KERNEL_LAUNCHES = launches
     twin_ms = cuda_ms(lambda: mod.segment_reference(
-        t_st, step0, n_inner, spec, beta, scale))
+        t_st, step0, n_inner, spec, beta, *extra))
     # The energy after the launch is its history point, so the state fields
     # cover the history too.
     err = 0
@@ -206,10 +289,9 @@ def compare_case(mod, name, spec, n_chains, start_outer=0, seed0=0,
                   f"({int((a != b).sum())} entries)")
     if err:
         raise AssertionError(f"kernel != twin on {name}: max abs err {err}")
-    active = (k_st.total_bins.sum(0) - carry.total_bins.sum(1)).to(
+    active = chain_totals(mod, k_st) - carry.total_bins.sum(1).to(
         torch.int64)
-    work = (board_work(spec, C, int(active.sum())) if mod is board_shared
-            else full3d_work(spec, C, active))
+    work = work_of(mod, spec, C, active)
     phase("compare", f"{name}: kernel == twin on all {len(vars(k_st))} "
           f"state fields; {int(active.sum())} proposals; kernel "
           f"{kernel_ms:.3f} ms, twin {twin_ms:.1f} ms")
@@ -353,6 +435,208 @@ def qmax_search():
           f"{res.moves_per_sec:.4e} moves/s")
 
 
+def rescore(energy_fn, states, per_call=2 ** 25):
+    """Oracle energies of a batch of states, in slices that keep the
+    O(cells^2) pair tensors small."""
+    states = torch.as_tensor(np.asarray(states)).cuda()
+    cells = states[0].numel() // (3 if states.shape[-1] == 3 else 1)
+    step = max(1, per_call // (cells * cells))
+    return torch.cat([energy_fn(states[i:i + step])
+                      for i in range(0, len(states), step)]).cpu().numpy()
+
+
+@contextlib.contextmanager
+def recorded_runs():
+    """Every ``runner.run_experiment`` call made by the drivers, with its
+    result, so each run's best states can be re-scored."""
+    runs, orig = [], runner.run_experiment
+
+    def record(**kw):
+        res = orig(**kw)
+        runs.append((kw, res))
+        return res
+
+    runner.run_experiment = record
+    try:
+        yield runs
+    finally:
+        runner.run_experiment = orig
+
+
+def check_oracle(path, runs, energy_fn):
+    """Each run's reported best energies equal the oracle's re-score of its
+    best states."""
+    for kw, res in runs:
+        got = rescore(energy_fn, res.best_state)
+        if not np.array_equal(got, res.best_energy):
+            raise AssertionError(f"{path}: N={kw['N']} seed "
+                                 f"{kw['base_seed']}: best energies differ "
+                                 f"from the oracle re-score")
+
+
+def optional_modules():
+    have = []
+    for name in ("yaml", "matplotlib", "pandas"):
+        try:
+            __import__(name)
+            have.append(f"{name} yes")
+        except ImportError:
+            have.append(f"{name} no")
+    phase("slice", "config dicts go through parse_config; importable here: "
+          + ", ".join(have))
+
+
+def pod_scale_slice():
+    """configs/pod_scale.yaml's run as drivers.run_single_n makes it, cut to
+    2^19 of 5M steps, its mesh and checkpoint_dir dropped."""
+    n_steps = 1 << 19
+    cfg = parse_config({
+        "experiment_type": "single_N",
+        "common": {"n_steps": n_steps, "n_runs": 4096, "verbose": True,
+                   "initialization": "random", "mcmc_type": "board",
+                   "early_stop_patience": None,
+                   "betta_scheduling": {"type": "linear_annealing",
+                                        "base_seed": 42, "beta_const": 5.0,
+                                        "beta_start": 1.0, "beta_end": 5.0},
+                   "output_path": "figures/pod_energy_history.png"},
+        "single_N": {"N": 20},
+        "tpu": {"kernel": "pallas", "history_stride": 16384}})
+    N, stride = cfg.section("single_N")["N"], cfg.tpu.history_stride
+    n_segs, seg_outer = runner.plan_segments(-(-n_steps // stride),
+                                             cfg.n_runs, stride,
+                                             min_segments=10)
+    schedule = build_schedule("linear_annealing", n_steps, beta_start=1.0,
+                              beta_end=5.0)
+    zero_launches()
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        res = runner.run_experiment(
+            N=N, n_steps=n_steps, init_mode=cfg.init_mode, schedule=schedule,
+            n_runs=cfg.n_runs, base_seed=42, device="cuda",
+            mcmc_type=cfg.mcmc_type,
+            early_stop_patience=cfg.early_stop_patience,
+            verbose=cfg.verbose, history_stride=stride,
+            kernel=cfg.tpu.kernel, n_bins=cfg.tpu.n_bins)
+    got = check_launches("pod-scale slice",
+                         {metropolis_pallas: n_segs * seg_outer})
+    check_oracle("pod-scale slice", [({"N": N, "base_seed": 42}, res)],
+                 board_energy)
+    if res.energy_history.shape != (4096, n_steps // stride + 1):
+        raise AssertionError("pod-scale history has the wrong shape")
+    if not (res.total_bins.sum(1) == n_steps).all():
+        raise AssertionError("pod-scale runs did not take every step")
+    phase("slice", f"pod scale N={N} runs=4096 steps={n_steps} "
+          f"stride={stride}: best energy {int(res.best_energy.min())}, mean "
+          f"{res.best_energy.mean():.2f} (oracle re-score of all 4096 best "
+          f"boards equal); {got[metropolis_pallas]} kernel launches; "
+          f"{res.moves_per_sec:.4e} moves/s; last progress line: "
+          f"{log.getvalue().strip().splitlines()[-2]}")
+    return got[metropolis_pallas]
+
+
+def beyond_reference_slice():
+    """configs/beyond_reference.yaml's sweep through
+    drivers.measure_min_energy_vs_n, cut to 62500 of 8M steps."""
+    n_steps = 62500
+    cfg = parse_config({
+        "experiment_type": "measure_min_energy_vs_N",
+        "common": {"n_steps": n_steps, "n_runs": 128, "verbose": False,
+                   "initialization": "random", "mcmc_type": "board",
+                   "early_stop_patience": "None",
+                   "betta_scheduling": {"type": "linear_annealing",
+                                        "base_seed": 4242, "beta_start": 1.0,
+                                        "beta_end": 5.5},
+                   "output_path": "min_energy_vs_N_beyond_reference.png"},
+        "measure_min_energy_vs_N": {
+            "Ns": [16, 17, 19, 20, 23, 24, 28, 29, 31, 32],
+            "init_modes": ["random", "klarner"]},
+        "tpu": {"kernel": "pallas", "history_stride": 62500}})
+    params = cfg.section("measure_min_energy_vs_N")
+    schedule = build_schedule("linear_annealing", n_steps, beta_start=1.0,
+                              beta_end=5.5)
+    zero_launches()
+    with recorded_runs() as runs:
+        out = drivers.measure_min_energy_vs_n(
+            Ns=params["Ns"], n_steps=n_steps, schedule=schedule,
+            init_modes=params["init_modes"], n_runs=cfg.n_runs,
+            base_seed=4242, verbose=False, plot=False,
+            mcmc_type=cfg.mcmc_type,
+            early_stop_patience=cfg.early_stop_patience, tpu=cfg.tpu,
+            device="cuda")
+    cells = len(params["Ns"]) * len(params["init_modes"])
+    got = check_launches("beyond-reference slice", {metropolis_pallas: cells})
+    check_oracle("beyond-reference slice", runs, board_energy)
+    res = out["results"]
+    for idx, N in enumerate(params["Ns"]):
+        if N in (17, 19, 23, 29, 31) and (
+                res["klarner"]["all_min_energies"][idx].any()):
+            raise AssertionError(f"klarner N={N} did not report energy 0")
+    table = ", ".join(
+        f"{N}: {res['random']['mean_min_energies'][i]:.2f}/"
+        f"{res['klarner']['mean_min_energies'][i]:.2f}"
+        for i, N in enumerate(params["Ns"]))
+    phase("slice", f"beyond-reference sweep 10 N x 2 inits x 128 runs x "
+          f"{n_steps} steps: mean best energy random/klarner by N {{{table}}}"
+          f"; klarner N in (17, 19, 23, 29, 31) at 0; 2560 best boards "
+          f"equal their oracle re-score; {got[metropolis_pallas]} kernel "
+          f"launches")
+    return got[metropolis_pallas]
+
+
+def full3d_pairs_slice():
+    """config.yaml's beta_start_end_pairs section through
+    drivers.run_beta_start_end_pairs with mcmc_type full_3d and kernel
+    pallas: n_runs 10 -> 4096, steps 1M -> 2^17, stride 16384."""
+    n_steps, stride = 1 << 17, 16384
+    cfg = parse_config({
+        "experiment_type": "beta_start_end_pairs",
+        "common": {"n_steps": n_steps, "n_runs": 4096, "verbose": False,
+                   "initialization": "random", "mcmc_type": "full_3d",
+                   "early_stop_patience": "None",
+                   "betta_scheduling": {"type": "exponential_annealing",
+                                        "base_seed": 42, "beta_const": 5.0,
+                                        "beta_start": 1.0, "beta_end": 3.0},
+                   "output_path": "figures/energy_history_N3to15.png"},
+        "beta_start_end_pairs": {
+            "N": 12, "beta_start_ends": [[0.5, 3.0], [0.1, 5.0], [1.0, 5.0]],
+            "annealing_type": "linear_annealing"},
+        "tpu": {"kernel": "pallas", "history_stride": stride}})
+    params = cfg.section("beta_start_end_pairs")
+    n_segs, seg_outer = runner.plan_segments(-(-n_steps // stride),
+                                             cfg.n_runs, stride)
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recorded_runs() as runs:
+        out = drivers.run_beta_start_end_pairs(
+            N=params["N"], n_steps=n_steps,
+            beta_start_ends=params["beta_start_ends"],
+            annealing_type=params["annealing_type"],
+            init_mode=cfg.init_mode, n_runs=cfg.n_runs,
+            base_seed=cfg.sched_cfg["base_seed"], verbose=False, plot=False,
+            mcmc_type=cfg.mcmc_type,
+            early_stop_patience=cfg.early_stop_patience, tpu=cfg.tpu,
+            device="cuda")
+    wall = time.perf_counter() - t0
+    pairs = len(params["beta_start_ends"])
+    got = check_launches("full-3D pairs slice",
+                         {full3d_pallas: pairs * n_segs * seg_outer})
+    check_oracle("full-3D pairs slice", runs, full3d_energy)
+    for _, res in runs:
+        if any(len({tuple(q) for q in s.tolist()}) != 144
+               for s in res.best_state[:64]):
+            raise AssertionError("full-3D best placement with shared cells")
+    bests = {k: f"{int(v.min())}/{v.mean():.2f}"
+             for k, v in out["all_best_energies"].items()}
+    props = sum(r.proposals for _, r in runs)
+    phase("slice", f"full-3D pairs N=12 Q=144 runs=4096 steps={n_steps} "
+          f"stride={stride}: best min/mean by pair {bests} (oracle re-score "
+          f"of all 12288 best placements equal); {got[full3d_pallas]} kernel "
+          f"launches; {props / wall:.4e} moves/s over the three pairs; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+          f"GiB")
+    return got[full3d_pallas]
+
+
 def throughput(mod, label, spec, chain_counts, bounds):
     seg_steps = spec.history_stride
     for chains in chain_counts:
@@ -379,13 +663,11 @@ def throughput(mod, label, spec, chain_counts, bounds):
         st = mod.segment_state(carry)
         beta = board_shared.chunk_betas(spec, seg * seg_steps, seg_steps,
                                         st.energy.device)
-        before = st.total_bins.sum(0)
+        before = chain_totals(mod, st)
         k_ms = cuda_ms(lambda: mod.segment_cuda(
             st, seg * seg_steps, seg_steps, spec, beta))
-        active = (st.total_bins.sum(0) - before).to(torch.int64)
-        work = (board_work(spec, chains, int(active.sum()))
-                if mod is board_shared else full3d_work(spec, chains, active))
-        bound_ms, bound_by = bounds.of(*work)
+        active = chain_totals(mod, st) - before
+        bound_ms, bound_by = bounds.of(*work_of(mod, spec, chains, active))
         phase("throughput", f"{label} chains={chains}: {rate:.4e} proposed "
               f"moves/s over {seg - 1} x {seg_steps}-step run_segment calls "
               f"({elapsed:.2f} s); kernel alone {k_ms:.1f} ms per "
@@ -465,10 +747,60 @@ def main():
             8, 2 ** 25, 1028, lin(2 ** 25, 0.5, 5.0), mcmc_type="full_3d",
             Q=48, n_bins=50), 4096, 16330, 0, None),
     ]
+    metropolis_cases = [
+        ("metropolis pod-scale chunk N=20 C=4096 256 steps",
+         pspec_of(20, 5_000_000, 256, lin(5_000_000, 1.0, 5.0)), 4096, 0,
+         42, None),
+        ("metropolis bench shape N=16 C=32768 48 steps",
+         pspec_of(16, 2 ** 24, 48, lin(2 ** 24, 1.0, 5.0)), 32768, 0, 0,
+         None),
+        ("metropolis N=32 C=128 512 steps",
+         pspec_of(32, 8_000_000, 512, lin(8_000_000, 1.0, 5.5)), 128, 0,
+         4242, None),
+        ("metropolis N=5 patience 40 beta=50", pspec_of(
+            5, 600, 600, const(600, 50.0), early_stop_patience=40),
+         1024, 0, 3, None),
+        ("metropolis N=11 klarner beta=100", pspec_of(
+            11, 256, 256, const(256, 100.0), init_mode="klarner"),
+         256, 0, 0, None),
+        ("metropolis N=2", pspec_of(2, 300, 300, lin(300, 0.5, 3.0)), 256, 0,
+         0, None),
+        ("metropolis N=12 1000 chains (padding)",
+         pspec_of(12, 100_000, 128, lin(100_000, 1.0, 3.0)), 1000, 0, 7,
+         None),
+        ("metropolis N=16 C=4096 step0 > 2^24", pspec_of(
+            16, 2 ** 25, 1024, lin(2 ** 25, 1.0, 5.0), n_bins=50),
+         4096, 16387, 0, None),
+    ]
+    full3d_pallas_cases = [
+        ("full3d_pallas N=12 Q=144 C=4096 256 steps",
+         pspec_of(12, 1 << 17, 256, lin(1 << 17, 0.5, 3.0),
+                  mcmc_type="full_3d"), 4096, 0, 42, None),
+        ("full3d_pallas N=15 Q=225 C=4096 128 steps",
+         pspec_of(15, 8_000_000, 128, lin(8_000_000, 0.8, 7.0),
+                  mcmc_type="full_3d"), 4096, 0, 0, None),
+        ("full3d_pallas N=3 Q=26 long attempt runs", pspec_of(
+            3, 512, 512, lin(512, 0.5, 3.0), mcmc_type="full_3d", Q=26),
+         256, 0, 0, None),
+        ("full3d_pallas N=2 Q=7", pspec_of(
+            2, 512, 512, lin(512, 0.5, 3.0), mcmc_type="full_3d", Q=7),
+         256, 0, 0, None),
+        ("full3d_pallas N=5 Q=13 patience 40 beta=50", pspec_of(
+            5, 600, 600, const(600, 50.0), mcmc_type="full_3d", Q=13,
+            early_stop_patience=40), 1024, 0, 3, None),
+        ("full3d_pallas N=11 klarner Q=121 beta=100", pspec_of(
+            11, 256, 256, const(256, 100.0), mcmc_type="full_3d",
+            init_mode="klarner"), 256, 0, 0, None),
+        ("full3d_pallas N=8 Q=48 step0 > 2^24", pspec_of(
+            8, 2 ** 25, 1028, lin(2 ** 25, 0.5, 5.0), mcmc_type="full_3d",
+            Q=48, n_bins=50), 1000, 16330, 0, None),
+    ]
     results = {}
     with timed("compare"):
         for mod, cases in ((board_shared, board_cases),
-                           (full3d_shared, full3d_cases)):
+                           (full3d_shared, full3d_cases),
+                           (metropolis_pallas, metropolis_cases),
+                           (full3d_pallas, full3d_pallas_cases)):
             for name, spec, n_chains, start_outer, seed0, lad in cases:
                 res = compare_case(mod, name, spec, n_chains, start_outer,
                                    seed0, lad)
@@ -493,6 +825,8 @@ def main():
                     share = float(st.accept_bins.sum() / st.total_bins.sum())
                     phase("compare", f"{name}: accept share {share:.4f} "
                           f"(1 of 27 candidates is free)")
+                if "padding" in name and st.energy.shape[0] != 1024:
+                    raise AssertionError(f"{name}: not padded to 1024")
 
     # 4. the main paths end to end ---------------------------------------
     with timed("slice board"):
@@ -503,6 +837,13 @@ def main():
         full3d_launches = full3d_slice()
     with timed("slice qmax"):
         qmax_search()
+    optional_modules()
+    with timed("slice pod scale"):
+        metropolis_launches = pod_scale_slice()
+    with timed("slice beyond reference"):
+        metropolis_launches += beyond_reference_slice()
+    with timed("slice full3d pairs"):
+        full3d_pallas_launches = full3d_pairs_slice()
 
     # 5. throughput -------------------------------------------------------
     with timed("throughput board"):
@@ -516,6 +857,18 @@ def main():
                    spec_of(15, horizon, 62500, lin(horizon, 0.8, 7.0),
                            mcmc_type="full_3d"),
                    (65536, 4096), bounds)
+    with timed("throughput metropolis"):
+        horizon = 2 ** 24
+        throughput(metropolis_pallas, "metropolis N=16 (bench.py --kernel "
+                   "pallas configuration)",
+                   pspec_of(16, horizon, 32768, lin(horizon, 1.0, 5.0)),
+                   (32768, 4096), bounds)
+    with timed("throughput full3d_pallas"):
+        horizon = 8_000_000
+        throughput(full3d_pallas, "full3d_pallas N=15 Q=225",
+                   pspec_of(15, horizon, 8192, lin(horizon, 0.8, 7.0),
+                            mcmc_type="full_3d"),
+                   (65536, 4096), bounds)
 
     leaked = sorted(m for m in set(sys.modules) - _PRELOADED
                     if m == "jax" or m.startswith(("jax.", "mcqueens.")))
@@ -526,7 +879,11 @@ def main():
     for mod, launches, case in (
             (board_shared, board_launches, "board N=16 C=4096 2048 steps"),
             (full3d_shared, full3d_launches,
-             "full3d floors launch N=15 Q=225 C=65536 44 steps ladder 16")):
+             "full3d floors launch N=15 Q=225 C=65536 44 steps ladder 16"),
+            (metropolis_pallas, metropolis_launches,
+             "metropolis pod-scale chunk N=20 C=4096 256 steps"),
+            (full3d_pallas, full3d_pallas_launches,
+             "full3d_pallas N=12 Q=144 C=4096 256 steps")):
         res = results[case]
         bound_ms, bound_by = bounds.of(*res["work"])
         phase("bound", f"{KERNELS[mod]['name']} on '{case}': "

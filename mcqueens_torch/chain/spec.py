@@ -1,9 +1,9 @@
 """Static chain configuration, port of :mod:`mcqueens.chain.spec`.
 
 Same fields, defaults and guards as the JAX :class:`ChainSpec`; only its
-schedule type is the port's.  The port runs ``kernel="pallas_shared"``
-board chains so far; the other kernel names stay valid here so a spec
-round-trips between the packages, and the runner refuses them.
+schedule type is the port's.  The port runs the ``pallas`` and
+``pallas_shared`` kernels; ``tables`` and ``naive`` stay valid here so a
+spec round-trips between the packages, and the runner refuses them.
 """
 
 from __future__ import annotations

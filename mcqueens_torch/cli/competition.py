@@ -1,17 +1,18 @@
 """Competition CLI: anneal hard, export the best placement (PyTorch port).
 
 Same flags, defaults, guards and export format as
-``python -m mcqueens.cli.competition`` except ``--kernel``, which accepts only
-``pallas_shared`` (the shared-site samplers, the ones ported so far) and
-defaults to it, and ``--device`` (default ``cuda``; ``cpu`` runs the
-kernels' plain-torch twins).  ``--mcmc-type board|full_3d``, ``--q`` and
-``--tempering`` with ``--exchange-interval`` run as in the JAX CLI;
-``--mesh`` and ``--checkpoint-dir`` are not ported yet and are refused.
+``python -m mcqueens.cli.competition`` except ``--kernel``, which accepts the
+ported samplers, ``pallas_shared`` (shared sites, the default) and
+``pallas`` (independent chains), and ``--device`` (default ``cuda``; ``cpu``
+runs the kernels' plain-torch twins).  ``--mcmc-type board|full_3d``, ``--q``
+and ``--tempering`` (``pallas_shared`` only) with ``--exchange-interval`` run
+as in the JAX CLI; ``--mesh`` and ``--checkpoint-dir`` are not ported yet and
+are refused.
 
     python -m mcqueens_torch.cli.competition [--n 15] [--n-runs 10]
         [--n-steps 100000] [--beta-start 1.0] [--beta-end 3.0] [--seed 42]
-        [--mcmc-type board|full_3d] [--q Q] [--tempering L]
-        [--device cuda] [--outdir .]
+        [--kernel pallas_shared|pallas] [--mcmc-type board|full_3d] [--q Q]
+        [--tempering L] [--device cuda] [--outdir .]
 """
 
 from __future__ import annotations
@@ -40,9 +41,10 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--early-stop-patience", type=int, default=None)
     parser.add_argument("--kernel", default="pallas_shared",
-                        choices=("pallas_shared",),
-                        help="the shared-site samplers (hand-written CUDA "
-                             "kernels on --device cuda)")
+                        choices=("pallas_shared", "pallas"),
+                        help="pallas_shared: the shared-site samplers; "
+                             "pallas: independent chains (hand-written "
+                             "CUDA kernels on --device cuda)")
     parser.add_argument("--history-stride", type=int, default=None,
                         help="default: n_steps // 1024 (one kernel launch "
                              "per history point)")
@@ -52,8 +54,9 @@ def main(argv=None) -> int:
     parser.add_argument("--tempering", type=int, default=0, metavar="L",
                         help="parallel tempering with an L-level geometric "
                              "beta ladder spanning [beta-start, beta-end] "
-                             "(constant in time).  Chain c sits at ladder "
-                             "level c %% L.")
+                             "(constant in time).  Requires --kernel "
+                             "pallas_shared.  Chain c sits at ladder level "
+                             "c %% L.")
     parser.add_argument("--mesh", action="store_true")
     parser.add_argument("--outdir", default=".")
     parser.add_argument("--checkpoint-dir", default=None, metavar="DIR")
@@ -113,6 +116,9 @@ def main(argv=None) -> int:
 
     if args.tempering:
         from mcqueens_torch.search import tempering
+
+        if args.kernel != "pallas_shared":
+            parser.error("--tempering requires --kernel pallas_shared")
 
         spec = ChainSpec(
             N=args.n, n_steps=args.n_steps,

@@ -119,3 +119,25 @@ def schedule_from_params(params: dict, n_steps: int) -> Schedule:
         beta_start=params.get("beta_start"),
         beta_end=params.get("beta_end"),
     )
+
+
+def schedule_from_common(common_cfg: dict, n_steps: int):
+    """``(schedule, base_seed)`` from a config's ``common`` section (the
+    reference YAML schema, ``betta_scheduling`` spelling included)."""
+    sched_cfg = common_cfg["betta_scheduling"]
+    return (build_schedule(sched_type=sched_cfg["type"], n_steps=n_steps,
+                           beta_const=sched_cfg.get("beta_const"),
+                           beta_start=sched_cfg.get("beta_start"),
+                           beta_end=sched_cfg.get("beta_end")),
+            sched_cfg.get("base_seed", 0))
+
+
+def schedules_from_types(sched_types, sched_cfg: dict, n_steps: int):
+    """One ``(schedule, base_seed)`` per type, all sharing the config's
+    ``base_seed`` and beta values (the multi-schedule comparison)."""
+    base_seed = sched_cfg["base_seed"]
+    return [(build_schedule(sched_type=kind, n_steps=n_steps,
+                            beta_const=sched_cfg.get("beta_const"),
+                            beta_start=sched_cfg.get("beta_start"),
+                            beta_end=sched_cfg.get("beta_end")), base_seed)
+            for kind in sched_types]

@@ -3,10 +3,12 @@
 All runs are one batch of chains on ``device``.  Long runs execute as
 equal-length segments (:func:`plan_segments`, unchanged from the JAX package
 so segment boundaries and histories match) while the host reads each
-segment's energy history.  The ``pallas_shared`` samplers are ported, for
-boards (:mod:`mcqueens_torch.kernels.board_shared`) and for full-3D
-placements (:mod:`mcqueens_torch.kernels.full3d_shared`); every other kernel
-raises ``NotImplementedError``.
+segment's energy history.  The ``pallas_shared`` samplers
+(:mod:`mcqueens_torch.kernels.board_shared`, :mod:`~.full3d_shared`) and the
+independent-chains ``pallas`` samplers
+(:mod:`mcqueens_torch.kernels.metropolis_pallas`, :mod:`~.full3d_pallas`) are
+ported, each for boards and full-3D placements; the scan kernels ``tables``
+and ``naive`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import numpy as np
 import torch
 
 from mcqueens_torch.chain.spec import ChainSpec
-from mcqueens_torch.kernels import board_shared, full3d_shared
+from mcqueens_torch.kernels import (board_shared, full3d_pallas,
+                                   full3d_shared, metropolis_pallas)
 
 _MAX_SEGMENT_ELEMS = 64 * 1024 * 1024
 _MAX_SEGMENT_PROPOSALS = 2 ** 31
@@ -89,12 +92,14 @@ def _device(device) -> torch.device:
 
 
 def _modules(spec: ChainSpec):
+    board = spec.mcmc_type == "board"
     if spec.kernel == "pallas_shared":
-        return board_shared if spec.mcmc_type == "board" else full3d_shared
+        return board_shared if board else full3d_shared
+    if spec.kernel == "pallas":
+        return metropolis_pallas if board else full3d_pallas
     raise NotImplementedError(
         f"kernel={spec.kernel!r} mcmc_type={spec.mcmc_type!r} is not "
-        "ported yet (ROADMAP.md queue 1: the per-chain kernels are item 5, "
-        "the scan paths item 6)")
+        "ported yet (ROADMAP.md queue 1 item 6: the scan paths)")
 
 
 def validate_initial_states(initial_states, spec: ChainSpec, n_runs: int):

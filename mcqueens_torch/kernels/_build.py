@@ -31,7 +31,22 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
     "mcq_board_shared_segment": [_P] * 13 + [_I] * 8 + [_P],
     "mcq_full3d_shared_segment": [_P] * 17 + [_I] * 9 + [_P],
+    "mcq_metropolis_segment": [_P] * 11 + [_I] * 7 + [_P],
+    "mcq_full3d_pallas_segment": [_P] * 16 + [_I] * 8 + [_P],
 }
+# Shared memory one block may opt into on the H100 (sm_90).
+SMEM_PER_BLOCK = 232448
+
+
+def check_args(dev, want) -> None:
+    """Raise ``ValueError`` unless every ``name -> (tensor, shape, dtype)``
+    of ``want`` is a contiguous tensor of that shape and dtype on ``dev``."""
+    for name, (t, shape, dtype) in want.items():
+        if (t.device != dev or t.dtype != dtype or not t.is_contiguous()
+                or tuple(t.shape) != tuple(shape)):
+            raise ValueError(
+                f"{name}: want contiguous {dtype} {tuple(shape)} on {dev}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _nvcc() -> str:

@@ -1,14 +1,42 @@
-"""Full-3D carry and init, port of :mod:`mcqueens.kernels.full3d_pallas`.
+"""Per-chain full-3D Metropolis, port of :mod:`mcqueens.kernels.full3d_pallas`.
 
-The JAX module holds the per-chain full-3D kernel (``_kernel``: exact
-rejection sampling over an occupancy bitfield, one O(Q) pass per step) and
-the carry/init that the shared-site sampler
-(:mod:`mcqueens_torch.kernels.full3d_shared`) also starts from.  Only the
-carry and init are ported here; the per-chain kernel is still to port
-(ROADMAP.md queue 2 item 4), so nothing in this module launches a kernel.
+Q queens sit on distinct cells of the N^3 cube.  Every chain draws its own
+proposal from its seed's counter stream (:mod:`mcqueens_torch.kernels.prng`):
+with ``base = step_base(g, step)`` and ``w_q, w_u = words_from_base(base)``
+the mover is queen ``w_q % Q``, and the target is the first free cell among
+the attempts ``a = 0, 1, ...`` of ``word_from_base(base, _A_SALT + a) % N^3``
+(exact rejection sampling, no cap on attempts), checked against the chain's
+``ceil(N^3/32)``-word occupancy bitfield.  Then
+
+    dE = sum over the other Q-1 queens of
+         attack(queen, new cell) - attack(queen, old cell)
+
+and the chain accepts when ``u < exp(-beta(step) * dE)``.  Patience
+early-stop, exact best placements (``best_step = step + 1``) and the per-bin
+accept/total counts follow the JAX kernel step for step.  No stream is shared
+between chains, so trajectories do not depend on the block partition; the
+carry is still padded to whole blocks of :func:`block_size` as JAX pads it.
+The carry and init here also start the shared-site sampler
+(:mod:`mcqueens_torch.kernels.full3d_shared`).
+
+One chunk of ``n_inner`` steps has two implementations over the same
+chains-major state (:class:`SegmentState`), both updating it in place:
+
+  * :func:`segment_cuda` launches the hand-written CUDA kernel
+    (``csrc/full3d_pallas.cu``) and counts the launch in
+    :data:`KERNEL_LAUNCHES`;
+  * :func:`segment_reference` is its plain-torch twin (vectorised over
+    chains, a Python loop over steps, JAX's one-vs-all dE with the mover's
+    own row cancelled arithmetically).
+
+:func:`segment_call` takes the twin only for CPU tensors and the kernel only
+for CUDA tensors; there is no fallback between them.
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -16,10 +44,17 @@ import torch
 from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.core import fastinit
 from mcqueens_torch.core import tables as tables_mod
-from mcqueens_torch.kernels import sizing
+from mcqueens_torch.kernels import prng, sizing
+from mcqueens_torch.kernels.board_shared import chunk_betas
 from mcqueens_torch.kernels.carry import Full3DCarry
 
 DEFAULT_BLOCK = 2048
+_A_SALT = prng._i32(0x3C6EF372)  # attempt-word stream offset
+_ATTEMPTS = 32  # rejection attempts the twin tests at once
+
+# Launches of the CUDA kernel in this process (read and reset by callers
+# that check the main path really ran on the card).
+KERNEL_LAUNCHES = 0
 
 
 def _qs(Q: int) -> int:
@@ -110,3 +145,235 @@ def init_carry_batch(seeds, spec: ChainSpec, block: int | None = None,
         total_bins=torch.zeros((C, spec.n_bins), dtype=torch.int32,
                                device=device),
     )
+
+
+@dataclasses.dataclass
+class SegmentState:
+    """One segment's working state, chains major (contiguous int32), as the
+    carry holds it: a warp of CUDA threads (one chain) loads its queens and
+    its bitfield as contiguous rows.  The chunk implementations update it in
+    place."""
+
+    qi: torch.Tensor            # (C, Q)
+    qj: torch.Tensor
+    qk: torch.Tensor
+    occ: torch.Tensor           # (C, ceil(N^3/32))
+    best_qi: torch.Tensor       # (C, Q)
+    best_qj: torch.Tensor
+    best_qk: torch.Tensor
+    energy: torch.Tensor        # (C,)
+    best_energy: torch.Tensor   # (C,)
+    best_step: torch.Tensor     # (C,)
+    no_improve: torch.Tensor    # (C,)
+    stop_step: torch.Tensor     # (C,)
+    accept_bins: torch.Tensor   # (C, n_bins)
+    total_bins: torch.Tensor    # (C, n_bins)
+    chain_seeds: torch.Tensor   # (C,)
+
+
+_ROWS = ("energy", "best_energy", "best_step", "no_improve", "stop_step",
+         "chain_seeds")
+_PLANES = ("qi", "qj", "qk", "occ", "best_qi", "best_qj", "best_qk",
+           "accept_bins", "total_bins")
+
+
+def segment_state(carry: Full3DCarry) -> SegmentState:
+    """A fresh :class:`SegmentState` holding copies of the carry's fields."""
+    kw = {name: getattr(carry, name).clone().contiguous()
+          for name in _PLANES}
+    kw.update({name: getattr(carry, name).reshape(-1).clone()
+               for name in _ROWS})
+    return SegmentState(**kw)
+
+
+def carry_of(st: SegmentState, block_seeds: torch.Tensor) -> Full3DCarry:
+    """Inverse of :func:`segment_state`; ``block_seeds`` passes through."""
+    kw = {name: getattr(st, name) for name in _PLANES}
+    kw.update({name: getattr(st, name)[:, None] for name in _ROWS})
+    return Full3DCarry(block_seeds=block_seeds, **kw)
+
+
+def _attack_ind(p, q, r):
+    """JAX's 0/1 attack indicator of two distinct cells at distance
+    (p, q, r): every nonzero squared distance equals the largest.  At
+    distance 0 it is 8, which callers cancel."""
+    p2, q2, r2 = p * p, q * q, r * r
+    m = torch.maximum(p2, torch.maximum(q2, r2))
+    bp = (p2 == 0).int() + (p2 == m).int()
+    bq = (q2 == 0).int() + (q2 == m).int()
+    br = (r2 == 0).int() + (r2 == m).int()
+    return bp * bq * br
+
+
+def _bit(occ, cell):
+    """Bit ``cell`` of each chain's bitfield, for (C, K) cells."""
+    return (occ.gather(1, (cell // 32).long()) >> (cell % 32)) & 1
+
+
+def _free_cell(occ, base, N3):
+    """(C,) first free cell of the attempts a = 0, 1, ...: cell
+    ``word_from_base(base, _A_SALT + a) % N3`` (the JAX kernel's exact
+    rejection sampling; attempts are tested ``_ATTEMPTS`` at a time)."""
+    cell = torch.zeros_like(base)
+    found = torch.zeros_like(base, dtype=torch.bool)
+    a = 0
+    while True:
+        salt = _A_SALT + torch.arange(a, a + _ATTEMPTS, dtype=torch.int32,
+                                      device=base.device)
+        cand = prng.word_from_base(base[:, None], salt[None]) % N3
+        free = _bit(occ, cand) == 0
+        first = free.int().argmax(1, keepdim=True)
+        take = free.any(1) & ~found
+        cell = torch.where(take, cand.gather(1, first)[:, 0], cell)
+        found |= take
+        if bool(found.all()):
+            return cell
+        a += _ATTEMPTS
+
+
+def _update_bits(occ, old, new, upd):
+    """Clear bit ``old`` and set bit ``new`` where ``upd`` ((C,) each)."""
+    bits = torch.tensor([prng._i32(1 << b) for b in range(32)],
+                        dtype=torch.int32, device=occ.device)
+    for cell, setting in ((old, False), (new, True)):
+        w = (cell // 32).long()[:, None]
+        word = occ.gather(1, w)[:, 0]
+        bit = bits[(cell % 32).long()]
+        flipped = word | bit if setting else word & ~bit
+        occ.scatter_(1, w, torch.where(upd, flipped, word)[:, None])
+
+
+def segment_reference(st: SegmentState, step0: int, n_inner: int,
+                      spec: ChainSpec, beta: torch.Tensor) -> None:
+    """Plain-torch twin of the CUDA kernel: advance every chain by
+    ``n_inner`` steps from global step ``step0``, in place."""
+    N, Q = spec.N, spec.q_eff
+    NN, N3 = N * N, N ** 3
+    nb, n_steps = spec.n_bins, spec.n_steps
+    patience = spec.early_stop_patience
+    g = prng.chain_streams(st.chain_seeds)
+    planes = (st.qi, st.qj, st.qk)
+    best_planes = (st.best_qi, st.best_qj, st.best_qk)
+    e, be, bs = st.energy.clone(), st.best_energy.clone(), st.best_step.clone()
+    ni, stp = st.no_improve.clone(), st.stop_step.clone()
+    # Steps at or past n_steps are inactive for every chain: nothing changes.
+    for t in range(max(0, min(n_inner, n_steps - step0))):
+        gstep = step0 + t
+        active = stp >= n_steps
+        base = prng.step_base(g, gstep)
+        w_q, w_u = prng.words_from_base(base)
+        mover = (w_q % Q).long()[:, None]
+        u = prng.uniform01(w_u)
+        ox, oy, oz = (p.gather(1, mover)[:, 0] for p in planes)
+        new = _free_cell(st.occ, base, N3)
+        nx, ny, nz = new // NN, (new // N) % N, new % N
+        # One-vs-all over every row; the mover's own row gives
+        # attack(old, new) - 8, cancelled below.
+        att = (_attack_ind(st.qi - nx[:, None], st.qj - ny[:, None],
+                           st.qk - nz[:, None])
+               - _attack_ind(st.qi - ox[:, None], st.qj - oy[:, None],
+                             st.qk - oz[:, None]))
+        de = (att.sum(1, dtype=torch.int32)
+              - _attack_ind(ox - nx, oy - ny, oz - nz) + 8)
+        accept = u < torch.exp(-beta[t] * de.to(torch.float32))
+        upd = accept & active
+        for p, old_x, new_x in zip(planes, (ox, oy, oz), (nx, ny, nz)):
+            p.scatter_(1, mover, torch.where(upd, new_x, old_x)[:, None])
+        _update_bits(st.occ, (ox * N + oy) * N + oz, new, upd)
+        e = e + torch.where(upd, de, 0)
+        improved = upd & (e < be)
+        for bp, p in zip(best_planes, planes):
+            bp.copy_(torch.where(improved[:, None], p, bp))
+        be = torch.where(improved, e, be)
+        bs = torch.where(improved, gstep + 1, bs)
+        ni = torch.where(active, torch.where(improved, 0, ni + 1), ni)
+        if patience is not None:
+            stp = torch.where(active & (ni >= patience), gstep, stp)
+        b = min(gstep * nb // n_steps, nb - 1)
+        st.accept_bins[:, b] += upd.int()
+        st.total_bins[:, b] += active.int()
+    for name, val in (("energy", e), ("best_energy", be), ("best_step", bs),
+                      ("no_improve", ni), ("stop_step", stp)):
+        getattr(st, name).copy_(val)
+
+
+def smem_bytes(spec: ChainSpec) -> int:
+    """Shared memory the kernel holds per chain: its packed queens, packed
+    best queens and occupancy bitfield."""
+    return 4 * (2 * spec.q_eff + _occ_words(spec.N))
+
+
+def segment_cuda(st: SegmentState, step0: int, n_inner: int,
+                 spec: ChainSpec, beta: torch.Tensor) -> None:
+    """Advance every chain by ``n_inner`` steps with the CUDA kernel
+    (asynchronous on the current stream; counts the launch)."""
+    global KERNEL_LAUNCHES
+    from mcqueens_torch.kernels import _build
+
+    Q, C, nb = spec.q_eff, st.energy.shape[0], spec.n_bins
+    dev = st.qi.device
+    i32 = torch.int32
+    _build.check_args(dev, {
+        **{name: (getattr(st, name), (C, Q), i32) for name in (
+            "qi", "qj", "qk", "best_qi", "best_qj", "best_qk")},
+        "occ": (st.occ, (C, _occ_words(spec.N)), i32),
+        "accept_bins": (st.accept_bins, (C, nb), i32),
+        "total_bins": (st.total_bins, (C, nb), i32),
+        **{name: (getattr(st, name), (C,), i32) for name in _ROWS},
+        "beta": (beta, (n_inner,), torch.float32),
+    })
+    if smem_bytes(spec) > _build.SMEM_PER_BLOCK:
+        raise ValueError(
+            f"the full3d_pallas kernel keeps a chain's queens, best queens "
+            f"and occupancy bitfield in shared memory: 4*(2Q + ceil(N^3/32)) "
+            f"= {smem_bytes(spec)} bytes at N={spec.N}, Q={Q} exceeds the "
+            f"{_build.SMEM_PER_BLOCK} bytes a block may hold (N <= 104 at "
+            f"Q = N^2)")
+    if C == 0:
+        raise ValueError("no chains")
+    if not 0 <= step0 <= 2 ** 31 - 1 - n_inner:
+        raise ValueError(f"step0={step0} + n_inner={n_inner} overflows int32")
+    lib = _build.load_library()
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (
+        st.qi, st.qj, st.qk, st.best_qi, st.best_qj, st.best_qk, st.occ,
+        st.energy, st.best_energy, st.best_step, st.no_improve,
+        st.stop_step, st.accept_bins, st.total_bins, st.chain_seeds, beta)]
+    patience = spec.early_stop_patience
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mcq_full3d_pallas_segment(
+            *ptrs, step0, n_inner, spec.N, Q, C, spec.n_steps, nb,
+            -1 if patience is None else patience, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"full3d_pallas CUDA kernel launch failed "
+                           f"(cudaError {err})")
+    KERNEL_LAUNCHES += 1
+
+
+def segment_call(st: SegmentState, step0: int, n_inner: int,
+                 spec: ChainSpec) -> None:
+    """One chunk of ``n_inner`` steps: the twin for CPU state, the CUDA
+    kernel for CUDA state, and an error for anything else."""
+    dev = st.qi.device
+    beta = chunk_betas(spec, step0, n_inner, dev)
+    if dev.type == "cpu":
+        segment_reference(st, step0, n_inner, spec, beta)
+    elif dev.type == "cuda":
+        segment_cuda(st, step0, n_inner, spec, beta)
+    else:
+        raise ValueError(f"full3d_pallas runs on cpu or cuda, not {dev}")
+
+
+def run_segment(carry: Full3DCarry, start_outer: int, spec: ChainSpec,
+                n_outer: int):
+    """``n_outer`` chunks of ``history_stride`` steps from chunk
+    ``start_outer``; returns ``(carry, ys)`` with ``ys`` the ``(n_outer, C)``
+    int32 energies after each chunk (one kernel launch per chunk)."""
+    stride = spec.history_stride
+    st = segment_state(carry)
+    ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
+                     device=st.energy.device)
+    for o in range(n_outer):
+        segment_call(st, (int(start_outer) + o) * stride, stride, spec)
+        ys[o].copy_(st.energy)
+    return carry_of(st, carry.block_seeds), ys

@@ -245,30 +245,22 @@ def segment_reference(st: SegmentState, step0: int, n_inner: int,
 
 def _check_cuda_state(st: SegmentState, spec: ChainSpec, n_inner: int,
                       beta: torch.Tensor, beta_scale) -> None:
+    from mcqueens_torch.kernels import _build
+
     Q, C = spec.q_eff, st.energy.shape[0]
     n_blocks = st.block_seeds.shape[0]
+    i32, f32 = torch.int32, torch.float32
     want = {
-        **{name: (Q, C) for name in _PLANES[:6]},
-        "accept_bins": (spec.n_bins, C), "total_bins": (spec.n_bins, C),
-        "block_seeds": (n_blocks,),
-        **{name: (C,) for name in _ROWS},
+        **{name: (getattr(st, name), (Q, C), i32) for name in _PLANES[:6]},
+        "accept_bins": (st.accept_bins, (spec.n_bins, C), i32),
+        "total_bins": (st.total_bins, (spec.n_bins, C), i32),
+        "block_seeds": (st.block_seeds, (n_blocks,), i32),
+        **{name: (getattr(st, name), (C,), i32) for name in _ROWS},
+        "beta": (beta, (n_inner,), f32),
     }
-    dev = st.qi.device
-    for name, shape in want.items():
-        t = getattr(st, name)
-        if t.device != dev or t.dtype != torch.int32:
-            raise ValueError(f"{name}: want int32 on {dev}, got {t.dtype} "
-                             f"on {t.device}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name}: want contiguous {shape}, got "
-                             f"{tuple(t.shape)}")
-    for name, t, shape in (("beta", beta, (n_inner,)),
-                           ("beta_scale", beta_scale, (C,))):
-        if t is not None and (t.device != dev or t.dtype != torch.float32
-                              or tuple(t.shape) != shape
-                              or not t.is_contiguous()):
-            raise ValueError(f"{name}: want contiguous float32 {shape} on "
-                             f"{dev}")
+    if beta_scale is not None:
+        want["beta_scale"] = (beta_scale, (C,), f32)
+    _build.check_args(st.qi.device, want)
     if C == 0 or n_blocks == 0 or C % n_blocks:
         raise ValueError(f"{C} chains do not split into {n_blocks} blocks")
 

@@ -1,0 +1,240 @@
+"""Per-chain board Metropolis, port of :mod:`mcqueens.kernels.metropolis_pallas`.
+
+Every chain draws its own proposal from its seed's counter stream
+(:mod:`mcqueens_torch.kernels.prng`): with ``w0, w1 = step_words(g, step)``
+the site is ``i = w0 % N``, ``j = (w0 // N) % N``, the new height
+``(old + 1 + (w0 // N^2) % (N - 1)) % N``, and the accept word ``w1``.
+dE is the dense identity of :mod:`mcqueens_torch.kernels.delta_e`; a chain
+accepts when ``u < exp(-beta(step) * dE)``.  Patience early-stop, exact best
+boards (``best_step = step + 1``) and per-bin accept/total counts follow the
+JAX kernel step for step.  No stream is shared between chains, so
+trajectories do not depend on the block partition; the carry is still padded
+to whole blocks of :func:`block_size`, exactly as JAX pads it, so the two
+carries compare field for field.
+
+One chunk of ``n_inner`` steps has two implementations over the same
+chains-major state (:class:`SegmentState`), both updating it in place:
+
+  * :func:`segment_cuda` launches the hand-written CUDA kernel
+    (``csrc/metropolis.cu``) and counts the launch in
+    :data:`KERNEL_LAUNCHES`;
+  * :func:`segment_reference` is its plain-torch twin (vectorised over
+    chains, a Python loop over steps, the dense O(N^2) dE).
+
+:func:`segment_call` takes the twin only for CPU tensors and the kernel only
+for CUDA tensors; there is no fallback between them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from mcqueens_torch.chain.spec import ChainSpec
+from mcqueens_torch.kernels import board_shared, delta_e, prng, sizing
+from mcqueens_torch.kernels.board_shared import chunk_betas
+from mcqueens_torch.kernels.carry import BoardCarry
+
+DEFAULT_BLOCK = 2048
+
+# Launches of the CUDA kernel in this process (read and reset by callers
+# that check the main path really ran on the card).
+KERNEL_LAUNCHES = 0
+
+
+def _nns(N: int) -> int:
+    """N^2 padded up to a multiple of 8 (the JAX kernel's sublane rows)."""
+    return -(-(N * N) // 8) * 8
+
+
+def block_size(n_chains: int, spec=None) -> int:
+    """Chains per block: the JAX package's partition (2 (NNS, block)
+    layouts in its VMEM estimate).  It fixes only the padding and the
+    ``block_seeds`` shape: every stream is keyed by its chain's own seed."""
+    cap = DEFAULT_BLOCK
+    if spec is not None:
+        cap = sizing.block_cap(2 * _nns(spec.N), DEFAULT_BLOCK)
+    return sizing.block_size(n_chains, cap)
+
+
+def padded_chains(n_chains: int, spec=None) -> int:
+    blk = block_size(n_chains, spec)
+    return -(-n_chains // blk) * blk
+
+
+def init_carry_batch(seeds, spec: ChainSpec, block: int | None = None,
+                     initial_states=None, *, device) -> BoardCarry:
+    """Carry on ``device`` from per-chain integer seeds, padded to whole
+    blocks of :func:`block_size` (padding and block seeds as in
+    :func:`board_shared.init_carry_batch`)."""
+    if block is None:
+        block = block_size(len(seeds), spec)
+    return board_shared.init_carry_batch(
+        seeds, spec, block=block, initial_states=initial_states,
+        device=device)
+
+
+@dataclasses.dataclass
+class SegmentState:
+    """One segment's working state, chains major (contiguous int32), as the
+    carry holds it: a warp of CUDA threads (one chain) loads its board as
+    one contiguous row.  The chunk implementations update it in place."""
+
+    heights: torch.Tensor       # (C, N*N)
+    best_heights: torch.Tensor  # (C, N*N)
+    energy: torch.Tensor        # (C,)
+    best_energy: torch.Tensor   # (C,)
+    best_step: torch.Tensor     # (C,)
+    no_improve: torch.Tensor    # (C,)
+    stop_step: torch.Tensor     # (C,)
+    accept_bins: torch.Tensor   # (C, n_bins)
+    total_bins: torch.Tensor    # (C, n_bins)
+    chain_seeds: torch.Tensor   # (C,)
+
+
+_ROWS = ("energy", "best_energy", "best_step", "no_improve", "stop_step",
+         "chain_seeds")
+_PLANES = ("heights", "best_heights", "accept_bins", "total_bins")
+
+
+def segment_state(carry: BoardCarry) -> SegmentState:
+    """A fresh :class:`SegmentState` holding copies of the carry's fields."""
+    kw = {name: getattr(carry, name).clone().contiguous()
+          for name in _PLANES}
+    kw.update({name: getattr(carry, name).reshape(-1).clone()
+               for name in _ROWS})
+    return SegmentState(**kw)
+
+
+def carry_of(st: SegmentState, block_seeds: torch.Tensor) -> BoardCarry:
+    """Inverse of :func:`segment_state`; ``block_seeds`` passes through."""
+    kw = {name: getattr(st, name) for name in _PLANES}
+    kw.update({name: getattr(st, name)[:, None] for name in _ROWS})
+    return BoardCarry(block_seeds=block_seeds, **kw)
+
+
+def segment_reference(st: SegmentState, step0: int, n_inner: int,
+                      spec: ChainSpec, beta: torch.Tensor) -> None:
+    """Plain-torch twin of the CUDA kernel: advance every chain by
+    ``n_inner`` steps from global step ``step0``, in place."""
+    N, NN = spec.N, spec.N * spec.N
+    nb, n_steps = spec.n_bins, spec.n_steps
+    patience = spec.early_stop_patience
+    dev = st.energy.device
+    cell = torch.arange(NN, dtype=torch.int32, device=dev)
+    i_grid, j_grid = cell // N, cell % N
+    g = prng.chain_streams(st.chain_seeds)
+    h, bh = st.heights, st.best_heights
+    e, be, bs = st.energy.clone(), st.best_energy.clone(), st.best_step.clone()
+    ni, stp = st.no_improve.clone(), st.stop_step.clone()
+    # Steps at or past n_steps are inactive for every chain: nothing changes.
+    for t in range(max(0, min(n_inner, n_steps - step0))):
+        gstep = step0 + t
+        active = stp >= n_steps
+        w0, w1 = prng.step_words(g, gstep)
+        i, j = w0 % N, (w0 // N) % N
+        kr = (w0 // NN) % (N - 1)
+        u = prng.uniform01(w1)
+        site = (i * N + j)[:, None].long()
+        old = h.gather(1, site)
+        new = (old + 1 + kr[:, None]) % N
+        de = delta_e.board_delta_e_dense(h, i_grid, j_grid, i[:, None],
+                                         j[:, None], old, new)[:, 0]
+        accept = u < torch.exp(-beta[t] * de.to(torch.float32))
+        upd = accept & active
+        h.scatter_(1, site, torch.where(upd[:, None], new, old))
+        e = e + torch.where(upd, de, 0)
+        improved = upd & (e < be)
+        bh.copy_(torch.where(improved[:, None], h, bh))
+        be = torch.where(improved, e, be)
+        bs = torch.where(improved, gstep + 1, bs)
+        ni = torch.where(active, torch.where(improved, 0, ni + 1), ni)
+        if patience is not None:
+            stp = torch.where(active & (ni >= patience), gstep, stp)
+        b = min(gstep * nb // n_steps, nb - 1)
+        st.accept_bins[:, b] += upd.int()
+        st.total_bins[:, b] += active.int()
+    for name, val in (("energy", e), ("best_energy", be), ("best_step", bs),
+                      ("no_improve", ni), ("stop_step", stp)):
+        getattr(st, name).copy_(val)
+
+
+def smem_bytes(spec: ChainSpec) -> int:
+    """Shared memory the kernel holds per chain: its board and best board."""
+    return 8 * spec.N * spec.N
+
+
+def segment_cuda(st: SegmentState, step0: int, n_inner: int,
+                 spec: ChainSpec, beta: torch.Tensor) -> None:
+    """Advance every chain by ``n_inner`` steps with the CUDA kernel
+    (asynchronous on the current stream; counts the launch)."""
+    global KERNEL_LAUNCHES
+    from mcqueens_torch.kernels import _build
+
+    NN, C, nb = spec.N * spec.N, st.energy.shape[0], spec.n_bins
+    dev = st.heights.device
+    i32 = torch.int32
+    _build.check_args(dev, {
+        "heights": (st.heights, (C, NN), i32),
+        "best_heights": (st.best_heights, (C, NN), i32),
+        "accept_bins": (st.accept_bins, (C, nb), i32),
+        "total_bins": (st.total_bins, (C, nb), i32),
+        **{name: (getattr(st, name), (C,), i32) for name in _ROWS},
+        "beta": (beta, (n_inner,), torch.float32),
+    })
+    if smem_bytes(spec) > _build.SMEM_PER_BLOCK:
+        raise ValueError(
+            f"the metropolis kernel keeps a chain's board and best board in "
+            f"shared memory: 8*N^2 = {smem_bytes(spec)} bytes at N={spec.N} "
+            f"exceeds the {_build.SMEM_PER_BLOCK} bytes a block may hold "
+            f"(N <= 170)")
+    if C == 0:
+        raise ValueError("no chains")
+    if not 0 <= step0 <= 2 ** 31 - 1 - n_inner:
+        raise ValueError(f"step0={step0} + n_inner={n_inner} overflows int32")
+    lib = _build.load_library()
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (
+        st.heights, st.best_heights, st.energy, st.best_energy,
+        st.best_step, st.no_improve, st.stop_step, st.accept_bins,
+        st.total_bins, st.chain_seeds, beta)]
+    patience = spec.early_stop_patience
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mcq_metropolis_segment(
+            *ptrs, step0, n_inner, spec.N, C, spec.n_steps, nb,
+            -1 if patience is None else patience, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"metropolis CUDA kernel launch failed "
+                           f"(cudaError {err})")
+    KERNEL_LAUNCHES += 1
+
+
+def segment_call(st: SegmentState, step0: int, n_inner: int,
+                 spec: ChainSpec) -> None:
+    """One chunk of ``n_inner`` steps: the twin for CPU state, the CUDA
+    kernel for CUDA state, and an error for anything else."""
+    dev = st.heights.device
+    beta = chunk_betas(spec, step0, n_inner, dev)
+    if dev.type == "cpu":
+        segment_reference(st, step0, n_inner, spec, beta)
+    elif dev.type == "cuda":
+        segment_cuda(st, step0, n_inner, spec, beta)
+    else:
+        raise ValueError(f"metropolis_pallas runs on cpu or cuda, not {dev}")
+
+
+def run_segment(carry: BoardCarry, start_outer: int, spec: ChainSpec,
+                n_outer: int):
+    """``n_outer`` chunks of ``history_stride`` steps from chunk
+    ``start_outer``; returns ``(carry, ys)`` with ``ys`` the ``(n_outer, C)``
+    int32 energies after each chunk (one kernel launch per chunk)."""
+    stride = spec.history_stride
+    st = segment_state(carry)
+    ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
+                     device=st.energy.device)
+    for o in range(n_outer):
+        segment_call(st, (int(start_outer) + o) * stride, stride, spec)
+        ys[o].copy_(st.energy)
+    return carry_of(st, carry.block_seeds), ys

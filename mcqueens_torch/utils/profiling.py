@@ -1,8 +1,11 @@
-"""Throughput reporting, port of :mod:`mcqueens.utils.profiling`."""
+"""Throughput reporting and wall-clock phases, port of
+:mod:`mcqueens.utils.profiling` (its ``jax.profiler`` trace is not ported)."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 
 import torch
 
@@ -40,3 +43,11 @@ def throughput_of(result, n_devices: int | None = None) -> ThroughputReport:
         wall_time_s=result.wall_time,
         n_devices=n_devices,
     )
+
+
+@contextlib.contextmanager
+def timed(label: str, sink=print):
+    """Report the wall-clock seconds of the ``with`` body to ``sink``."""
+    t0 = time.time()
+    yield
+    sink(f"[mcqueens] {label}: {time.time() - t0:.3f}s")

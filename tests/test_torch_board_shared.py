@@ -245,10 +245,17 @@ def test_runner_refuses_unported_paths():
                dict(profile_dir="trace")):
         with pytest.raises(NotImplementedError):
             runner.run_chains(SEEDS, spec, device="cpu", **kw)
-    for other in (dict(kernel="tables"), dict(kernel="pallas"),
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        runner.run_chains(SEEDS, _specs("n5", kernel="tables")[1],
+                          device="cpu")
+    # The per-chain samplers are ported: kernel="pallas" runs, for boards
+    # and for full-3D placements.
+    for other in (dict(kernel="pallas"),
                   dict(kernel="pallas", mcmc_type="full_3d")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            runner.run_chains(SEEDS, _specs("n5", **other)[1], device="cpu")
+        res = runner.run_chains(SEEDS, _specs("n5", **other)[1],
+                                device="cpu")
+        assert res.energy_history.shape == (8, 9)
+        assert (res.total_bins.sum(1) == 400).all()
 
 
 def test_cuda_request_without_gpu_raises():
