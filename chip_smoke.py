@@ -30,6 +30,15 @@ and the script exits non-zero without printing a result:
    bins.  Per-chain full-3D shapes: N=12/Q=144 and N=15/Q=225 at 4096
    chains, N=3/Q=26 (attempt runs past 32), N=2/Q=7, N=5/Q=13 with
    patience, N=11 klarner at beta=100 and a launch past step 2^24.
+   Board freeze mode (track_best off, a per-chain step horizon), against the
+   twin: horizons inside the chunk (N=16, 32768 chains), all at 0, past
+   n_steps on the tail chunk, with patience, and 1000 chains padded to 1024.
+   Scan samplers (kernels/csrc/board_scan.cu, full3d_scan.cu), each shape
+   in both modes (tables and naive) against the twin over a whole segment
+   of several chunks, and tables == naive on the card: config.yaml's cells
+   (N=12 and N=18, 10 chains, stride 1), N=2 with a stride tail past
+   n_steps, patience, a warm start and wider batches; full-3D N=12/Q=144,
+   N=2/Q=7 with a tail, N=5/Q=13 with patience, N=3/Q=26 and a warm start.
 4. the main paths end to end, each with the launch counts zeroed just
    before it and read just after (each must equal the launches it ran):
    the board CLI (N=16, 32768 runs, 50000 steps); the board tempered CLI
@@ -42,16 +51,27 @@ and the script exits non-zero without printing a result:
    klarner, 128 runs) cut to 62500 steps, where klarner at N = 17, 19, 23,
    29, 31 must report 0; and ``config.yaml``'s beta_start_end_pairs section
    through ``drivers.run_beta_start_end_pairs`` as full_3d with kernel
-   pallas (N=12, 4096 runs, 2^17 steps).  Configs are dicts through
-   ``parse_config``; every reported best state is re-scored by the oracle.
+   pallas (N=12, 4096 runs, 2^17 steps).  Then the freeze-mode path: the
+   board CLI configuration (N=16, 32768 chains, 50000 steps, linear 1->3,
+   stride 48) through ``board_shared.run_segment`` with track_best on and
+   off, and ``recover_best_heights`` on the untracked run, whose boards must
+   equal the tracked ones bitwise and score their best energies; and the
+   scan samplers' paths: ``config.yaml`` as committed (compare_beta_end, N
+   12 and 18, 10 runs, 1M steps, exponential, stride 1, kernel tables)
+   through ``drivers.run_from_config``, and its beta_start_end_pairs
+   section as full_3d with kernel tables (N=12, 10 runs, 1M steps), both
+   uncut.  Configs are dicts through ``parse_config`` (config.yaml through
+   ``load_config``); every reported best state is re-scored by the oracle.
 5. throughput: proposed moves/s of the board kernel at ``bench.py``'s
    configuration (N=16, linear 1->5 over 2^24 steps, 32768-step chunks) and
    of the full-3D kernel at the campaign's (N=15, Q=225, linear 0.8->7 over
    8M steps, 62500-step chunks), each at two chain counts; then the
    per-chain kernels at the same board configuration and at N=15, Q=225
-   with 8192-step chunks.
+   with 8192-step chunks; then both scan kernels, in both modes, at 4096
+   chains (board N=16 over 2^24 steps, full-3D N=12/Q=144 over 1M).
 
-Then one JSON line describing the kernels, the ``nvidia-smi`` name/power
+Then one JSON line describing the kernels (the six, and the board kernel's
+freeze mode on a row of its own), the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -60,6 +80,7 @@ import sys
 _PRELOADED = set(sys.modules)
 
 import contextlib  # noqa: E402
+import dataclasses  # noqa: E402
 import io  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -71,13 +92,16 @@ import time  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from mcqueens_torch.chain import board as board_chain  # noqa: E402
+from mcqueens_torch.chain import full3d as full3d_chain  # noqa: E402
 from mcqueens_torch.chain.spec import ChainSpec  # noqa: E402
 from mcqueens_torch.cli import competition  # noqa: E402
+from mcqueens_torch.core import rng, tables  # noqa: E402
 from mcqueens_torch.core.energy import board_energy, full3d_energy  # noqa: E402
 from mcqueens_torch.core.schedules import build_schedule  # noqa: E402
 from mcqueens_torch.dist import runner  # noqa: E402
 from mcqueens_torch.experiments import drivers  # noqa: E402
-from mcqueens_torch.experiments.config import parse_config  # noqa: E402
+from mcqueens_torch.experiments.config import load_config, parse_config  # noqa: E402
 from mcqueens_torch.kernels import (_build, board_shared, full3d_pallas,  # noqa: E402
                                     full3d_shared, metropolis_pallas)
 from mcqueens_torch.search.tempering import geometric_ladder  # noqa: E402
@@ -99,10 +123,26 @@ KERNELS = {
         name="full3d_pallas_kernel",
         source="mcqueens_torch/kernels/csrc/full3d_pallas.cu",
         replaces="mcqueens/kernels/full3d_pallas.py:158"),
+    # The scan samplers have no Pallas kernel: JAX compiles them as one XLA
+    # scan; "replaces" names the step that scan runs.
+    board_chain: dict(
+        name="board_scan_kernel",
+        source="mcqueens_torch/kernels/csrc/board_scan.cu",
+        replaces="mcqueens/chain/board.py:91"),
+    full3d_chain: dict(
+        name="full3d_scan_kernel",
+        source="mcqueens_torch/kernels/csrc/full3d_scan.cu",
+        replaces="mcqueens/chain/full3d.py:113"),
 }
+FREEZE_ROW = dict(name="board_shared_kernel (freeze mode)",
+                  source="mcqueens_torch/kernels/csrc/board_shared.cu",
+                  replaces="mcqueens/kernels/board_shared.py:176")
+SCAN = (board_chain, full3d_chain)
+REPO = os.path.dirname(os.path.abspath(__file__))
 # The per-chain samplers keep their state chains major, (C, n_bins) bins.
 PER_CHAIN = (metropolis_pallas, full3d_pallas)
 INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 units (NVIDIA H100 white paper)
+THREEFRY_OPS = 120  # one threefry2x32 in threefry.cuh: 20 rounds x 5 + keys
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 
@@ -256,10 +296,12 @@ def full3d_work(spec, C, active_per_chain):
 
 
 def compare_case(mod, name, spec, n_chains, start_outer=0, seed0=0,
-                 ladder=None):
+                 ladder=None, freeze=None):
     """One launch through the kernel and through the twin, on the card, from
     one ``init_carry_batch`` state and one beta tensor; returns a dict with
-    max_abs_err, both times, the kernel's state and the launch's work."""
+    max_abs_err, both times, the kernel's state and the launch's work.
+    ``freeze`` (board_shared only) maps the padded chain count to the
+    chains' step horizons and runs the freeze mode with track_best off."""
     seeds = seed0 + np.arange(n_chains, dtype=np.uint32)
     carry = mod.init_carry_batch(seeds, spec, device="cuda")
     C = int(carry.energy.shape[0])
@@ -270,14 +312,19 @@ def compare_case(mod, name, spec, n_chains, start_outer=0, seed0=0,
         scale = torch.from_numpy(np.tile(ladder, -(-C // len(ladder)))[:C]
                                  ).to(carry.device)
     extra = () if scale is None else (scale,)
+    mode = {}
+    if freeze is not None:
+        mode = dict(freeze=torch.as_tensor(
+            freeze(C), dtype=torch.int32, device=carry.device),
+            track_best=False)
     k_st, t_st = mod.segment_state(carry), mod.segment_state(carry)
     launches = mod.KERNEL_LAUNCHES
     kernel_ms = cuda_ms(lambda: mod.segment_cuda(
-        k_st, step0, n_inner, spec, beta, *extra))
+        k_st, step0, n_inner, spec, beta, *extra, **mode))
     # Comparison launches are not the main path's: take this one back.
     mod.KERNEL_LAUNCHES = launches
     twin_ms = cuda_ms(lambda: mod.segment_reference(
-        t_st, step0, n_inner, spec, beta, *extra))
+        t_st, step0, n_inner, spec, beta, *extra, **mode))
     # The energy after the launch is its history point, so the state fields
     # cover the history too.
     err = 0
@@ -322,6 +369,29 @@ def reported_best(text):
 def zero_launches():
     for mod in KERNELS:
         mod.KERNEL_LAUNCHES = 0
+    board_shared.FREEZE_LAUNCHES = 0
+
+
+def warm_up():
+    """One tiny uncounted launch of every kernel, so that no timed launch
+    pays for loading its kernel (CUDA loads a kernel lazily at its first
+    launch)."""
+    t0 = time.perf_counter()
+    for mod in KERNELS:
+        board = mod in (board_shared, metropolis_pallas, board_chain)
+        kernel = ("tables" if mod in SCAN else "pallas_shared"
+                  if mod in (board_shared, full3d_shared) else "pallas")
+        spec = spec_of(4, 8, 8, const(8, 1.0), kernel=kernel,
+                       mcmc_type="board" if board else "full_3d")
+        seeds = np.arange(4, dtype=np.uint32)
+        init = rng.chain_keys_from_seeds(seeds, "cuda") if mod in SCAN \
+            else seeds
+        mod.run_segment(mod.init_carry_batch(init, spec, device="cuda"), 0,
+                        spec, 1)
+    torch.cuda.synchronize()
+    zero_launches()
+    phase("build", f"one warm-up launch of every kernel: "
+          f"{time.perf_counter() - t0:.2f} s")
 
 
 def check_launches(path, want):
@@ -342,7 +412,7 @@ def board_slice():
                                              stride, min_segments=10)
     zero_launches()
     text, rows = run_cli(["--n", "16", "--n-runs", str(n_runs), "--n-steps",
-                          str(n_steps)])
+                          str(n_steps), "--kernel", "pallas_shared"])
     got = check_launches("board slice", {board_shared: n_segs * seg_outer})
     best = np.zeros((16, 16), np.int64)
     best[rows[:, 0], rows[:, 1]] = rows[:, 2]
@@ -364,7 +434,8 @@ def board_tempered_slice():
     n_outer = -(-n_steps // max(1, n_steps // 1024))
     zero_launches()
     text, rows = run_cli(["--n", "16", "--n-runs", str(n_runs), "--n-steps",
-                          str(n_steps), "--tempering", "16"])
+                          str(n_steps), "--tempering", "16", "--kernel",
+                          "pallas_shared"])
     got = check_launches("board tempered slice", {board_shared: n_outer})
     best = np.zeros((16, 16), np.int64)
     best[rows[:, 0], rows[:, 1]] = rows[:, 2]
@@ -637,6 +708,300 @@ def full3d_pairs_slice():
     return got[full3d_pallas]
 
 
+def scan_work(mod, spec, C, active, accepted, n_outer):
+    """(int32 ops, bytes) of one scan-kernel launch with ``active`` steps
+    taken and ``accepted`` moves, counted from ``csrc/board_scan.cu`` /
+    ``full3d_scan.cu``: THREEFRY_OPS per threefry (18 per board step; 15 per
+    full-3D step plus 6 per extra rejection attempt, N^3 / (N^3 - Q)
+    attempts expected), 12 per randint and 30 of bookkeeping per step, and
+    the dE: tables 4 per line lookup (24 or 26 a step) and 2 per line update
+    of an accepted move; naive 20 per attack test, two per other cell or
+    queen.  Bytes: the state read and written once, ys and the betas."""
+    N = spec.N
+    if mod is board_chain:
+        per_step = 18 * THREEFRY_OPS + 3 * 12 + 30
+        lines, others, words = 12, N * N - 1, 2 * N * N
+        T = tables.table_size(N)
+    else:
+        Q, N3 = spec.q_eff, N ** 3
+        per_step = ((15 + 6 * (N3 / (N3 - Q) - 1)) * THREEFRY_OPS + 2 * 12
+                    + 30)
+        lines, others, words = 13, Q - 1, 6 * Q + N3 / 4
+        T = tables.table_size(N, full3d=True)
+    if spec.kernel == "naive":
+        ops = active * (per_step + 2 * 20 * others)
+        T = 0
+    else:
+        ops = active * (per_step + 2 * lines * 4) + accepted * 4 * lines
+    state = C * (words + T + 2 * spec.n_bins + 8)
+    return ops, 4 * (2 * state + n_outer * C + n_outer * spec.history_stride)
+
+
+def warm_starts(mod, spec, C, seed):
+    """Random warm starts: boards, or Q distinct cells per placement."""
+    rs = np.random.default_rng(seed)
+    N = spec.N
+    if mod is board_chain:
+        return rs.integers(0, N, size=(C, N, N)).astype(np.int32)
+    cells = np.stack([rs.permutation(N ** 3)[:spec.q_eff] for _ in range(C)])
+    return np.stack([cells // (N * N), cells // N % N, cells % N],
+                    axis=-1).astype(np.int32)
+
+
+def scan_compare(mod, name, spec, n_chains, start_outer, n_outer, seed0=0,
+                 warm=False):
+    """One segment of ``n_outer`` chunks through a scan kernel and through
+    its twin, on the card, in both modes from one state each, every field
+    and the ys rows equal; then the two modes' kernel states equal (all but
+    the table).  Returns the per-mode results."""
+    keys = rng.chain_keys_from_seeds(
+        seed0 + np.arange(n_chains, dtype=np.uint32), "cuda")
+    starts = warm_starts(mod, spec, n_chains, seed0) if warm else None
+    out = {}
+    launches = mod.KERNEL_LAUNCHES
+    for kern in ("tables", "naive"):
+        sp = dataclasses.replace(spec, kernel=kern)
+        carry = mod.init_carry_batch(keys, sp, starts, device="cuda")
+        if start_outer:
+            carry, _ = mod.run_segment(carry, 0, sp, start_outer)
+        k_st, t_st = mod.segment_state(carry), mod.segment_state(carry)
+        stride = sp.history_stride
+        beta = board_shared.chunk_betas(sp, start_outer * stride,
+                                        n_outer * stride, carry.device)
+        yk = torch.zeros((n_outer, n_chains), dtype=torch.int32,
+                         device="cuda")
+        yt = torch.zeros_like(yk)
+        kernel_ms = cuda_ms(lambda: mod.segment_cuda(
+            k_st, yk, start_outer, n_outer, sp, beta))
+        twin_ms = cuda_ms(lambda: mod.segment_reference(
+            t_st, yt, start_outer, n_outer, sp, beta))
+        err = 0
+        for field, a in list(vars(k_st).items()) + [("ys", yk)]:
+            b = yt if field == "ys" else getattr(t_st, field)
+            if a is None and b is None:
+                continue
+            if not torch.equal(a, b):
+                err = max(err, int((a.long() - b.long()).abs().max()))
+                phase("compare", f"{name} {kern}: field {field} differs "
+                      f"({int((a != b).sum())} entries)")
+        if err:
+            raise AssertionError(f"kernel != twin on {name} {kern}: max abs "
+                                 f"err {err}")
+        active = int((k_st.total_bins.sum(0).long()
+                      - carry.total_bins.sum(1).long()).sum())
+        accepted = int((k_st.accept_bins.sum(0).long()
+                        - carry.accept_bins.sum(1).long()).sum())
+        work = scan_work(mod, sp, n_chains, active, accepted, n_outer)
+        phase("compare", f"{name} {kern}: kernel == twin on all fields and "
+              f"ys; {active} proposals, {accepted} accepted, "
+              f"{int(k_st.done.sum())} chains stopped; kernel "
+              f"{kernel_ms:.3f} ms, twin {twin_ms:.1f} ms")
+        out[kern] = dict(err=err, kernel_ms=kernel_ms, twin_ms=twin_ms,
+                         st=k_st, ys=yk, spec=sp, work=work,
+                         n_chains=n_chains, mod=mod)
+    mod.KERNEL_LAUNCHES = launches
+    for field, a in vars(out["tables"]["st"]).items():
+        b = getattr(out["naive"]["st"], field)
+        if field != "table" and not torch.equal(a, b):
+            raise AssertionError(f"{name}: tables != naive on the card in "
+                                 f"{field}")
+    if not torch.equal(out["tables"]["ys"], out["naive"]["ys"]):
+        raise AssertionError(f"{name}: tables != naive on the card in ys")
+    phase("compare", f"{name}: tables == naive on the card")
+    return out
+
+
+def recover_slice():
+    """The freeze mode's path at the board CLI configuration (N=16, 32768
+    chains, 50000 steps, linear 1->3, stride 48): run_segment with
+    track_best on, then off, then recover_best_heights on the untracked
+    run.  Returns the replay's launches and the three times."""
+    N, C, n_steps, stride = 16, 32768, 50000, 48
+    spec = spec_of(N, n_steps, stride, lin(n_steps, 1.0, 3.0))
+    seeds = 42 + np.arange(C, dtype=np.uint32)
+    n_outer = spec.n_outer
+
+    def run(track_best):
+        carry = board_shared.init_carry_batch(seeds, spec, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = board_shared.run_segment(carry, 0, spec, n_outer,
+                                          track_best=track_best)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    tracked, t_on = run(True)
+    zero_launches()
+    untracked, t_off = run(False)
+    t0 = time.perf_counter()
+    rec = board_shared.recover_best_heights(untracked, spec)
+    torch.cuda.synchronize()
+    t_rec = time.perf_counter() - t0
+    replay = min(n_outer, max(1, -(-int(untracked.best_step.max())
+                                   // stride)))
+    got = check_launches("recover slice", {board_shared: n_outer + replay})
+    if board_shared.FREEZE_LAUNCHES != replay:
+        raise AssertionError(f"recover slice: {board_shared.FREEZE_LAUNCHES}"
+                             f" freeze-mode launches, expected {replay}")
+    for field in ("energy", "best_energy", "best_step", "no_improve",
+                  "stop_step", "heights", "accept_bins", "total_bins"):
+        if not torch.equal(getattr(tracked, field), getattr(untracked,
+                                                            field)):
+            raise AssertionError(f"recover slice: track_best changed "
+                                 f"{field}")
+    if not torch.equal(rec, tracked.best_heights.reshape(C, N, N)):
+        bad = int((rec != tracked.best_heights.reshape(C, N, N)).any(
+            2).any(1).sum())
+        raise AssertionError(f"recover slice: {bad} recovered boards differ "
+                             f"from the tracked ones")
+    rescored = rescore(board_energy, rec.cpu().numpy())
+    best = tracked.best_energy.reshape(-1).cpu().numpy()
+    if not np.array_equal(rescored, best):
+        raise AssertionError("recover slice: recovered boards do not score "
+                             "their best energies")
+    phase("slice", f"recover N={N} chains={C} steps={n_steps} stride="
+          f"{stride}: run_segment track_best on {t_on:.3f} s "
+          f"({t_on / n_outer * 1e3:.3f} ms per chunk), off {t_off:.3f} s "
+          f"({t_off / n_outer * 1e3:.3f} ms per chunk); recover_best_heights"
+          f" {t_rec:.3f} s ({replay} chunks replayed to max best_step "
+          f"{int(untracked.best_step.max())}); all {C} recovered boards == "
+          f"tracked boards, oracle re-score == best energy (min "
+          f"{int(best.min())}); {got[board_shared]} kernel launches, "
+          f"{replay} in freeze mode")
+    return dict(launches=replay, t_on=t_on, t_off=t_off, t_rec=t_rec)
+
+
+def check_scan_runs(path, runs, energy_fn, n_steps):
+    """Every recorded run took every step, has a full history and reports
+    best energies equal to its best states' oracle re-score."""
+    check_oracle(path, runs, energy_fn)
+    for kw, res in runs:
+        if res.energy_history.shape != (kw["n_runs"], n_steps + 1):
+            raise AssertionError(f"{path}: history shape "
+                                 f"{res.energy_history.shape}")
+        if not (res.total_bins.sum(1) == n_steps).all():
+            raise AssertionError(f"{path}: a run did not take every step")
+
+
+def config_yaml_slice():
+    """config.yaml as committed (compare_beta_end: N 12 and 18, pairs 1->3
+    and 1->5, exponential, 10 runs, 1M steps, stride 1, kernel tables,
+    verbose) through drivers.run_from_config, figures off."""
+    cfg = load_config(os.path.join(REPO, "config.yaml"))
+    params = cfg.section("compare_beta_end")
+    n_segs, seg_outer = runner.plan_segments(
+        cfg.n_steps, cfg.n_runs, cfg.tpu.history_stride,
+        min_segments=10 if cfg.verbose else 1)
+    zero_launches()
+    t0 = time.perf_counter()
+    with recorded_runs() as runs, tempfile.TemporaryDirectory() as outdir, \
+            contextlib.redirect_stdout(io.StringIO()):
+        drivers.run_from_config(cfg, outdir=outdir, device="cuda",
+                                plot=False)
+    wall = time.perf_counter() - t0
+    cells = 2 * len(params["beta_start_ends"])
+    got = check_launches("config.yaml slice",
+                         {board_chain: cells * n_segs})
+    check_scan_runs("config.yaml slice", runs, board_energy, cfg.n_steps)
+    table = "; ".join(
+        f"N={kw['N']} beta {kw['schedule'].beta_start}->"
+        f"{kw['schedule'].beta_end}: best min {int(res.best_energy.min())} "
+        f"mean {res.best_energy.mean():.1f}, {res.wall_time:.2f} s, "
+        f"{res.moves_per_sec:.4e} moves/s" for kw, res in runs)
+    phase("slice", f"config.yaml {cfg.experiment_type} kernel "
+          f"{cfg.tpu.kernel} runs={cfg.n_runs} steps={cfg.n_steps} stride "
+          f"{cfg.tpu.history_stride} (uncut): {table}; all "
+          f"{cells * cfg.n_runs} best boards == oracle re-score; "
+          f"{got[board_chain]} kernel launches ({n_segs} segments of "
+          f"{seg_outer} chunks per cell); phase {wall:.2f} s")
+    return got[board_chain]
+
+
+def full3d_tables_pairs_slice():
+    """config.yaml's beta_start_end_pairs section (N=12, three linear
+    pairs, 10 runs, 1M steps, stride 1, kernel tables) as full_3d."""
+    cfg = load_config(os.path.join(REPO, "config.yaml"))
+    params = cfg.section("beta_start_end_pairs")
+    n_segs, _ = runner.plan_segments(
+        cfg.n_steps, cfg.n_runs, cfg.tpu.history_stride,
+        min_segments=10 if cfg.verbose else 1)
+    zero_launches()
+    t0 = time.perf_counter()
+    with recorded_runs() as runs, contextlib.redirect_stdout(io.StringIO()):
+        drivers.run_beta_start_end_pairs(
+            N=params["N"], n_steps=cfg.n_steps,
+            beta_start_ends=params["beta_start_ends"],
+            annealing_type=params["annealing_type"],
+            init_mode=cfg.init_mode, n_runs=cfg.n_runs,
+            base_seed=cfg.sched_cfg["base_seed"], verbose=cfg.verbose,
+            plot=False, mcmc_type="full_3d",
+            early_stop_patience=cfg.early_stop_patience, tpu=cfg.tpu,
+            device="cuda")
+    wall = time.perf_counter() - t0
+    pairs = len(params["beta_start_ends"])
+    got = check_launches("full-3D tables pairs slice",
+                         {full3d_chain: pairs * n_segs})
+    check_scan_runs("full-3D tables pairs slice", runs, full3d_energy,
+                    cfg.n_steps)
+    Q = params["N"] ** 2
+    for _, res in runs:
+        if any(len({tuple(q) for q in s.tolist()}) != Q
+               for s in res.best_state):
+            raise AssertionError("full-3D best placement with shared cells")
+    table = "; ".join(
+        f"beta {kw['schedule'].beta_start}->{kw['schedule'].beta_end}: best "
+        f"min {int(res.best_energy.min())} mean "
+        f"{res.best_energy.mean():.1f}, {res.moves_per_sec:.4e} moves/s"
+        for kw, res in runs)
+    phase("slice", f"config.yaml beta pairs as full_3d N={params['N']} "
+          f"Q={Q} kernel {cfg.tpu.kernel} runs={cfg.n_runs} "
+          f"steps={cfg.n_steps} stride {cfg.tpu.history_stride} (uncut): "
+          f"{table}; all {pairs * cfg.n_runs} best placements == oracle "
+          f"re-score; {got[full3d_chain]} kernel launches; phase "
+          f"{wall:.2f} s")
+    return got[full3d_chain]
+
+
+def scan_throughput(mod, label, spec, chains, bounds):
+    """Proposed moves/s of a scan kernel in both modes: run_segment calls
+    of one chunk each for >= 2 s, then one launch alone (CUDA events)."""
+    stride = spec.history_stride
+    for kern in ("tables", "naive"):
+        sp = dataclasses.replace(spec, kernel=kern)
+        keys = rng.chain_keys_from_seeds(np.arange(chains, dtype=np.uint32),
+                                         "cuda")
+        carry = mod.init_carry_batch(keys, sp, device="cuda")
+        carry, _ = mod.run_segment(carry, 0, sp, 1)
+        torch.cuda.synchronize()
+        seg, t0 = 1, time.perf_counter()
+        while True:
+            carry, _ = mod.run_segment(carry, seg, sp, 1)
+            seg += 1
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            if elapsed >= 2.0:
+                break
+        rate = (seg - 1) * stride * chains / elapsed
+        st = mod.segment_state(carry)
+        beta = board_shared.chunk_betas(sp, seg * stride, stride,
+                                        st.energy.device)
+        ys = torch.empty((1, chains), dtype=torch.int32, device="cuda")
+        tot0, acc0 = int(st.total_bins.sum()), int(st.accept_bins.sum())
+        k_ms = cuda_ms(lambda: mod.segment_cuda(st, ys, seg, 1, sp, beta))
+        active = int(st.total_bins.sum()) - tot0
+        accepted = int(st.accept_bins.sum()) - acc0
+        bound_ms, bound_by = bounds.of(*scan_work(mod, sp, chains, active,
+                                                  accepted, 1))
+        phase("throughput", f"{label} {kern} chains={chains}: {rate:.4e} "
+              f"proposed moves/s over {seg - 1} x {stride}-step run_segment "
+              f"calls ({elapsed:.2f} s); kernel alone {k_ms:.1f} ms per "
+              f"{stride}-step chunk = {stride * chains / k_ms * 1e3:.4e} "
+              f"moves/s; bound {bound_ms:.2f} ms ({bound_by}) = "
+              f"{bound_ms / k_ms:.3f} of the kernel's time")
+    phase("throughput", "nvidia-smi clocks.sm,power.draw,temperature.gpu: "
+          + nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
+
+
 def throughput(mod, label, spec, chain_counts, bounds):
     seg_steps = spec.history_stride
     for chains in chain_counts:
@@ -708,6 +1073,7 @@ def main():
             elif kernel and ("registers" in ln or "spill" in ln):
                 phase("build", f"{kernel}: {ln.strip()}")
         bounds = Bounds()
+        warm_up()
 
     # 3. kernel vs twin ---------------------------------------------------
     ladder = geometric_ladder(0.8, 7.0, 16)
@@ -795,7 +1161,89 @@ def main():
             8, 2 ** 25, 1028, lin(2 ** 25, 0.5, 5.0), mcmc_type="full_3d",
             Q=48, n_bins=50), 1000, 16330, 0, None),
     ]
-    results = {}
+    rs = np.random.default_rng(7)
+    # (name, spec, chains, start_outer, seed0, freeze horizons of C chains)
+    freeze_cases = [
+        ("board freeze horizons inside the chunk N=16 C=32768 48 steps",
+         spec_of(16, 50000, 48, lin(50000, 1.0, 3.0)), 32768, 10, 42,
+         lambda C: rs.integers(480, 528, C)),
+        ("board freeze at 0 N=16 C=4096", spec_of(
+            16, 50000, 48, lin(50000, 1.0, 3.0)), 4096, 0, 42,
+         lambda C: np.zeros(C)),
+        ("board freeze past n_steps, tail chunk N=16 C=4096", spec_of(
+            16, 50000, 48, lin(50000, 1.0, 3.0)), 4096, 1041, 42,
+         lambda C: np.full(C, 2 ** 31 - 1)),
+        ("board freeze patience 40 beta=50 N=5", spec_of(
+            5, 600, 600, const(600, 50.0), early_stop_patience=40), 1024, 0,
+         3, lambda C: rs.integers(0, 600, C)),
+        ("board freeze 1000 chains (padding) N=12", spec_of(
+            12, 100_000, 128, lin(100_000, 1.0, 3.0)), 1000, 0, 7,
+         lambda C: rs.integers(0, 160, C)),
+    ]
+    # (name, spec, chains, start_outer, n_outer, seed0, warm start)
+    scan_board_cases = [
+        ("board_scan config.yaml cell N=12 C=10 stride 1",
+         spec_of(12, 10 ** 6, 1, build_schedule(
+             "exponential_annealing", 10 ** 6, beta_start=1.0,
+             beta_end=3.0), kernel="tables"), 10, 0, 128, 42, False),
+        ("board_scan config.yaml cell N=18 C=10 stride 1 mid-run",
+         spec_of(18, 10 ** 6, 1, build_schedule(
+             "exponential_annealing", 10 ** 6, beta_start=1.0,
+             beta_end=5.0), kernel="tables"), 10, 5000, 128, 10042, False),
+        ("board_scan N=2 stride 7 tail past n_steps",
+         spec_of(2, 100, 7, lin(100, 0.5, 3.0), kernel="tables"), 256, 0,
+         15, 0, False),
+        ("board_scan N=6 patience 30 beta=50",
+         spec_of(6, 150, 50, const(150, 50.0), kernel="tables",
+                 early_stop_patience=30), 1024, 0, 3, 3, False),
+        ("board_scan N=16 C=4096 warm start",
+         spec_of(16, 2 ** 24, 64, lin(2 ** 24, 1.0, 5.0), kernel="tables"),
+         4096, 0, 2, 5, True),
+    ]
+    scan_full3d_cases = [
+        ("full3d_scan N=12 Q=144 C=4096", spec_of(
+            12, 10 ** 6, 32, lin(10 ** 6, 0.5, 3.0), kernel="tables",
+            mcmc_type="full_3d"), 4096, 0, 2, 42, False),
+        ("full3d_scan N=2 Q=7 stride 5 tail past n_steps", spec_of(
+            2, 12, 5, lin(12, 0.5, 3.0), kernel="tables",
+            mcmc_type="full_3d", Q=7), 16, 0, 3, 0, False),
+        ("full3d_scan N=5 Q=13 patience 30 beta=50", spec_of(
+            5, 120, 40, const(120, 50.0), kernel="tables",
+            mcmc_type="full_3d", Q=13, early_stop_patience=30), 256, 0, 3,
+         3, False),
+        ("full3d_scan N=3 Q=26 one free cell", spec_of(
+            3, 6, 3, lin(6, 0.5, 3.0), kernel="tables",
+            mcmc_type="full_3d", Q=26), 16, 0, 2, 0, False),
+        ("full3d_scan N=6 Q=36 warm start", spec_of(
+            6, 10 ** 6, 32, lin(10 ** 6, 0.5, 3.0), kernel="tables",
+            mcmc_type="full_3d"), 1024, 3, 2, 9, True),
+    ]
+    results, scan_results = {}, {}
+    with timed("compare freeze mode"):
+        for name, spec, n_chains, start_outer, seed0, frz in freeze_cases:
+            res = compare_case(board_shared, name, spec, n_chains,
+                               start_outer, seed0, freeze=frz)
+            results[name] = dict(res, mod="freeze")
+            st = res["st"]
+            if "patience" in name and not int(
+                    (st.stop_step < spec.n_steps).sum()):
+                raise AssertionError(f"{name}: no chain stopped")
+            if "at 0" in name and int(st.total_bins.sum()):
+                raise AssertionError(f"{name}: a frozen chain moved")
+            if "padding" in name and st.energy.shape[0] != 1024:
+                raise AssertionError(f"{name}: not padded to 1024")
+    with timed("compare scan samplers"):
+        for mod, cases in ((board_chain, scan_board_cases),
+                           (full3d_chain, scan_full3d_cases)):
+            for (name, spec, n_chains, start_outer, n_outer, seed0,
+                 warm) in cases:
+                out = scan_compare(mod, name, spec, n_chains, start_outer,
+                                   n_outer, seed0, warm)
+                for kern, res in out.items():
+                    scan_results[f"{name} {kern}"] = res
+                if "patience" in name and not int(
+                        out["tables"]["st"].done.sum()):
+                    raise AssertionError(f"{name}: no chain stopped")
     with timed("compare"):
         for mod, cases in ((board_shared, board_cases),
                            (full3d_shared, full3d_cases),
@@ -844,6 +1292,12 @@ def main():
         metropolis_launches += beyond_reference_slice()
     with timed("slice full3d pairs"):
         full3d_pallas_launches = full3d_pairs_slice()
+    with timed("slice recover"):
+        recovered = recover_slice()
+    with timed("slice config.yaml"):
+        board_scan_launches = config_yaml_slice()
+    with timed("slice config.yaml pairs as full_3d"):
+        full3d_scan_launches = full3d_tables_pairs_slice()
 
     # 5. throughput -------------------------------------------------------
     with timed("throughput board"):
@@ -869,6 +1323,17 @@ def main():
                    pspec_of(15, horizon, 8192, lin(horizon, 0.8, 7.0),
                             mcmc_type="full_3d"),
                    (65536, 4096), bounds)
+    with timed("throughput board_scan"):
+        horizon = 2 ** 24
+        scan_throughput(board_chain, "board_scan N=16",
+                        spec_of(16, horizon, 16384, lin(horizon, 1.0, 5.0),
+                                kernel="tables"), 4096, bounds)
+    with timed("throughput full3d_scan"):
+        horizon = 10 ** 6
+        scan_throughput(full3d_chain, "full3d_scan N=12 Q=144",
+                        spec_of(12, horizon, 16384, lin(horizon, 0.5, 3.0),
+                                kernel="tables", mcmc_type="full_3d"),
+                        4096, bounds)
 
     leaked = sorted(m for m in set(sys.modules) - _PRELOADED
                     if m == "jax" or m.startswith(("jax.", "mcqueens.")))
@@ -902,6 +1367,34 @@ def main():
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             # No single PyTorch call computes a Metropolis launch.
+            "library_ms": None,
+        })
+    scan_rows = (
+        (FREEZE_ROW, recovered["launches"], results,
+         "board freeze horizons inside the chunk N=16 C=32768 48 steps",
+         "freeze"),
+        (KERNELS[board_chain], board_scan_launches, scan_results,
+         "board_scan N=16 C=4096 warm start tables", board_chain),
+        (KERNELS[full3d_chain], full3d_scan_launches, scan_results,
+         "full3d_scan N=12 Q=144 C=4096 tables", full3d_chain))
+    for row, launches, table, case, tag in scan_rows:
+        res = table[case]
+        bound_ms, bound_by = bounds.of(*res["work"])
+        phase("bound", f"{row['name']} on '{case}': {res['work'][0]:.4e} "
+              f"int32 ops, {res['work'][1]:.4e} bytes -> bound "
+              f"{bound_ms:.4f} ms ({bound_by}); kernel "
+              f"{res['kernel_ms']:.4f} ms = "
+              f"{bound_ms / res['kernel_ms']:.3f} of the bound")
+        rows.append({
+            **row,
+            "route": "cuda",
+            "launches": launches,
+            "max_abs_err": max(r["err"] for r in table.values()
+                               if r["mod"] == tag),
+            "ms": res["kernel_ms"],
+            "plain_ms": res["twin_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "library_ms": None,
         })
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} "

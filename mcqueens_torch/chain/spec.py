@@ -1,9 +1,9 @@
 """Static chain configuration, port of :mod:`mcqueens.chain.spec`.
 
 Same fields, defaults and guards as the JAX :class:`ChainSpec`; only its
-schedule type is the port's.  The port runs the ``pallas`` and
-``pallas_shared`` kernels; ``tables`` and ``naive`` stay valid here so a
-spec round-trips between the packages, and the runner refuses them.
+schedule type is the port's.  The port runs all four kernels: the scan
+samplers ``tables`` (the default) and ``naive``, and the ``pallas`` and
+``pallas_shared`` samplers.
 """
 
 from __future__ import annotations

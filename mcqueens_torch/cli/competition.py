@@ -1,18 +1,20 @@
 """Competition CLI: anneal hard, export the best placement (PyTorch port).
 
 Same flags, defaults, guards and export format as
-``python -m mcqueens.cli.competition`` except ``--kernel``, which accepts the
-ported samplers, ``pallas_shared`` (shared sites, the default) and
-``pallas`` (independent chains), and ``--device`` (default ``cuda``; ``cpu``
-runs the kernels' plain-torch twins).  ``--mcmc-type board|full_3d``, ``--q``
-and ``--tempering`` (``pallas_shared`` only) with ``--exchange-interval`` run
-as in the JAX CLI; ``--mesh`` and ``--checkpoint-dir`` are not ported yet and
-are refused.
+``python -m mcqueens.cli.competition``, plus ``--device`` (default ``cuda``;
+``cpu`` runs the kernels' plain-torch twins).  ``--kernel`` takes the JAX
+CLI's four samplers and its default ``tables``: ``tables`` and ``naive`` (the
+scan samplers, independent chains with full history for <= 64 runs),
+``pallas`` (independent chains) and ``pallas_shared`` (shared sites, the
+throughput tier).  ``--mcmc-type board|full_3d``, ``--q`` and ``--tempering``
+(``pallas_shared`` only) with ``--exchange-interval`` run as in the JAX CLI;
+``--mesh`` and ``--checkpoint-dir`` are not ported yet and are refused.
 
     python -m mcqueens_torch.cli.competition [--n 15] [--n-runs 10]
         [--n-steps 100000] [--beta-start 1.0] [--beta-end 3.0] [--seed 42]
-        [--kernel pallas_shared|pallas] [--mcmc-type board|full_3d] [--q Q]
-        [--tempering L] [--device cuda] [--outdir .]
+        [--kernel tables|naive|pallas|pallas_shared]
+        [--mcmc-type board|full_3d] [--q Q] [--tempering L] [--device cuda]
+        [--outdir .]
 """
 
 from __future__ import annotations
@@ -40,14 +42,16 @@ def main(argv=None) -> int:
     parser.add_argument("--beta-end", type=float, default=3.0)
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--early-stop-patience", type=int, default=None)
-    parser.add_argument("--kernel", default="pallas_shared",
-                        choices=("pallas_shared", "pallas"),
-                        help="pallas_shared: the shared-site samplers; "
-                             "pallas: independent chains (hand-written "
+    parser.add_argument("--kernel", default="tables",
+                        choices=("tables", "naive", "pallas",
+                                 "pallas_shared"),
+                        help="tables/naive: the scan samplers; pallas: "
+                             "independent chains; pallas_shared: the "
+                             "shared-site throughput samplers (hand-written "
                              "CUDA kernels on --device cuda)")
     parser.add_argument("--history-stride", type=int, default=None,
-                        help="default: n_steps // 1024 (one kernel launch "
-                             "per history point)")
+                        help="default: full history for <=64 runs of "
+                             "tables/naive, else n_steps // 1024")
     parser.add_argument("--n-bins", type=int, default=None,
                         help="acceptance-rate bins (default 100, shrunk so "
                              "n_steps * n_bins fits int32)")
@@ -96,8 +100,12 @@ def main(argv=None) -> int:
 
     stride = args.history_stride
     if stride is None:
-        # one kernel launch per history point: keep chunks big
-        stride = max(1, args.n_steps // 1024)
+        if args.kernel in ("pallas", "pallas_shared"):
+            # one kernel launch per history point: keep chunks big
+            stride = max(1, args.n_steps // 1024)
+        else:
+            stride = (1 if args.n_runs <= 64
+                      else max(1, args.n_steps // 1024))
     n_bins = args.n_bins
     if n_bins is None:
         n_bins = max(1, min(100, (2 ** 31 - 1) // max(args.n_steps, 1)))

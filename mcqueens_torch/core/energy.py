@@ -53,19 +53,25 @@ def board_energy(heights: torch.Tensor) -> torch.Tensor:
     return torch.triu(att, diagonal=1).sum(dim=(-2, -1), dtype=torch.int32)
 
 
-def board_conflicts(heights: torch.Tensor, i: int, j: int,
-                    k: int) -> torch.Tensor:
-    """Queens of an ``(N, N)`` board attacking the hypothetical position
-    ``(i, j, k)``, the queen of column ``(i, j)`` itself excluded."""
+def _batched(x, device) -> torch.Tensor:
+    """An int or a batch-shaped tensor, with a trailing axis to broadcast
+    against the cells or queens of each state."""
+    return torch.as_tensor(x, device=device)[..., None]
+
+
+def board_conflicts(heights: torch.Tensor, i, j, k) -> torch.Tensor:
+    """Queens of boards ``(..., N, N)`` attacking the hypothetical position
+    ``(i, j, k)``, the queen of column ``(i, j)`` itself excluded; ``i, j,
+    k`` are ints or tensors of the batch shape."""
     N = heights.shape[-1]
     ii = torch.arange(N, dtype=torch.int32, device=heights.device)
     i_flat, j_flat = (g.reshape(-1) for g in
                       torch.meshgrid(ii, ii, indexing="ij"))
-    att = attacks((i, j, k), (i_flat, j_flat,
-                              heights.reshape(-1).to(torch.int32)),
-                  board_mode=True)
+    h = heights.reshape(heights.shape[:-2] + (N * N,)).to(torch.int32)
+    i, j, k = (_batched(x, heights.device) for x in (i, j, k))
+    att = attacks((i, j, k), (i_flat, j_flat, h), board_mode=True)
     self_mask = (i_flat == i) & (j_flat == j)
-    return (att & ~self_mask).sum(dtype=torch.int32)
+    return (att & ~self_mask).sum(-1, dtype=torch.int32)
 
 
 def full3d_energy(queens: torch.Tensor) -> torch.Tensor:
@@ -79,10 +85,13 @@ def full3d_energy(queens: torch.Tensor) -> torch.Tensor:
     return torch.triu(att, diagonal=1).sum(dim=(-2, -1), dtype=torch.int32)
 
 
-def full3d_conflicts(queens: torch.Tensor, q_idx: int, pos) -> torch.Tensor:
-    """Conflicts of queen ``q_idx`` of a ``(Q, 3)`` state if placed at
-    ``pos`` (an ``(i, j, k)`` triple), every other queen counted."""
+def full3d_conflicts(queens: torch.Tensor, q_idx, pos) -> torch.Tensor:
+    """Conflicts of queen ``q_idx`` of states ``(..., Q, 3)`` if placed at
+    ``pos`` (an ``(i, j, k)`` triple), every other queen counted; ``q_idx``
+    and the coordinates are ints or tensors of the batch shape."""
     q = queens.to(torch.int32)
-    att = attacks(tuple(pos), (q[:, 0], q[:, 1], q[:, 2]))
-    mask = torch.arange(q.shape[0], device=q.device) != q_idx
-    return (att & mask).sum(dtype=torch.int32)
+    pos = tuple(_batched(x, q.device) for x in pos)
+    att = attacks(pos, (q[..., 0], q[..., 1], q[..., 2]))
+    mask = (torch.arange(q.shape[-2], device=q.device)
+            != _batched(q_idx, q.device))
+    return (att & mask).sum(-1, dtype=torch.int32)

@@ -18,7 +18,7 @@ import math
 
 import torch
 
-from mcqueens_torch.core.init import _klarner_core_m
+from mcqueens_torch.core.init import _cells_to_queens, _klarner_core_m
 from mcqueens_torch.kernels.prng import _i32, _shr
 
 
@@ -76,11 +76,6 @@ def _first_ranked(seeds: torch.Tensor, N3: int, n: int,
     return torch.cat([
         _rank_cells(seeds[s:s + step], N3, blocked_mask)[:, :n]
         for s in range(0, seeds.shape[0], step)])
-
-
-def _cells_to_queens(cells: torch.Tensor, N: int) -> torch.Tensor:
-    return torch.stack([cells // (N * N), (cells // N) % N, cells % N],
-                       dim=-1).to(torch.int32)
 
 
 def full3d_init_batch(seeds: torch.Tensor, N: int, init_mode: str,

@@ -4,12 +4,19 @@ For distinct cells the 7 attack relations are mutually exclusive and each is
 a family of parallel lines, so ``E = sum over lines of C(count, 2)``.  The
 port uses the tables to score initial boards and full-3D placements (plain
 torch ``scatter_add_``:
-the JAX package leaves this to XLA too, so there is no kernel here).
+the JAX package leaves this to XLA too, so there is no kernel here), and the
+``tables`` scan samplers' plain-torch twins score moves with
+:func:`board_delta_e` / :func:`full3d_delta_e` and apply them with
+:func:`apply_move`, batched over chains (the CUDA kernels
+``csrc/board_scan.cu`` and ``full3d_scan.cu`` do the same per chain).
 """
 
 from __future__ import annotations
 
 import torch
+
+N_BOARD_FAMILIES = 12
+N_FULL_FAMILIES = 13
 
 
 def family_sizes(N: int, full3d: bool = False):
@@ -103,3 +110,52 @@ def batch_energies(states: torch.Tensor, energy_fn,
     """
     return torch.cat([energy_fn(states[s:s + chunk])
                       for s in range(0, states.shape[0], chunk)])
+
+
+def _line_sums(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return table.gather(-1, idx.long()).sum(-1, dtype=torch.int32)
+
+
+def board_delta_e(table, i, j, old_k, new_k, N: int):
+    """Energy deltas of moving each chain's (i, j) queen from ``old_k`` to
+    ``new_k != old_k``; ``table`` is ``(C, T)``, the rest ``(C,)``.
+
+    old conflicts = the 12 line counts through the old cell - 12 (the queen
+    sits on all of them); new conflicts = the counts through the new cell
+    (it shares none of the old cell's lines).  Returns ``(dE, idx_old,
+    idx_new)``.
+    """
+    idx_old = line_indices(i, j, old_k, N)
+    idx_new = line_indices(i, j, new_k, N)
+    d_e = _line_sums(table, idx_new) - (_line_sums(table, idx_old)
+                                        - N_BOARD_FAMILIES)
+    return d_e, idx_old, idx_new
+
+
+def apply_move(table, idx_old, idx_new, accept):
+    """Move each accepting chain's queen off its ``idx_old`` lines onto its
+    ``idx_new`` lines, in place; returns ``table``.  Old and new lines may
+    overlap (full_3d, when the old cell attacks the new one): the adds
+    accumulate, so the net update is still right."""
+    d = accept.to(torch.int32)[:, None].expand(idx_old.shape)
+    table.scatter_add_(-1, idx_old.long(), -d)
+    table.scatter_add_(-1, idx_new.long(), d)
+    return table
+
+
+def full3d_delta_e(table, old_pos, new_pos, N: int):
+    """Energy deltas of moving each chain's queen from ``old_pos`` to a
+    distinct ``new_pos`` (``(i, j, k)`` triples of ``(C,)`` tensors).
+
+    The new cell's line counts include the moving queen itself exactly when
+    the old cell attacks the new one (one shared line, by mutual
+    exclusivity), so that term is taken off.
+    """
+    from mcqueens_torch.core.energy import attacks
+
+    idx_old = line_indices(*old_pos, N, full3d=True)
+    idx_new = line_indices(*new_pos, N, full3d=True)
+    old_attacks_new = attacks(old_pos, new_pos).to(torch.int32)
+    old_conf = _line_sums(table, idx_old) - N_FULL_FAMILIES
+    new_conf = _line_sums(table, idx_new) - old_attacks_new
+    return new_conf - old_conf, idx_old, idx_new

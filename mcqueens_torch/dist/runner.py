@@ -3,12 +3,13 @@
 All runs are one batch of chains on ``device``.  Long runs execute as
 equal-length segments (:func:`plan_segments`, unchanged from the JAX package
 so segment boundaries and histories match) while the host reads each
-segment's energy history.  The ``pallas_shared`` samplers
-(:mod:`mcqueens_torch.kernels.board_shared`, :mod:`~.full3d_shared`) and the
+segment's energy history.  Every kernel of the JAX package is ported, for
+boards and full-3D placements: the ``pallas_shared`` samplers
+(:mod:`mcqueens_torch.kernels.board_shared`, :mod:`~.full3d_shared`), the
 independent-chains ``pallas`` samplers
-(:mod:`mcqueens_torch.kernels.metropolis_pallas`, :mod:`~.full3d_pallas`) are
-ported, each for boards and full-3D placements; the scan kernels ``tables``
-and ``naive`` raise ``NotImplementedError``.
+(:mod:`mcqueens_torch.kernels.metropolis_pallas`, :mod:`~.full3d_pallas`)
+and the ``tables``/``naive`` scan samplers (:mod:`mcqueens_torch.chain.board`,
+:mod:`~.chain.full3d`, keyed by threefry keys built from the seeds).
 """
 
 from __future__ import annotations
@@ -20,7 +21,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mcqueens_torch.chain import board as board_chain
+from mcqueens_torch.chain import full3d as full3d_chain
 from mcqueens_torch.chain.spec import ChainSpec
+from mcqueens_torch.core import rng as rng_mod
 from mcqueens_torch.kernels import (board_shared, full3d_pallas,
                                    full3d_shared, metropolis_pallas)
 
@@ -97,9 +101,7 @@ def _modules(spec: ChainSpec):
         return board_shared if board else full3d_shared
     if spec.kernel == "pallas":
         return metropolis_pallas if board else full3d_pallas
-    raise NotImplementedError(
-        f"kernel={spec.kernel!r} mcmc_type={spec.mcmc_type!r} is not "
-        "ported yet (ROADMAP.md queue 1 item 6: the scan paths)")
+    return board_chain if board else full3d_chain
 
 
 def validate_initial_states(initial_states, spec: ChainSpec, n_runs: int):
@@ -120,22 +122,31 @@ def validate_initial_states(initial_states, spec: ChainSpec, n_runs: int):
     return arr.astype(np.int32)
 
 
-_STATE = {"board": ("heights", "best_heights"),
-          "full_3d": ("qi", "qj", "qk", "best_qi", "best_qj", "best_qk")}
+def _scan(spec: ChainSpec) -> bool:
+    return spec.kernel in ("tables", "naive")
 
 
 def state_fields(spec: ChainSpec) -> tuple[str, ...]:
     """Carry fields read back at the end of a run."""
+    if spec.mcmc_type == "board":
+        state = ("heights", "best_heights")
+    elif _scan(spec):
+        state = ("queens", "best_queens")
+    else:
+        state = ("qi", "qj", "qk", "best_qi", "best_qj", "best_qk")
     return ("energy", "best_energy", "best_step", "stop_step", "accept_bins",
-            "total_bins") + _STATE[spec.mcmc_type]
+            "total_bins") + state
 
 
 def states_of(host: dict, spec: ChainSpec):
     """``(best_state, final_state)`` from host carry arrays: (C, N, N)
-    int64 boards, or (C, Q, 3) int32 queens stacked from the planes."""
+    int64 boards, or (C, Q, 3) int32 queens (stacked from the planes of
+    the Pallas samplers' carries)."""
     if spec.mcmc_type == "board":
         return tuple(host[name].astype(np.int64).reshape(-1, spec.N, spec.N)
                      for name in ("best_heights", "heights"))
+    if _scan(spec):
+        return host["best_queens"], host["queens"]
     return (np.stack([host[f"best_q{a}"] for a in "ijk"], axis=-1),
             np.stack([host[f"q{a}"] for a in "ijk"], axis=-1))
 
@@ -180,8 +191,12 @@ def run_chains(
         n_outer, n_runs, spec.history_stride, min_segments)
 
     t0 = time.time()
-    carry = mod.init_carry_batch(seeds, spec, initial_states=initial_states,
-                                 device=dev)
+    # The scan samplers take one threefry key per chain, the Pallas samplers
+    # the seeds themselves (mcqueens/dist/runner.py:199-205).
+    init_arg = (rng_mod.chain_keys_from_seeds(seeds, dev) if _scan(spec)
+                else seeds)
+    carry = mod.init_carry_batch(init_arg, spec,
+                                 initial_states=initial_states, device=dev)
     e0 = carry.energy.reshape(-1).cpu().numpy()
     history_chunks = []
     for seg in range(n_segs):

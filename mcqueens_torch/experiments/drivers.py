@@ -14,7 +14,8 @@ JAX package's seed derivations exactly:
 
 ``device`` ("cuda" unless the caller asks for "cpu") goes to every run.
 :mod:`mcqueens_torch.experiments.plotting` is imported only where a figure
-is drawn.
+is drawn; ``plot=False`` (every driver, :func:`run_from_config` included)
+draws none, for hosts without matplotlib.
 """
 
 from __future__ import annotations
@@ -37,10 +38,12 @@ def _run(tpu, N, n_steps, init_mode, schedule, n_runs, base_seed,
         kernel=tpu.kernel, n_bins=tpu.n_bins)
 
 
-def run_single_n(cfg: Config, outdir: str = ".", *, device="cuda"):
+def run_single_n(cfg: Config, outdir: str = ".", *, device="cuda",
+                 plot: bool = True):
     """single_N: one board size; a list-valued schedule type compares the
     schedules, all from the same base seed."""
-    from mcqueens_torch.experiments import plotting
+    if plot:
+        from mcqueens_torch.experiments import plotting
 
     N = cfg.section("single_N")["N"]
     sched_cfg = cfg.sched_cfg
@@ -61,10 +64,11 @@ def run_single_n(cfg: Config, outdir: str = ".", *, device="cuda"):
             if cfg.verbose:
                 for e in res.best_energy:
                     print(e)
-        title = f"Energy History (N={N}, {len(schedules)} schedules)"
-        plotting.plot_energy_histories(histories, steps, title,
-                                       out_path=cfg.output_path,
-                                       outdir=outdir, lens_by_label=lens)
+        if plot:
+            title = f"Energy History (N={N}, {len(schedules)} schedules)"
+            plotting.plot_energy_histories(histories, steps, title,
+                                           out_path=cfg.output_path,
+                                           outdir=outdir, lens_by_label=lens)
         return {"all_histories": histories, "all_best_energies": bests}
 
     schedule, base_seed = sched_mod.schedule_from_common(cfg.common,
@@ -75,11 +79,12 @@ def run_single_n(cfg: Config, outdir: str = ".", *, device="cuda"):
     if cfg.verbose:
         for e in res.best_energy:
             print(e)
-    title = f"Energy History (N={N}, {schedule.desc})"
-    plotting.plot_energy_histories(
-        {"Schedule": res.energy_history}, {"Schedule": res.history_steps},
-        title, out_path=cfg.output_path, outdir=outdir,
-        lens_by_label={"Schedule": res.history_len})
+    if plot:
+        title = f"Energy History (N={N}, {schedule.desc})"
+        plotting.plot_energy_histories(
+            {"Schedule": res.energy_history}, {"Schedule": res.history_steps},
+            title, out_path=cfg.output_path, outdir=outdir,
+            lens_by_label={"Schedule": res.history_len})
     return {
         "all_histories": {"Schedule": res.energy_history},
         "all_best_energies": {"Schedule": res.best_energy},
@@ -215,15 +220,16 @@ def measure_min_energy_vs_n(
     return {"Ns": Ns, "results": results}
 
 
-def run_from_config(cfg: Config, outdir: str = ".", *, device="cuda"):
+def run_from_config(cfg: Config, outdir: str = ".", *, device="cuda",
+                    plot: bool = True):
     """Dispatch on the config's experiment_type."""
     et = cfg.experiment_type
     if et == "single_N":
-        return run_single_n(cfg, outdir=outdir, device=device)
+        return run_single_n(cfg, outdir=outdir, device=device, plot=plot)
 
     knobs = dict(
         n_steps=cfg.n_steps, init_mode=cfg.init_mode, n_runs=cfg.n_runs,
-        verbose=cfg.verbose, plot=True, mcmc_type=cfg.mcmc_type,
+        verbose=cfg.verbose, plot=plot, mcmc_type=cfg.mcmc_type,
         early_stop_patience=cfg.early_stop_patience, tpu=cfg.tpu,
         outdir=outdir, device=device)
     if et == "measure_min_energy_vs_N":

@@ -1,11 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
 Every ``csrc/*.cu`` source has a plain C entry point (no PyTorch headers, so
-a build takes seconds).  ``nvcc`` compiles the sources in parallel, one
+a build takes seconds); ``csrc/*.cuh`` holds device code they share.  ``nvcc`` compiles the sources in parallel, one
 process each, all started together, and links the objects into one shared
 library loaded with ``ctypes``.  The library goes to ``build/mcqueens_torch/``
-at the root of the checkout, named by a hash of all the sources and the
-flags, so an edited source is rebuilt and an unchanged tree is loaded as is.
+at the root of the checkout, named by a hash of all the sources, headers
+and flags, so an edited source is rebuilt and an unchanged tree is loaded as is.
 Nothing is built or imported until a CUDA launch asks for it.
 """
 
@@ -20,6 +20,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG.parents[1] / "build" / "mcqueens_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -29,7 +30,9 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Entry point -> argument types (pointers, then ints, then the stream).
 ENTRY_POINTS = {
-    "mcq_board_shared_segment": [_P] * 13 + [_I] * 8 + [_P],
+    "mcq_board_shared_segment": [_P] * 14 + [_I] * 9 + [_P],
+    "mcq_board_scan_segment": [_P] * 14 + [_I] * 8 + [_P],
+    "mcq_full3d_scan_segment": [_P] * 15 + [_I] * 9 + [_P],
     "mcq_full3d_shared_segment": [_P] * 17 + [_I] * 9 + [_P],
     "mcq_metropolis_segment": [_P] * 11 + [_I] * 7 + [_P],
     "mcq_full3d_pallas_segment": [_P] * 16 + [_I] * 8 + [_P],
@@ -61,7 +64,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         key.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"mcqueens_kernels_{key.hexdigest()[:16]}.so"
 

@@ -31,11 +31,15 @@ for CUDA tensors; there is no fallback between them.  The per-step betas are
 evaluated once per chunk by :func:`chunk_betas` and handed to either one, so
 the kernel and the twin share one beta by construction.
 
-Two modes are ported: the main path (``track_best=True``, no freeze row)
-and the tempered mode, where chain ``c`` samples at
-``schedule(step) * beta_scale[c]`` (:func:`run_segment_tempered`, for
-:mod:`mcqueens_torch.search.tempering`).  The freeze mode behind
-``recover_best_heights`` is not ported yet.
+All three modes of the JAX kernel are ported: the main path
+(``track_best=True``, no freeze row); the tempered mode, where chain ``c``
+samples at ``schedule(step) * beta_scale[c]`` (:func:`run_segment_tempered`,
+for :mod:`mcqueens_torch.search.tempering`); and the freeze mode, where chain
+``c`` stops updating at step ``freeze[c]``.  ``track_best=False`` leaves the
+best boards untouched (no N^2 copy per improvement) while ``best_energy``,
+``best_step`` and ``no_improve`` stay exact; :func:`recover_best_heights`
+then rebuilds each chain's best board by replaying the run from its initial
+state, frozen at the chain's own ``best_step``.
 """
 
 from __future__ import annotations
@@ -57,8 +61,10 @@ _SITE_MUL = prng._i32(0x2545F491)
 _SITE_SALT = prng._i32(0x9E3779B9)
 
 # Launches of the CUDA kernel in this process (read and reset by callers
-# that check the main path really ran on the card).
+# that check the main path really ran on the card); FREEZE_LAUNCHES counts
+# the ones made with a freeze row (the replay of recover_best_heights).
 KERNEL_LAUNCHES = 0
+FREEZE_LAUNCHES = 0
 
 
 def _sn(N: int) -> int:
@@ -186,9 +192,13 @@ def chunk_betas(spec: ChainSpec, step0: int, n_inner: int,
 
 def segment_reference(st: SegmentState, step0: int, n_inner: int,
                       spec: ChainSpec, beta: torch.Tensor,
-                      beta_scale: torch.Tensor | None = None) -> None:
+                      beta_scale: torch.Tensor | None = None, *,
+                      freeze: torch.Tensor | None = None,
+                      track_best: bool = True) -> None:
     """Plain-torch twin of the CUDA kernel: advance every chain by
-    ``n_inner`` steps from global step ``step0``, in place."""
+    ``n_inner`` steps from global step ``step0``, in place.  ``freeze``
+    (``(C,)`` int32) stops chain ``c`` at step ``freeze[c]``;
+    ``track_best=False`` leaves ``best_heights`` as it is."""
     N, NN = spec.N, spec.N * spec.N
     nb, n_steps = spec.n_bins, spec.n_steps
     patience = spec.early_stop_patience
@@ -205,6 +215,8 @@ def segment_reference(st: SegmentState, step0: int, n_inner: int,
     for t in range(max(0, min(n_inner, n_steps - step0))):
         gstep = step0 + t
         active = stp >= n_steps
+        if freeze is not None:
+            active = active & (gstep < freeze)
         cell = (prng.lowbias32(site_base ^ gstep) & 0x7FFFFFFF) % NN
         i, j = cell // N, cell % N
         w0, w1 = prng.step_words(g, gstep)
@@ -234,7 +246,8 @@ def segment_reference(st: SegmentState, step0: int, n_inner: int,
         h.scatter_(0, cell[None].long(), torch.where(upd, new, old)[None])
         e = e + torch.where(upd, de, 0)
         improved = upd & (e < be)
-        bh.copy_(torch.where(improved[None], h, bh))
+        if track_best:
+            bh.copy_(torch.where(improved[None], h, bh))
         be = torch.where(improved, e, be)
         bs = torch.where(improved, gstep + 1, bs)
         ni = torch.where(active, torch.where(improved, 0, ni + 1), ni)
@@ -249,7 +262,7 @@ def segment_reference(st: SegmentState, step0: int, n_inner: int,
 
 
 def _check_cuda_state(st: SegmentState, spec: ChainSpec, n_inner: int,
-                      beta: torch.Tensor, beta_scale) -> None:
+                      beta: torch.Tensor, beta_scale, freeze) -> None:
     from mcqueens_torch.kernels import _build
 
     NN, C = spec.N * spec.N, st.energy.shape[0]
@@ -266,6 +279,8 @@ def _check_cuda_state(st: SegmentState, spec: ChainSpec, n_inner: int,
     }
     if beta_scale is not None:
         want["beta_scale"] = (beta_scale, (C,), f32)
+    if freeze is not None:
+        want["freeze"] = (freeze, (C,), i32)
     _build.check_args(st.heights.device, want)
     if C == 0 or n_blocks == 0 or C % n_blocks:
         raise ValueError(f"{C} chains do not split into {n_blocks} blocks")
@@ -273,13 +288,15 @@ def _check_cuda_state(st: SegmentState, spec: ChainSpec, n_inner: int,
 
 def segment_cuda(st: SegmentState, step0: int, n_inner: int,
                  spec: ChainSpec, beta: torch.Tensor,
-                 beta_scale: torch.Tensor | None = None) -> None:
+                 beta_scale: torch.Tensor | None = None, *,
+                 freeze: torch.Tensor | None = None,
+                 track_best: bool = True) -> None:
     """Advance every chain by ``n_inner`` steps with the CUDA kernel
     (asynchronous on the current stream; counts the launch)."""
-    global KERNEL_LAUNCHES
+    global KERNEL_LAUNCHES, FREEZE_LAUNCHES
     from mcqueens_torch.kernels import _build
 
-    _check_cuda_state(st, spec, n_inner, beta, beta_scale)
+    _check_cuda_state(st, spec, n_inner, beta, beta_scale, freeze)
     if not 0 <= step0 <= 2 ** 31 - 1 - n_inner:
         raise ValueError(f"step0={step0} + n_inner={n_inner} overflows int32")
     lib = _build.load_library()
@@ -288,8 +305,8 @@ def segment_cuda(st: SegmentState, step0: int, n_inner: int,
         st.heights, st.best_heights, st.energy, st.best_energy,
         st.best_step, st.no_improve, st.stop_step, st.accept_bins,
         st.total_bins, st.chain_seeds, st.block_seeds, beta)]
-    ptrs.append(ctypes.c_void_p(
-        None if beta_scale is None else beta_scale.data_ptr()))
+    ptrs += [ctypes.c_void_p(None if t is None else t.data_ptr())
+             for t in (beta_scale, freeze)]
     C = st.energy.shape[0]
     patience = spec.early_stop_patience
     with torch.cuda.device(dev):
@@ -297,47 +314,58 @@ def segment_cuda(st: SegmentState, step0: int, n_inner: int,
         err = lib.mcq_board_shared_segment(
             *ptrs, step0, n_inner, spec.N, C,
             C // st.block_seeds.shape[0], spec.n_steps, spec.n_bins,
-            -1 if patience is None else patience, ctypes.c_void_p(stream))
+            -1 if patience is None else patience, int(track_best),
+            ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"board_shared CUDA kernel launch failed "
                            f"(cudaError {err})")
     KERNEL_LAUNCHES += 1
+    FREEZE_LAUNCHES += freeze is not None
 
 
 def segment_call(st: SegmentState, step0: int, n_inner: int,
                  spec: ChainSpec,
-                 beta_scale: torch.Tensor | None = None) -> None:
+                 beta_scale: torch.Tensor | None = None, *,
+                 freeze: torch.Tensor | None = None,
+                 track_best: bool = True) -> None:
     """One chunk of ``n_inner`` steps: the twin for CPU state, the CUDA
     kernel for CUDA state, and an error for anything else."""
     dev = st.heights.device
     beta = chunk_betas(spec, step0, n_inner, dev)
+    mode = dict(freeze=freeze, track_best=track_best)
     if dev.type == "cpu":
-        segment_reference(st, step0, n_inner, spec, beta, beta_scale)
+        segment_reference(st, step0, n_inner, spec, beta, beta_scale, **mode)
     elif dev.type == "cuda":
-        segment_cuda(st, step0, n_inner, spec, beta, beta_scale)
+        segment_cuda(st, step0, n_inner, spec, beta, beta_scale, **mode)
     else:
         raise ValueError(f"board_shared runs on cpu or cuda, not {dev}")
 
 
 def _run(carry: BoardCarry, beta_scale, start_outer: int, spec: ChainSpec,
-         n_outer: int):
+         n_outer: int, **mode):
     stride = spec.history_stride
     st = segment_state(carry)
     ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
                      device=st.energy.device)
     for o in range(n_outer):
         segment_call(st, (int(start_outer) + o) * stride, stride, spec,
-                     beta_scale)
+                     beta_scale, **mode)
         ys[o].copy_(st.energy)
     return carry_of(st), ys
 
 
 def run_segment(carry: BoardCarry, start_outer: int, spec: ChainSpec,
-                n_outer: int):
+                n_outer: int, track_best: bool = True):
     """``n_outer`` chunks of ``history_stride`` steps from chunk
     ``start_outer``; returns ``(carry, ys)`` with ``ys`` the ``(n_outer, C)``
-    int32 energies after each chunk (one kernel launch per chunk)."""
-    return _run(carry, None, start_outer, spec, n_outer)
+    int32 energies after each chunk (one kernel launch per chunk).
+
+    ``track_best=False`` drops the N^2 best-board copy of every improvement;
+    ``best_energy``/``best_step`` stay exact and :func:`recover_best_heights`
+    rebuilds the boards afterwards.
+    """
+    return _run(carry, None, start_outer, spec, n_outer,
+                track_best=track_best)
 
 
 def run_segment_tempered(carry: BoardCarry, beta_scale, start_outer: int,
@@ -347,3 +375,59 @@ def run_segment_tempered(carry: BoardCarry, beta_scale, start_outer: int,
     beta_scale = torch.as_tensor(beta_scale, dtype=torch.float32,
                                  device=carry.device).reshape(-1).contiguous()
     return _run(carry, beta_scale, start_outer, spec, n_outer)
+
+
+def _run_segment_frozen(carry: BoardCarry, freeze_row, start_outer: int,
+                        spec: ChainSpec, n_outer: int) -> BoardCarry:
+    """:func:`run_segment` with per-chain replay horizons, no best
+    tracking."""
+    freeze = torch.as_tensor(freeze_row, dtype=torch.int32,
+                             device=carry.device).reshape(-1).contiguous()
+    return _run(carry, None, start_outer, spec, n_outer, freeze=freeze,
+                track_best=False)[0]
+
+
+def recover_best_heights(carry: BoardCarry, spec: ChainSpec,
+                         initial_states=None, verify: bool = True):
+    """Rebuild the best boards of a ``track_best=False`` run by replay.
+
+    Every draw is a pure function of (chain seed, block seed, step), so the
+    run replays exactly from its initial state: a fresh carry from the same
+    seeds and block size, advanced with each chain frozen at its own
+    ``best_step``, holds each chain's board as of its best step, bitwise
+    the board a ``track_best=True`` run would have copied.  The replay runs
+    ``min(n_outer, ceil(max(best_step) / stride))`` chunks from step 0.
+
+    Args:
+        carry: the final carry of a :func:`run_segment` run (any
+            ``track_best``); its seeds identify the streams and its
+            ``best_step``/``best_energy`` drive and check the replay.
+        spec: the spec the run used.
+        initial_states: the run's warm starts, if it had any.
+        verify: raise ``AssertionError`` unless each replayed energy equals
+            the recorded ``best_energy``.
+
+    Returns:
+        ``(C, N, N)`` int32 best boards on the carry's device (C includes
+        any block padding).
+    """
+    seeds = carry.chain_seeds.reshape(-1).cpu().numpy().view(np.uint32)
+    C = int(seeds.shape[0])
+    block = C // int(carry.block_seeds.shape[0])
+    fresh = init_carry_batch(seeds, spec, block=block,
+                             initial_states=initial_states,
+                             device=carry.device)
+    best_step = carry.best_step.reshape(-1)
+    n_outer = min(spec.n_outer, max(
+        1, -(-int(best_step.max()) // spec.history_stride)))
+    replayed = _run_segment_frozen(fresh, best_step, 0, spec, n_outer)
+    if verify:
+        want = carry.best_energy.reshape(-1)
+        got = replayed.energy.reshape(-1)
+        if not torch.equal(want, got):
+            bad = int((want != got).sum())
+            raise AssertionError(
+                f"replay mismatch on {bad}/{C} chains: replayed energies "
+                f"do not match recorded best energies (was the run warm-"
+                f"started? pass the same initial_states)")
+    return replayed.heights.reshape(C, spec.N, spec.N)

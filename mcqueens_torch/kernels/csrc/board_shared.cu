@@ -1,8 +1,12 @@
 // Shared-site board Metropolis for Hopper (sm_90a).
 //
 // Replaces the TPU Pallas kernel mcqueens/kernels/board_shared.py:_kernel in
-// its main-path mode (track_best, no freeze row) and its tempered mode (a
-// per-chain beta scale row).
+// all its modes: the main path (track_best, no freeze row), the tempered
+// mode (a per-chain beta scale row), and the freeze mode with track_best off
+// that recover_best_heights replays (a per-chain step horizon: chain c stops
+// updating at step freeze[c], as the JAX kernel's `active &= gstep <
+// freeze_row`).  With track_best off the best board is left as it is;
+// best_energy, best_step and no_improve stay exact.
 // Plain-torch twin: mcqueens_torch/kernels/board_shared.py:segment_reference.
 //
 // One thread per chain.  Chains [b*c_blk, (b+1)*c_blk) form semantic block
@@ -64,14 +68,17 @@ __global__ void __launch_bounds__(128) board_shared_kernel(
     int32_t* __restrict__ stop_step, int32_t* __restrict__ accept_bins,
     int32_t* __restrict__ total_bins, const int32_t* __restrict__ chain_seeds,
     const int32_t* __restrict__ block_seeds, const float* __restrict__ beta,
-    const float* __restrict__ beta_scale, int step0, int n_inner, int N,
-    int C, int c_blk, int n_steps, int n_bins, int patience) {
+    const float* __restrict__ beta_scale, const int32_t* __restrict__ freeze,
+    int step0, int n_inner, int N, int C, int c_blk, int n_steps, int n_bins,
+    int patience, int track_best) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
   int st = stop_step[c];
-  // Steps of a stopped chain, and steps at or past n_steps, are inactive:
-  // they change no state and count in no bin.
-  const int t_end = min(n_inner, n_steps - step0);
+  // Steps of a stopped chain, steps at or past n_steps and steps at or past
+  // the chain's freeze horizon are inactive: they change no state and count
+  // in no bin.
+  int t_end = min(n_inner, n_steps - step0);
+  if (freeze) t_end = min(t_end, freeze[c] - step0);
   if (st < n_steps || t_end <= 0) return;
 
   const size_t sC = (size_t)C;
@@ -136,7 +143,9 @@ __global__ void __launch_bounds__(128) board_shared_kernel(
       be = e;
       bs = gstep + 1;
       ni = 0;
-      for (int x = 0; x < NN; ++x) bh[(size_t)x * sC] = h[(size_t)x * sC];
+      if (track_best) {
+        for (int x = 0; x < NN; ++x) bh[(size_t)x * sC] = h[(size_t)x * sC];
+      }
     } else {
       ni += 1;
     }
@@ -160,14 +169,16 @@ __global__ void __launch_bounds__(128) board_shared_kernel(
 // All pointers are device pointers to contiguous arrays: heights and
 // best_heights (N*N, C); energy .. stop_step, chain_seeds (C); accept_bins,
 // total_bins (n_bins, C); block_seeds (C / c_blk); beta (n_inner) float32;
-// beta_scale (C) float32, or null for an untempered run.  patience < 0
-// disables early stopping.
+// beta_scale (C) float32, or null for an untempered run; freeze (C) int32
+// step horizons, or null for none.  patience < 0 disables early stopping;
+// track_best 0 leaves best_heights untouched.
 extern "C" int mcq_board_shared_segment(
     void* heights, void* best_heights, void* energy, void* best_energy,
     void* best_step, void* no_improve, void* stop_step, void* accept_bins,
     void* total_bins, const void* chain_seeds, const void* block_seeds,
-    const void* beta, const void* beta_scale, int step0, int n_inner, int N,
-    int C, int c_blk, int n_steps, int n_bins, int patience, void* stream) {
+    const void* beta, const void* beta_scale, const void* freeze, int step0,
+    int n_inner, int N, int C, int c_blk, int n_steps, int n_bins,
+    int patience, int track_best, void* stream) {
   const int threads = 128;
   const int blocks = (C + threads - 1) / threads;
   board_shared_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
@@ -175,7 +186,7 @@ extern "C" int mcq_board_shared_segment(
       (int32_t*)best_energy, (int32_t*)best_step, (int32_t*)no_improve,
       (int32_t*)stop_step, (int32_t*)accept_bins, (int32_t*)total_bins,
       (const int32_t*)chain_seeds, (const int32_t*)block_seeds,
-      (const float*)beta, (const float*)beta_scale, step0, n_inner, N, C,
-      c_blk, n_steps, n_bins, patience);
+      (const float*)beta, (const float*)beta_scale, (const int32_t*)freeze,
+      step0, n_inner, N, C, c_blk, n_steps, n_bins, patience, track_best);
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,7 @@ import glob
 import io
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -231,7 +232,10 @@ def test_competition_cli_parity(tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--tempering", "4", "--mesh"], ["--mesh"], ["--checkpoint-dir", "ck"],
     ["--mcmc-type", "full_3d", "--checkpoint-dir", "ck"], ["--q", "5"],
-    ["--kernel", "tables"], ["--exchange-interval", "3", "--kernel", "naive"],
+    # the scan kernels run now (the default is tables); tempering still
+    # needs pallas_shared, and the mesh is still refused
+    ["--kernel", "tables", "--tempering", "4"],
+    ["--exchange-interval", "3", "--kernel", "naive", "--mesh"],
 ])
 def test_cli_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -245,17 +249,18 @@ def test_runner_refuses_unported_paths():
                dict(profile_dir="trace")):
         with pytest.raises(NotImplementedError):
             runner.run_chains(SEEDS, spec, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.run_chains(SEEDS, _specs("n5", kernel="tables")[1],
-                          device="cpu")
-    # The per-chain samplers are ported: kernel="pallas" runs, for boards
-    # and for full-3D placements.
+    # Every sampler is ported: the per-chain kernel="pallas" and the scan
+    # kernels "tables" and "naive" run, for boards and full-3D placements.
     for other in (dict(kernel="pallas"),
-                  dict(kernel="pallas", mcmc_type="full_3d")):
-        res = runner.run_chains(SEEDS, _specs("n5", **other)[1],
+                  dict(kernel="pallas", mcmc_type="full_3d"),
+                  dict(kernel="tables"), dict(kernel="naive"),
+                  dict(kernel="tables", mcmc_type="full_3d"),
+                  dict(kernel="naive", mcmc_type="full_3d")):
+        n = 400 if other["kernel"] == "pallas" else 100
+        res = runner.run_chains(SEEDS, _specs("n5", n_steps=n, **other)[1],
                                 device="cpu")
-        assert res.energy_history.shape == (8, 9)
-        assert (res.total_bins.sum(1) == 400).all()
+        assert res.energy_history.shape == (8, n // 50 + 1)
+        assert (res.total_bins.sum(1) == n).all()
 
 
 def test_cuda_request_without_gpu_raises():
@@ -273,3 +278,76 @@ def test_cuda_request_without_gpu_raises():
         k: v.to("meta") for k, v in vars(st).items()})
     with pytest.raises(ValueError, match="cpu or cuda"):
         board_shared.segment_call(st, 0, 50, spec)
+
+
+# -- freeze mode: track_best=False and recover_best_heights ---------------
+
+
+@pytest.mark.parametrize("case", ["n5", "early_stop"])
+def test_frozen_segment_parity(case):
+    """Per-chain horizons at 0, inside the run, at and past n_steps (and
+    with patience): the freeze mode equals JAX's on every field."""
+    jspec, spec = _specs(case)
+    carry = board_shared.init_carry_batch(SEEDS, spec, device="cpu")
+    C = carry.energy.shape[0]
+    freeze = np.random.default_rng(9).integers(
+        0, spec.n_steps + 60, C).astype(np.int32)
+    freeze[:4] = [0, 1, spec.n_steps, 2 ** 31 - 1]
+    with pltpu.force_tpu_interpret_mode():
+        want = jbs._run_segment_frozen(
+            jbs.init_carry_batch(SEEDS, jspec), jnp.asarray(freeze[None]),
+            np.int32(0), jspec, jspec.n_outer)
+    got = board_shared._run_segment_frozen(carry, freeze, 0, spec,
+                                           spec.n_outer)
+    _assert_same_carry(want, got)
+    assert int(got.total_bins[0].sum()) == 0
+    if case == "early_stop":
+        assert (got.stop_step < spec.n_steps).any()
+
+
+def test_untracked_run_and_recover_best_heights(jax_n5):
+    """track_best=False equals JAX's untracked run (best boards left as
+    initialised, everything else exact); the replay recovers JAX's boards,
+    which are the tracked run's best boards."""
+    jspec, spec = _specs("n5")
+    with pltpu.force_tpu_interpret_mode():
+        ju, jys = jbs.run_segment(jbs.init_carry_batch(SEEDS, jspec),
+                                  np.int32(0), jspec, jspec.n_outer,
+                                  track_best=False)
+        jrec = jbs.recover_best_heights(ju, jspec)
+    u, ys = board_shared.run_segment(
+        board_shared.init_carry_batch(SEEDS, spec, device="cpu"), 0, spec,
+        spec.n_outer, track_best=False)
+    _assert_same_carry(ju, u)
+    np.testing.assert_array_equal(ys.numpy(), np.asarray(jys))
+    rec = board_shared.recover_best_heights(u, spec)
+    assert rec.dtype == torch.int32 and rec.shape == (128, 5, 5)
+    np.testing.assert_array_equal(rec.numpy(), jrec)
+    np.testing.assert_array_equal(rec[:8].numpy(), jax_n5.best_state)
+    for r in range(8):
+        assert _oracle.board_energy(rec[r].numpy()) == jax_n5.best_energy[r]
+
+
+def test_recover_best_heights_warm_start_and_verify():
+    """The replay needs the run's warm starts: with them it equals the
+    tracked boards (and JAX's replay); without them it raises."""
+    jspec, spec = _specs("n5", n_steps=200)
+    starts = np.random.default_rng(11).integers(0, 5, size=(8, 5, 5))
+    tracked, _ = board_shared.run_segment(
+        board_shared.init_carry_batch(SEEDS, spec, initial_states=starts,
+                                      device="cpu"), 0, spec, spec.n_outer)
+    rec = board_shared.recover_best_heights(tracked, spec,
+                                            initial_states=starts)
+    assert torch.equal(rec, tracked.best_heights.reshape(-1, 5, 5))
+    with pltpu.force_tpu_interpret_mode():
+        jtracked, _ = jbs.run_segment(
+            jbs.init_carry_batch(SEEDS, jspec, initial_states=starts),
+            np.int32(0), jspec, jspec.n_outer)
+        jrec = jbs.recover_best_heights(jtracked, jspec,
+                                        initial_states=starts)
+    np.testing.assert_array_equal(rec.numpy(), jrec)
+    with pytest.raises(AssertionError, match="replay mismatch"):
+        board_shared.recover_best_heights(tracked, spec)
+    # verify=False skips the check and returns the (wrong) replay
+    assert board_shared.recover_best_heights(
+        tracked, spec, verify=False).shape == rec.shape
