@@ -37,8 +37,13 @@ and the script exits non-zero without printing a result:
    in both modes (tables and naive) against the twin over a whole segment
    of several chunks, and tables == naive on the card: config.yaml's cells
    (N=12 and N=18, 10 chains, stride 1), N=2 with a stride tail past
-   n_steps, patience, a warm start and wider batches; full-3D N=12/Q=144,
-   N=2/Q=7 with a tail, N=5/Q=13 with patience, N=3/Q=26 and a warm start.
+   n_steps, patience, a warm start and wider batches; full-3D: config.yaml's
+   beta pairs cell as full_3d (N=12/Q=144, 10 chains, stride 1), N=12/Q=144
+   at 4096 chains, N=2/Q=7 with a tail, N=5/Q=13 with patience, N=3/Q=26
+   and a warm start.  Each bound counts only the work its launch did: the
+   bins its steps fall in, the cells and table words its proposals read,
+   its accepted moves, and best states only where a chain improved (none
+   with track_best off).
 4. the main paths end to end, each with the launch counts zeroed just
    before it and read just after (each must equal the launches it ran):
    the board CLI (N=16, 32768 runs, 50000 steps); the board tempered CLI
@@ -98,7 +103,8 @@ from mcqueens_torch.chain.spec import ChainSpec  # noqa: E402
 from mcqueens_torch.cli import competition  # noqa: E402
 from mcqueens_torch.core import rng, tables  # noqa: E402
 from mcqueens_torch.core.energy import board_energy, full3d_energy  # noqa: E402
-from mcqueens_torch.core.schedules import build_schedule  # noqa: E402
+from mcqueens_torch.core.schedules import (build_schedule,  # noqa: E402
+                                           chunk_betas)
 from mcqueens_torch.dist import runner  # noqa: E402
 from mcqueens_torch.experiments import drivers  # noqa: E402
 from mcqueens_torch.experiments.config import load_config, parse_config  # noqa: E402
@@ -142,7 +148,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # The per-chain samplers keep their state chains major, (C, n_bins) bins.
 PER_CHAIN = (metropolis_pallas, full3d_pallas)
 INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 units (NVIDIA H100 white paper)
-THREEFRY_OPS = 120  # one threefry2x32 in threefry.cuh: 20 rounds x 5 + keys
+# One threefry2x32 in threefry.cuh: 20 rounds of add, rotate (one funnel
+# shift on sm_90) and xor, 5 key injections of 2 adds (IADD3 folds the
+# constant), and 3 to set up the key and counter.
+THREEFRY_OPS = 20 * 3 + 5 * 2 + 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 
@@ -230,69 +239,139 @@ def line_cells(N):
     return cells / (N * N)
 
 
-def board_work(spec, C, active):
-    """(int32 ops, bytes) of one board launch with ``active`` proposals:
-    12 ops per scored line cell (the site's row, column and both diagonals,
-    averaged over the N^2 sites the site hash draws uniformly) plus 32 for
-    the four hashes of a step."""
-    N = spec.N
-    ops = active * (12 * line_cells(N) + 32)
-    words = 2 * N * N * C + 2 * spec.n_bins * C + 5 * C
-    return ops, 4 * (2 * words + C + spec.history_stride)
+def touched_bins(spec, step0, n):
+    """Bins that the steps ``step0 .. step0 + n - 1`` before n_steps fall
+    in (a step's bin is monotone in the step)."""
+    last = min(step0 + n, spec.n_steps) - 1
+    if last < step0:
+        return 0
+
+    def bin_of(s):
+        return min(s * spec.n_bins // spec.n_steps, spec.n_bins - 1)
+
+    return bin_of(last) - bin_of(step0) + 1
 
 
-def metropolis_work(spec, C, active):
-    """(int32 ops, bytes) of one per-chain board launch with ``active``
-    proposals, counted from ``csrc/metropolis.cu``: 12 ops per scored line
-    cell (the same lines as the shared-site kernel), 24 for the three hashes
-    of a step and 16 for its site, height and bin arithmetic."""
-    N = spec.N
-    ops = active * (12 * line_cells(N) + 40)
-    words = 2 * N * N * C + 2 * spec.n_bins * C + 5 * C
-    return ops, 4 * (2 * words + C + spec.history_stride)
+@dataclasses.dataclass
+class Launch:
+    """What one launch did, read off its state before and after it; the
+    bounds count only this work."""
+
+    spec: ChainSpec
+    step0: int              # first global step of the launch
+    n_steps: int            # steps it covers
+    active: torch.Tensor    # (C,) int64 proposals of each chain
+    accepted: int           # accepted moves, all chains
+    improved: int           # chains that found a new best
+    track_best: bool = True
+    freeze: bool = False    # a (C,) step-horizon row was read
+    n_outer: int = 1        # (n_outer, C) energy rows written (scan kernels)
+
+    @property
+    def C(self):
+        return int(self.active.shape[0])
+
+    @property
+    def proposals(self):
+        return int(self.active.sum())
+
+    def common_words(self, scalars):
+        """int32 words every launch moves: ``scalars`` per-chain words read
+        and written by each chain that steps, a stop/done word of every
+        chain (and its freeze horizon), the accept and total words of the
+        bins its steps fall in (read and written), the betas."""
+        moving = int((self.active > 0).sum())
+        bins = touched_bins(self.spec, self.step0, self.n_steps)
+        return (2 * scalars * moving + self.C * (1 + self.freeze)
+                + 4 * bins * moving + self.n_steps)
 
 
-def full3d_pallas_work(spec, C, active):
-    """(int32 ops, bytes) of one per-chain full-3D launch with ``active``
-    proposals, counted from ``csrc/full3d_pallas.cu``: 22 ops per (queen,
-    target) pair for the Q-1 other queens against the new and the old cell,
-    40 for the step's hashes and bookkeeping, and 12 per rejection attempt,
-    N^3 / (N^3 - Q) attempts expected."""
-    N, Q = spec.N, spec.q_eff
-    n_words = -(-N ** 3 // 32)
+def snapshot(st, chains_major):
+    """Per-chain (proposals, accepted moves, best step) of a carry or
+    segment state, copied; ``chains_major``: its bins are (C, n_bins)."""
+    axis = 1 if chains_major else 0
+    return (st.total_bins.sum(axis).to(torch.int64),
+            st.accept_bins.sum(axis).to(torch.int64),
+            st.best_step.reshape(-1).clone())
+
+
+def launch_of(spec, before, after, step0, n_steps, **mode):
+    """The :class:`Launch` between two :func:`snapshot` s."""
+    return Launch(spec=spec, step0=step0, n_steps=n_steps,
+                  active=after[0] - before[0],
+                  accepted=int((after[1] - before[1]).sum()),
+                  improved=int((after[2] != before[2]).sum()), **mode)
+
+
+def board_bytes(ln):
+    """Bytes a board launch must move: the cells of each chain's board
+    that its proposals read (the site and its lines, at most N^2), one
+    word per accepted move, the N^2 best board of each chain that improved
+    (track_best only), and the common words with 6 per-chain scalars."""
+    N2 = ln.spec.N ** 2
+    cells = torch.clamp(ln.active * int(line_cells(ln.spec.N) + 1),
+                        max=N2)
+    words = (int(cells.sum()) + min(ln.accepted, N2 * ln.C)
+             + ln.track_best * ln.improved * N2 + ln.common_words(6))
+    return 4 * words
+
+
+def board_work(ln):
+    """(int32 ops, bytes) of one shared-site board launch: 12 ops per
+    scored line cell (the site's row, column and both diagonals, averaged
+    over the N^2 sites the site hash draws uniformly) plus 32 for the four
+    hashes of a step."""
+    return ln.proposals * (12 * line_cells(ln.spec.N) + 32), board_bytes(ln)
+
+
+def metropolis_work(ln):
+    """(int32 ops, bytes) of one per-chain board launch, counted from
+    ``csrc/metropolis.cu``: 12 ops per scored line cell (the same lines as
+    the shared-site kernel), 24 for the three hashes of a step and 16 for
+    its site, height and bin arithmetic."""
+    return ln.proposals * (12 * line_cells(ln.spec.N) + 40), board_bytes(ln)
+
+
+def full3d_bytes(ln, occ_words):
+    """Bytes a full-3D launch must move: the 3Q coordinates of each chain
+    that steps (every proposal scores against all queens), 3 words per
+    accepted move, the 3Q best coordinates of each chain that improved,
+    ``occ_words`` occupancy words per chain that steps, and the common
+    words with 6 per-chain scalars."""
+    Q = ln.spec.q_eff
+    moving = int((ln.active > 0).sum())
+    words = (3 * Q * moving + min(3 * ln.accepted, 3 * Q * ln.C)
+             + 3 * Q * ln.improved + occ_words * moving
+             + ln.common_words(6))
+    return 4 * words
+
+
+def full3d_pallas_work(ln):
+    """(int32 ops, bytes) of one per-chain full-3D launch, counted from
+    ``csrc/full3d_pallas.cu``: 22 ops per (queen, target) pair for the Q-1
+    other queens against the new and the old cell, 40 for the step's hashes
+    and bookkeeping, and 12 per rejection attempt, N^3 / (N^3 - Q)
+    attempts expected; its state holds the occupancy bitfield."""
+    N, Q = ln.spec.N, ln.spec.q_eff
     attempts = N ** 3 / (N ** 3 - Q)
-    ops = active * (44 * (Q - 1) + 40 + 12 * attempts)
-    words = 7 * Q * C + n_words * C + 2 * spec.n_bins * C + 5 * C
-    return ops, 4 * (2 * words + C + spec.history_stride)
+    ops = ln.proposals * (44 * (Q - 1) + 40 + 12 * attempts)
+    return ops, full3d_bytes(ln, -(-N ** 3 // 32))
 
 
-def work_of(mod, spec, C, active_per_chain):
-    """(int32 ops, bytes) of one launch of ``mod``'s kernel."""
-    active = int(active_per_chain.sum())
-    if mod is board_shared:
-        return board_work(spec, C, active)
-    if mod is full3d_shared:
-        return full3d_work(spec, C, active_per_chain)
-    if mod is metropolis_pallas:
-        return metropolis_work(spec, C, active)
-    return full3d_pallas_work(spec, C, active)
-
-
-def chain_totals(mod, st):
-    """(C,) int64 proposals each chain has counted in a segment state."""
-    return st.total_bins.sum(1 if mod in PER_CHAIN else 0).to(torch.int64)
-
-
-def full3d_work(spec, C, active_per_chain):
-    """(int32 ops, bytes) of one full-3D launch: ~22 int32 ops per (queen,
-    target) pair, with the targets of a chain the candidates of its active
-    steps plus the mover's cell once per 8-step chunk (the JAX kernel's
-    count, ``docs/DESIGN.md``)."""
-    a = active_per_chain.to(torch.int64)
+def full3d_work(ln):
+    """(int32 ops, bytes) of one shared-site full-3D launch: ~22 int32 ops
+    per (queen, target) pair, with the targets of a chain the candidates of
+    its active steps plus the mover's cell once per 8-step chunk (the JAX
+    kernel's count, ``docs/DESIGN.md``); occupancy is read off the
+    coordinates."""
+    a = ln.active
     targets = int((a + (a + 7) // 8).sum())
-    ops = targets * spec.q_eff * 22
-    words = 6 * spec.q_eff * C + 2 * spec.n_bins * C + 5 * C
-    return ops, 4 * (2 * words + 2 * C + spec.history_stride)
+    return targets * ln.spec.q_eff * 22, full3d_bytes(ln, 0)
+
+
+WORK = {board_shared: board_work, full3d_shared: full3d_work,
+        metropolis_pallas: metropolis_work,
+        full3d_pallas: full3d_pallas_work}
 
 
 def compare_case(mod, name, spec, n_chains, start_outer=0, seed0=0,
@@ -306,7 +385,7 @@ def compare_case(mod, name, spec, n_chains, start_outer=0, seed0=0,
     carry = mod.init_carry_batch(seeds, spec, device="cuda")
     C = int(carry.energy.shape[0])
     step0, n_inner = start_outer * spec.history_stride, spec.history_stride
-    beta = board_shared.chunk_betas(spec, step0, n_inner, carry.device)
+    beta = chunk_betas(spec.schedule, step0, n_inner, carry.device)
     scale = None
     if ladder is not None:
         scale = torch.from_numpy(np.tile(ladder, -(-C // len(ladder)))[:C]
@@ -336,11 +415,13 @@ def compare_case(mod, name, spec, n_chains, start_outer=0, seed0=0,
                   f"({int((a != b).sum())} entries)")
     if err:
         raise AssertionError(f"kernel != twin on {name}: max abs err {err}")
-    active = chain_totals(mod, k_st) - carry.total_bins.sum(1).to(
-        torch.int64)
-    work = work_of(mod, spec, C, active)
+    ln = launch_of(spec, snapshot(carry, True),
+                   snapshot(k_st, mod in PER_CHAIN), step0, n_inner,
+                   track_best=freeze is None, freeze=freeze is not None)
+    work = WORK[mod](ln)
     phase("compare", f"{name}: kernel == twin on all {len(vars(k_st))} "
-          f"state fields; {int(active.sum())} proposals; kernel "
+          f"state fields; {ln.proposals} proposals, {ln.accepted} "
+          f"accepted, {ln.improved} chains improved; kernel "
           f"{kernel_ms:.3f} ms, twin {twin_ms:.1f} ms")
     return dict(err=err, kernel_ms=kernel_ms, twin_ms=twin_ms, st=k_st,
                 spec=spec, work=work, n_chains=n_chains)
@@ -708,33 +789,51 @@ def full3d_pairs_slice():
     return got[full3d_pallas]
 
 
-def scan_work(mod, spec, C, active, accepted, n_outer):
-    """(int32 ops, bytes) of one scan-kernel launch with ``active`` steps
-    taken and ``accepted`` moves, counted from ``csrc/board_scan.cu`` /
-    ``full3d_scan.cu``: THREEFRY_OPS per threefry (18 per board step; 15 per
-    full-3D step plus 6 per extra rejection attempt, N^3 / (N^3 - Q)
-    attempts expected), 12 per randint and 30 of bookkeeping per step, and
-    the dE: tables 4 per line lookup (24 or 26 a step) and 2 per line update
-    of an accepted move; naive 20 per attack test, two per other cell or
-    queen.  Bytes: the state read and written once, ys and the betas."""
-    N = spec.N
+def scan_work(mod, ln):
+    """(int32 ops, bytes) of one scan-kernel launch, counted from
+    ``csrc/board_scan.cu`` / ``full3d_scan.cu``: THREEFRY_OPS per threefry
+    (18 per board step; 15 per full-3D step plus 6 per extra rejection
+    attempt, N^3 / (N^3 - Q) attempts expected), 12 per randint and 30 of
+    bookkeeping per step, and the dE: tables 4 per line lookup (24 or 26 a
+    step) and 2 per line update of an accepted move; naive 20 per attack
+    test, two per other cell or queen.  Bytes: the table words the launch
+    gathers and updates (at most the table), the board cells or queen
+    coordinates it reads (a whole board or all Q queens for a naive scan
+    or an improvement's copy), the accepted moves and best states it
+    writes, the occupancy bytes its attempts test, two key words per
+    chain, the energy rows and the common words with 6 per-chain
+    scalars."""
+    spec = ln.spec
+    N, C, naive = spec.N, ln.C, spec.kernel == "naive"
+    a, moving = ln.active, int((ln.active > 0).sum())
     if mod is board_chain:
         per_step = 18 * THREEFRY_OPS + 3 * 12 + 30
-        lines, others, words = 12, N * N - 1, 2 * N * N
-        T = tables.table_size(N)
+        lines, others = 12, N * N - 1
+        T, state = tables.table_size(N), N * N
+        read = torch.clamp(a, max=state)     # the site's old height
+        moved, occ_bytes = ln.accepted, 0
     else:
         Q, N3 = spec.q_eff, N ** 3
-        per_step = ((15 + 6 * (N3 / (N3 - Q) - 1)) * THREEFRY_OPS + 2 * 12
-                    + 30)
-        lines, others, words = 13, Q - 1, 6 * Q + N3 / 4
-        T = tables.table_size(N, full3d=True)
-    if spec.kernel == "naive":
-        ops = active * (per_step + 2 * 20 * others)
-        T = 0
+        attempts = N3 / (N3 - Q)
+        per_step = ((15 + 6 * (attempts - 1)) * THREEFRY_OPS + 2 * 12 + 30)
+        lines, others = 13, Q - 1
+        T, state = tables.table_size(N, full3d=True), 3 * Q
+        read = torch.clamp(3 * a, max=state)  # the mover's coordinates
+        moved = 3 * ln.accepted
+        occ_bytes = min(ln.proposals * attempts, N3 * C) + 2 * ln.accepted
+    if naive:
+        ops = ln.proposals * (per_step + 2 * 20 * others)
+        table = 0
+        read = torch.where(a > 0, state, 0)
     else:
-        ops = active * (per_step + 2 * lines * 4) + accepted * 4 * lines
-    state = C * (words + T + 2 * spec.n_bins + 8)
-    return ops, 4 * (2 * state + n_outer * C + n_outer * spec.history_stride)
+        ops = ln.proposals * (per_step + 2 * lines * 4) + (
+            ln.accepted * 4 * lines)
+        table = (min(2 * lines * ln.proposals, T * C)
+                 + min(2 * lines * ln.accepted, T * C))
+    words = (table + int(read.sum()) + min(moved, state * C)
+             + (2 - naive) * state * ln.improved + 2 * C + ln.n_outer * C
+             + ln.common_words(6))
+    return ops, 4 * words + occ_bytes
 
 
 def warm_starts(mod, spec, C, seed):
@@ -766,8 +865,8 @@ def scan_compare(mod, name, spec, n_chains, start_outer, n_outer, seed0=0,
             carry, _ = mod.run_segment(carry, 0, sp, start_outer)
         k_st, t_st = mod.segment_state(carry), mod.segment_state(carry)
         stride = sp.history_stride
-        beta = board_shared.chunk_betas(sp, start_outer * stride,
-                                        n_outer * stride, carry.device)
+        beta = chunk_betas(sp.schedule, start_outer * stride,
+                           n_outer * stride, carry.device)
         yk = torch.zeros((n_outer, n_chains), dtype=torch.int32,
                          device="cuda")
         yt = torch.zeros_like(yk)
@@ -787,15 +886,15 @@ def scan_compare(mod, name, spec, n_chains, start_outer, n_outer, seed0=0,
         if err:
             raise AssertionError(f"kernel != twin on {name} {kern}: max abs "
                                  f"err {err}")
-        active = int((k_st.total_bins.sum(0).long()
-                      - carry.total_bins.sum(1).long()).sum())
-        accepted = int((k_st.accept_bins.sum(0).long()
-                        - carry.accept_bins.sum(1).long()).sum())
-        work = scan_work(mod, sp, n_chains, active, accepted, n_outer)
+        ln = launch_of(sp, snapshot(carry, True), snapshot(k_st, False),
+                       start_outer * stride, n_outer * stride,
+                       n_outer=n_outer)
+        work = scan_work(mod, ln)
         phase("compare", f"{name} {kern}: kernel == twin on all fields and "
-              f"ys; {active} proposals, {accepted} accepted, "
-              f"{int(k_st.done.sum())} chains stopped; kernel "
-              f"{kernel_ms:.3f} ms, twin {twin_ms:.1f} ms")
+              f"ys; {ln.proposals} proposals, {ln.accepted} accepted, "
+              f"{ln.improved} chains improved, {int(k_st.done.sum())} "
+              f"chains stopped; kernel {kernel_ms:.3f} ms, twin "
+              f"{twin_ms:.1f} ms")
         out[kern] = dict(err=err, kernel_ms=kernel_ms, twin_ms=twin_ms,
                          st=k_st, ys=yk, spec=sp, work=work,
                          n_chains=n_chains, mod=mod)
@@ -983,15 +1082,14 @@ def scan_throughput(mod, label, spec, chains, bounds):
                 break
         rate = (seg - 1) * stride * chains / elapsed
         st = mod.segment_state(carry)
-        beta = board_shared.chunk_betas(sp, seg * stride, stride,
-                                        st.energy.device)
+        beta = chunk_betas(sp.schedule, seg * stride, stride,
+                           st.energy.device)
         ys = torch.empty((1, chains), dtype=torch.int32, device="cuda")
-        tot0, acc0 = int(st.total_bins.sum()), int(st.accept_bins.sum())
+        before = snapshot(st, False)
         k_ms = cuda_ms(lambda: mod.segment_cuda(st, ys, seg, 1, sp, beta))
-        active = int(st.total_bins.sum()) - tot0
-        accepted = int(st.accept_bins.sum()) - acc0
-        bound_ms, bound_by = bounds.of(*scan_work(mod, sp, chains, active,
-                                                  accepted, 1))
+        ln = launch_of(sp, before, snapshot(st, False), seg * stride,
+                       stride)
+        bound_ms, bound_by = bounds.of(*scan_work(mod, ln))
         phase("throughput", f"{label} {kern} chains={chains}: {rate:.4e} "
               f"proposed moves/s over {seg - 1} x {stride}-step run_segment "
               f"calls ({elapsed:.2f} s); kernel alone {k_ms:.1f} ms per "
@@ -1026,13 +1124,14 @@ def throughput(mod, label, spec, chain_counts, bounds):
                 break
         rate = (seg - 1) * seg_steps * chains / elapsed
         st = mod.segment_state(carry)
-        beta = board_shared.chunk_betas(spec, seg * seg_steps, seg_steps,
-                                        st.energy.device)
-        before = chain_totals(mod, st)
+        beta = chunk_betas(spec.schedule, seg * seg_steps, seg_steps,
+                           st.energy.device)
+        before = snapshot(st, mod in PER_CHAIN)
         k_ms = cuda_ms(lambda: mod.segment_cuda(
             st, seg * seg_steps, seg_steps, spec, beta))
-        active = chain_totals(mod, st) - before
-        bound_ms, bound_by = bounds.of(*work_of(mod, spec, chains, active))
+        ln = launch_of(spec, before, snapshot(st, mod in PER_CHAIN),
+                       seg * seg_steps, seg_steps)
+        bound_ms, bound_by = bounds.of(*WORK[mod](ln))
         phase("throughput", f"{label} chains={chains}: {rate:.4e} proposed "
               f"moves/s over {seg - 1} x {seg_steps}-step run_segment calls "
               f"({elapsed:.2f} s); kernel alone {k_ms:.1f} ms per "
@@ -1201,6 +1300,9 @@ def main():
          4096, 0, 2, 5, True),
     ]
     scan_full3d_cases = [
+        ("full3d_scan config.yaml pairs cell N=12 Q=144 C=10 stride 1",
+         spec_of(12, 10 ** 6, 1, lin(10 ** 6, 0.5, 3.0), kernel="tables",
+                 mcmc_type="full_3d"), 10, 0, 128, 42, False),
         ("full3d_scan N=12 Q=144 C=4096", spec_of(
             12, 10 ** 6, 32, lin(10 ** 6, 0.5, 3.0), kernel="tables",
             mcmc_type="full_3d"), 4096, 0, 2, 42, False),
@@ -1353,9 +1455,9 @@ def main():
         bound_ms, bound_by = bounds.of(*res["work"])
         phase("bound", f"{KERNELS[mod]['name']} on '{case}': "
               f"{res['work'][0]:.4e} int32 ops, {res['work'][1]:.4e} bytes "
-              f"-> bound {bound_ms:.4f} ms ({bound_by}); kernel "
-              f"{res['kernel_ms']:.4f} ms = "
-              f"{bound_ms / res['kernel_ms']:.3f} of the bound")
+              f"-> bound {bound_ms:.4f} ms ({bound_by}) = "
+              f"{bound_ms / res['kernel_ms']:.3f} of the kernel's "
+              f"{res['kernel_ms']:.4f} ms")
         rows.append({
             **KERNELS[mod],
             "route": "cuda",
@@ -1382,9 +1484,9 @@ def main():
         bound_ms, bound_by = bounds.of(*res["work"])
         phase("bound", f"{row['name']} on '{case}': {res['work'][0]:.4e} "
               f"int32 ops, {res['work'][1]:.4e} bytes -> bound "
-              f"{bound_ms:.4f} ms ({bound_by}); kernel "
-              f"{res['kernel_ms']:.4f} ms = "
-              f"{bound_ms / res['kernel_ms']:.3f} of the bound")
+              f"{bound_ms:.4f} ms ({bound_by}) = "
+              f"{bound_ms / res['kernel_ms']:.3f} of the kernel's "
+              f"{res['kernel_ms']:.4f} ms")
         rows.append({
             **row,
             "route": "cuda",

@@ -25,7 +25,7 @@ both updating it in place and writing the ``(n_outer, C)`` energy rows:
 
 :func:`segment_call` takes the twin only for CPU tensors and the kernel only
 for CUDA tensors.  The betas of the segment's steps are evaluated once by
-:func:`~mcqueens_torch.kernels.board_shared.chunk_betas` and read by either.
+:func:`~mcqueens_torch.core.schedules.chunk_betas` and read by either.
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ from mcqueens_torch.core import energy as energy_mod
 from mcqueens_torch.core import init as init_mod
 from mcqueens_torch.core import rng
 from mcqueens_torch.core import tables as tables_mod
-from mcqueens_torch.kernels.board_shared import chunk_betas
+from mcqueens_torch.core.schedules import chunk_betas
+from mcqueens_torch.kernels import segment
 
 # Launches of the CUDA kernel in this process (read and reset by callers
 # that check the main path really ran on the card).
@@ -137,15 +138,12 @@ class SegmentState:
 
 
 _ROWS = ("energy", "best_energy", "best_step", "no_improve", "stop_step")
-_PLANES = ("heights", "best_heights", "accept_bins", "total_bins")
+_PLANES = ("heights", "best_heights", "table", "accept_bins", "total_bins")
 
 
 def segment_state(carry: BoardCarry) -> SegmentState:
     """Transpose a carry into a fresh chains-minor :class:`SegmentState`."""
-    kw = {name: getattr(carry, name).t().contiguous() for name in _PLANES}
-    kw.update({name: getattr(carry, name).clone() for name in _ROWS})
-    kw["table"] = (None if carry.table is None
-                   else carry.table.t().contiguous())
+    kw = segment.chains_minor(carry, _PLANES, _ROWS)
     kw["done"] = carry.done.to(torch.int32)
     kw["step_base"] = rng.as_int32(carry.step_base).t().contiguous()
     return SegmentState(**kw)
@@ -153,9 +151,7 @@ def segment_state(carry: BoardCarry) -> SegmentState:
 
 def carry_of(st: SegmentState) -> BoardCarry:
     """Inverse of :func:`segment_state`."""
-    kw = {name: getattr(st, name).t().contiguous() for name in _PLANES}
-    kw.update({name: getattr(st, name).clone() for name in _ROWS})
-    kw["table"] = None if st.table is None else st.table.t().contiguous()
+    kw = segment.chains_major(st, _PLANES, _ROWS, row_shape=(-1,))
     kw["done"] = st.done != 0
     kw["step_base"] = rng.from_int32(st.step_base).t().contiguous()
     return BoardCarry(**kw)
@@ -286,15 +282,12 @@ def segment_call(st: SegmentState, start_outer: int, n_outer: int,
     an error for anything else; returns the ``(n_outer, C)`` energy rows."""
     dev = st.heights.device
     stride = spec.history_stride
-    beta = chunk_betas(spec, start_outer * stride, n_outer * stride, dev)
+    beta = chunk_betas(spec.schedule, start_outer * stride, n_outer * stride,
+                       dev)
     ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
                      device=dev)
-    if dev.type == "cpu":
-        segment_reference(st, ys, start_outer, n_outer, spec, beta)
-    elif dev.type == "cuda":
-        segment_cuda(st, ys, start_outer, n_outer, spec, beta)
-    else:
-        raise ValueError(f"chain.board runs on cpu or cuda, not {dev}")
+    segment.on_device("chain.board", dev, segment_reference, segment_cuda,
+                      st, ys, start_outer, n_outer, spec, beta)
     return ys
 
 

@@ -33,7 +33,8 @@ from mcqueens_torch.core import energy as energy_mod
 from mcqueens_torch.core import init as init_mod
 from mcqueens_torch.core import rng
 from mcqueens_torch.core import tables as tables_mod
-from mcqueens_torch.kernels.board_shared import chunk_betas
+from mcqueens_torch.core.schedules import chunk_betas
+from mcqueens_torch.kernels import segment
 
 # Launches of the CUDA kernel in this process (read and reset by callers
 # that check the main path really ran on the card).
@@ -131,17 +132,13 @@ class SegmentState:
 
 
 _ROWS = ("energy", "best_energy", "best_step", "no_improve", "stop_step")
+_PLANES = ("queens", "best_queens", "table", "accept_bins", "total_bins")
 
 
 def segment_state(carry: Full3DCarry) -> SegmentState:
     """Transpose a carry into a fresh chains-minor :class:`SegmentState`."""
-    C = carry.queens.shape[0]
-    kw = {name: getattr(carry, name).reshape(C, -1).t().contiguous()
-          for name in ("queens", "best_queens", "accept_bins", "total_bins")}
-    kw.update({name: getattr(carry, name).clone() for name in _ROWS})
+    kw = segment.chains_minor(carry, _PLANES, _ROWS)
     kw["occ"] = carry.occ.to(torch.uint8).t().contiguous()
-    kw["table"] = (None if carry.table is None
-                   else carry.table.t().contiguous())
     kw["done"] = carry.done.to(torch.int32)
     kw["step_base"] = rng.as_int32(carry.step_base).t().contiguous()
     return SegmentState(**kw)
@@ -149,14 +146,11 @@ def segment_state(carry: Full3DCarry) -> SegmentState:
 
 def carry_of(st: SegmentState) -> Full3DCarry:
     """Inverse of :func:`segment_state`."""
+    kw = segment.chains_major(st, _PLANES, _ROWS, row_shape=(-1,))
     C = st.energy.shape[0]
-    kw = {name: getattr(st, name).t().reshape(C, -1, 3).contiguous()
-          for name in ("queens", "best_queens")}
-    kw.update({name: getattr(st, name).t().contiguous()
-               for name in ("accept_bins", "total_bins")})
-    kw.update({name: getattr(st, name).clone() for name in _ROWS})
+    for name in ("queens", "best_queens"):
+        kw[name] = kw[name].reshape(C, -1, 3)
     kw["occ"] = st.occ.t() != 0
-    kw["table"] = None if st.table is None else st.table.t().contiguous()
     kw["done"] = st.done != 0
     kw["step_base"] = rng.from_int32(st.step_base).t().contiguous()
     return Full3DCarry(**kw)
@@ -305,15 +299,12 @@ def segment_call(st: SegmentState, start_outer: int, n_outer: int,
     returns the ``(n_outer, C)`` energy rows."""
     dev = st.queens.device
     stride = spec.history_stride
-    beta = chunk_betas(spec, start_outer * stride, n_outer * stride, dev)
+    beta = chunk_betas(spec.schedule, start_outer * stride, n_outer * stride,
+                       dev)
     ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
                      device=dev)
-    if dev.type == "cpu":
-        segment_reference(st, ys, start_outer, n_outer, spec, beta)
-    elif dev.type == "cuda":
-        segment_cuda(st, ys, start_outer, n_outer, spec, beta)
-    else:
-        raise ValueError(f"chain.full3d runs on cpu or cuda, not {dev}")
+    segment.on_device("chain.full3d", dev, segment_reference, segment_cuda,
+                      st, ys, start_outer, n_outer, spec, beta)
     return ys
 
 

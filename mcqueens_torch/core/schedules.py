@@ -102,6 +102,16 @@ class Schedule:
         return f"{name} {self.beta_start}->{self.beta_end}"
 
 
+def chunk_betas(schedule: Schedule, step0: int, n: int,
+                device) -> torch.Tensor:
+    """(n,) float32 betas of steps ``step0 .. step0 + n - 1``: int32 step
+    -> float32 -> schedule, as the JAX kernels evaluate them per step.  A
+    sampler computes them once per launch and hands the same tensor to its
+    CUDA kernel and to the kernel's plain-torch twin."""
+    steps = torch.arange(step0, step0 + n, dtype=torch.int32, device=device)
+    return schedule(steps).to(torch.float32).contiguous()
+
+
 def build_schedule(sched_type: str, n_steps: int, beta_const=None,
                    beta_start=None, beta_end=None) -> Schedule:
     """Factory from a flat parameter set."""

@@ -28,8 +28,9 @@ chains-minor state (:class:`SegmentState`), both updating it in place:
 
 :func:`segment_call` takes the twin only for CPU tensors and the kernel only
 for CUDA tensors; there is no fallback between them.  The per-step betas are
-evaluated once per chunk by :func:`chunk_betas` and handed to either one, so
-the kernel and the twin share one beta by construction.
+evaluated once per chunk by :func:`~mcqueens_torch.core.schedules.chunk_betas`
+and handed to either one, so the kernel and the twin share one beta by
+construction.
 
 All three modes of the JAX kernel are ported: the main path
 (``track_best=True``, no freeze row); the tempered mode, where chain ``c``
@@ -53,7 +54,8 @@ import torch
 from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.core import fastinit
 from mcqueens_torch.core import tables as tables_mod
-from mcqueens_torch.kernels import prng, sizing
+from mcqueens_torch.core.schedules import chunk_betas
+from mcqueens_torch.kernels import prng, segment, sizing
 from mcqueens_torch.kernels.carry import BoardCarry
 
 DEFAULT_BLOCK = 2048
@@ -166,28 +168,14 @@ _PLANES = ("heights", "best_heights", "accept_bins", "total_bins")
 
 def segment_state(carry: BoardCarry) -> SegmentState:
     """Transpose a carry into a fresh chains-minor :class:`SegmentState`."""
-    kw = {name: getattr(carry, name).t().contiguous() for name in _PLANES}
-    kw.update({name: getattr(carry, name).reshape(-1).clone()
-               for name in _ROWS})
-    kw["block_seeds"] = carry.block_seeds.reshape(-1).clone()
-    return SegmentState(**kw)
+    return SegmentState(**segment.chains_minor(
+        carry, _PLANES, _ROWS + ("block_seeds",)))
 
 
 def carry_of(st: SegmentState) -> BoardCarry:
     """Inverse of :func:`segment_state`."""
-    kw = {name: getattr(st, name).t().contiguous() for name in _PLANES}
-    kw.update({name: getattr(st, name)[:, None].clone() for name in _ROWS})
-    kw["block_seeds"] = st.block_seeds[:, None].clone()
-    return BoardCarry(**kw)
-
-
-def chunk_betas(spec: ChainSpec, step0: int, n_inner: int,
-                device) -> torch.Tensor:
-    """(n_inner,) float32 betas of steps ``step0 ..``: int32 step ->
-    float32 -> schedule, as the JAX kernel evaluates them per step."""
-    steps = torch.arange(step0, step0 + n_inner, dtype=torch.int32,
-                         device=device)
-    return spec.schedule(steps).to(torch.float32).contiguous()
+    return BoardCarry(**segment.chains_major(
+        st, _PLANES, _ROWS + ("block_seeds",)))
 
 
 def segment_reference(st: SegmentState, step0: int, n_inner: int,
@@ -331,14 +319,10 @@ def segment_call(st: SegmentState, step0: int, n_inner: int,
     """One chunk of ``n_inner`` steps: the twin for CPU state, the CUDA
     kernel for CUDA state, and an error for anything else."""
     dev = st.heights.device
-    beta = chunk_betas(spec, step0, n_inner, dev)
-    mode = dict(freeze=freeze, track_best=track_best)
-    if dev.type == "cpu":
-        segment_reference(st, step0, n_inner, spec, beta, beta_scale, **mode)
-    elif dev.type == "cuda":
-        segment_cuda(st, step0, n_inner, spec, beta, beta_scale, **mode)
-    else:
-        raise ValueError(f"board_shared runs on cpu or cuda, not {dev}")
+    beta = chunk_betas(spec.schedule, step0, n_inner, dev)
+    segment.on_device("board_shared", dev, segment_reference, segment_cuda,
+                      st, step0, n_inner, spec, beta, beta_scale,
+                      freeze=freeze, track_best=track_best)
 
 
 def _run(carry: BoardCarry, beta_scale, start_outer: int, spec: ChainSpec,

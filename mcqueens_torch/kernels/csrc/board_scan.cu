@@ -25,7 +25,7 @@
 // Bitwise contract with the JAX scan and the twin: threefry in uint32_t, %
 // and / only on non-negative operands, expf (not __expf), built with
 // -fmad=false and without --use_fast_math; the per-step betas come from the
-// wrapper (board_shared.chunk_betas over the segment's steps).
+// wrapper (core/schedules.py:chunk_betas over the segment's steps).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

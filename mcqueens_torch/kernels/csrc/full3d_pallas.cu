@@ -11,13 +11,19 @@
 // chain's queens (packed x | y << 10 | z << 20), its best queens and its
 // ceil(N^3/32)-word occupancy bitfield sit in shared memory for the whole
 // launch (4*(2Q + N^3/32) bytes, 4.2 KB at N=20, Q=400) and go back to
-// global memory once at its end.
+// global memory once at its end.  A warp per chain, not a thread, for the
+// reason given in metropolis.cu: independent chains are narrow work.
+// Coordinates pack into 10 bits each (N <= 1023); shapes beyond a block's
+// 227 KB of shared memory (N > 104 at Q = N^2) are refused, with the limit
+// stated, by the wrapper and by the entry point; the repo's configs need
+// N <= 20.
 //
 // Per step:
 //   * mover q = w_q % Q;
 //   * target: attempt a tests cell word_from_base(base, _A_SALT + a) % N^3
 //     against the bitfield, and the first free attempt wins, with no cap (the
-//     JAX kernel's unrolled attempts plus lax.while_loop).  Lane l tests
+//     JAX kernel's few unrolled attempts, then a block-wide lax.while_loop
+//     that drains the stragglers).  Lane l tests
 //     attempt 32r + l; __ballot_sync and __ffs pick the lowest free one of
 //     each round of 32, which is the serial first-free exactly.  N=3, Q=26
 //     has one free cell in 27;

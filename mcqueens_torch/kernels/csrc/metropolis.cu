@@ -4,17 +4,27 @@
 // Plain-torch twin: mcqueens_torch/kernels/metropolis_pallas.py:
 // segment_reference.
 //
-// One warp per chain.  Every chain draws its own site (i, j) and new height
-// from its own seed's counter stream, so no two chains share anything and
-// the grid may group them freely: a block holds up to 4 chains, one per warp
-// (fewer where the boards would not fit in a block's shared memory).
-// The chain's board and best board sit in shared memory for the whole
-// launch (8*N^2 bytes, 8 KB at N=32) and go back to global memory once at
-// its end; energy, best energy, best step, patience counter, stop step and
-// the current bin's counts stay in registers, warp-uniform.
+// One warp per chain.  Independent chains are narrow work: one thread per
+// chain, the design of the shared-site kernels, would give a 128-run sweep
+// 4 warps on a 132-SM card, where a warp per chain gives it 128.  Every
+// chain draws its own site (i, j) and new height from its own seed's counter
+// stream, so no two chains share anything and the grid may group them
+// freely: a block holds up to 4 chains, one per warp (fewer where the boards
+// would not fit in a block's shared memory).  The carry is still padded to
+// whole blocks exactly as the JAX package pads it, though a block has no
+// meaning here.  The chain's board and best board sit in shared memory for
+// the whole launch (8*N^2 bytes, 8 KB at N=32) and go back to global memory
+// once at its end; energy, best energy, best step, patience counter, stop
+// step and the current bin's counts stay in registers, warp-uniform.  State
+// stays chains major, the carry's own layout, so a segment copies it once
+// and transposes nothing.  Boards beyond a block's 227 KB of shared memory
+// (N > 170) are refused, with the limit stated, by the wrapper and by the
+// entry point; the repo's configs need N <= 32.
 //
 // dE: the JAX kernel sums the dense identity of kernels/delta_e.py over all
-// N^2 cells.  Its integrand is zero off the row, column and two diagonals
+// N^2 cells, because Mosaic has no per-lane gather on the TPU; the CUDA
+// kernel can gather, so it scores only the lines.  The integrand is zero
+// off the row, column and two diagonals
 // through (i, j), and on an off-site cell of those lines at offset d != 0 it
 // reduces to
 //     [h == new] - [h == old] + [|h - new| == |d|] - [|h - old| == |d|],

@@ -44,8 +44,8 @@ import torch
 from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.core import fastinit
 from mcqueens_torch.core import tables as tables_mod
-from mcqueens_torch.kernels import prng, sizing
-from mcqueens_torch.kernels.board_shared import chunk_betas
+from mcqueens_torch.core.schedules import chunk_betas
+from mcqueens_torch.kernels import prng, segment, sizing
 from mcqueens_torch.kernels.carry import Full3DCarry
 
 DEFAULT_BLOCK = 2048
@@ -355,13 +355,9 @@ def segment_call(st: SegmentState, step0: int, n_inner: int,
     """One chunk of ``n_inner`` steps: the twin for CPU state, the CUDA
     kernel for CUDA state, and an error for anything else."""
     dev = st.qi.device
-    beta = chunk_betas(spec, step0, n_inner, dev)
-    if dev.type == "cpu":
-        segment_reference(st, step0, n_inner, spec, beta)
-    elif dev.type == "cuda":
-        segment_cuda(st, step0, n_inner, spec, beta)
-    else:
-        raise ValueError(f"full3d_pallas runs on cpu or cuda, not {dev}")
+    beta = chunk_betas(spec.schedule, step0, n_inner, dev)
+    segment.on_device("full3d_pallas", dev, segment_reference, segment_cuda,
+                      st, step0, n_inner, spec, beta)
 
 
 def run_segment(carry: Full3DCarry, start_outer: int, spec: ChainSpec,

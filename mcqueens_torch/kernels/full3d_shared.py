@@ -46,8 +46,8 @@ import numpy as np
 import torch
 
 from mcqueens_torch.chain.spec import ChainSpec
-from mcqueens_torch.kernels import full3d_pallas, prng, sizing
-from mcqueens_torch.kernels.board_shared import chunk_betas
+from mcqueens_torch.core.schedules import chunk_betas
+from mcqueens_torch.kernels import full3d_pallas, prng, segment, sizing
 from mcqueens_torch.kernels.carry import Full3DCarry
 
 DEFAULT_BLOCK = 2048
@@ -143,19 +143,14 @@ _PLANES = ("qi", "qj", "qk", "best_qi", "best_qj", "best_qk", "accept_bins",
 
 def segment_state(carry: Full3DCarry) -> SegmentState:
     """Transpose a carry into a fresh chains-minor :class:`SegmentState`."""
-    kw = {name: getattr(carry, name).t().contiguous() for name in _PLANES}
-    kw.update({name: getattr(carry, name).reshape(-1).clone()
-               for name in _ROWS})
-    kw["block_seeds"] = carry.block_seeds.reshape(-1).clone()
-    return SegmentState(**kw)
+    return SegmentState(**segment.chains_minor(
+        carry, _PLANES, _ROWS + ("block_seeds",)))
 
 
 def carry_of(st: SegmentState, occ: torch.Tensor) -> Full3DCarry:
     """Inverse of :func:`segment_state`; ``occ`` passes through."""
-    kw = {name: getattr(st, name).t().contiguous() for name in _PLANES}
-    kw.update({name: getattr(st, name)[:, None].clone() for name in _ROWS})
-    kw["block_seeds"] = st.block_seeds[:, None].clone()
-    return Full3DCarry(occ=occ, **kw)
+    return Full3DCarry(occ=occ, **segment.chains_major(
+        st, _PLANES, _ROWS + ("block_seeds",)))
 
 
 def _attack(dx, dy, dz):
@@ -305,13 +300,9 @@ def segment_call(st: SegmentState, step0: int, n_inner: int,
     """One launch of ``n_inner`` steps: the twin for CPU state, the CUDA
     kernel for CUDA state, and an error for anything else."""
     dev = st.qi.device
-    beta = chunk_betas(spec, step0, n_inner, dev)
-    if dev.type == "cpu":
-        segment_reference(st, step0, n_inner, spec, beta, beta_scale)
-    elif dev.type == "cuda":
-        segment_cuda(st, step0, n_inner, spec, beta, beta_scale)
-    else:
-        raise ValueError(f"full3d_shared runs on cpu or cuda, not {dev}")
+    beta = chunk_betas(spec.schedule, step0, n_inner, dev)
+    segment.on_device("full3d_shared", dev, segment_reference, segment_cuda,
+                      st, step0, n_inner, spec, beta, beta_scale)
 
 
 def _run(carry: Full3DCarry, beta_scale, start_outer: int, spec: ChainSpec,

@@ -33,8 +33,9 @@ import dataclasses
 import torch
 
 from mcqueens_torch.chain.spec import ChainSpec
-from mcqueens_torch.kernels import board_shared, delta_e, prng, sizing
-from mcqueens_torch.kernels.board_shared import chunk_betas
+from mcqueens_torch.core.schedules import chunk_betas
+from mcqueens_torch.kernels import (board_shared, delta_e, prng, segment,
+                                    sizing)
 from mcqueens_torch.kernels.carry import BoardCarry
 
 DEFAULT_BLOCK = 2048
@@ -216,13 +217,9 @@ def segment_call(st: SegmentState, step0: int, n_inner: int,
     """One chunk of ``n_inner`` steps: the twin for CPU state, the CUDA
     kernel for CUDA state, and an error for anything else."""
     dev = st.heights.device
-    beta = chunk_betas(spec, step0, n_inner, dev)
-    if dev.type == "cpu":
-        segment_reference(st, step0, n_inner, spec, beta)
-    elif dev.type == "cuda":
-        segment_cuda(st, step0, n_inner, spec, beta)
-    else:
-        raise ValueError(f"metropolis_pallas runs on cpu or cuda, not {dev}")
+    beta = chunk_betas(spec.schedule, step0, n_inner, dev)
+    segment.on_device("metropolis_pallas", dev, segment_reference,
+                      segment_cuda, st, step0, n_inner, spec, beta)
 
 
 def run_segment(carry: BoardCarry, start_outer: int, spec: ChainSpec,
