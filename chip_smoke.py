@@ -11,6 +11,15 @@ and the script exits non-zero without printing a result:
 2. build: compiles every ``mcqueens_torch/kernels/csrc/*.cu`` (one nvcc per
    source, in parallel, linked into one library) and prints each kernel's
    registers and spills.
+3a. probes: the measurement tools' four probe kernels
+   (``kernels/probes.py``: A int32 doublings, B the attack test in three
+   forms, C mul/add chains, D the production-shaped sweep) against their
+   twins on the card, bitwise, at the JAX tools' parity shapes (small
+   n_iter, random words too) and at the card-filling timing shapes; the
+   SASS of each template instance's hot loop (``cuobjdump -sass``); the time
+   under twice the trip count (must be 1.8-2.2x); then the measured int32
+   instruction rate and memory bandwidth raise the bound constants if they
+   beat them.
 3. kernel vs twin: one launch through each CUDA kernel and one through its
    plain-torch twin (``segment_reference``), both on the card from the same
    ``init_carry_batch`` state, betas and beta scales; every state field must
@@ -74,9 +83,14 @@ and the script exits non-zero without printing a result:
    per-chain kernels at the same board configuration and at N=15, Q=225
    with 8192-step chunks; then both scan kernels, in both modes, at 4096
    chains (board N=16 over 2^24 steps, full-3D N=12/Q=144 over 1M).
+6. the measurement tools: ``main(["--quick", "--json", tmp])`` of
+   ``mcqueens_torch.tools.probe_full3d_cap``, ``probe_full3d_alternatives``,
+   ``probe_swar_sweep`` (both reading this run's fit) and ``roofline``, the
+   probe launch counts zeroed before and read after; prints each JSON.
 
-Then one JSON line describing the kernels (the six, and the board kernel's
-freeze mode on a row of its own), the ``nvidia-smi`` name/power
+Then one JSON line describing the kernels (the six, the board kernel's
+freeze mode on a row of its own, and the four probes, each of which must
+run at no more than 1.05 of its bound), the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -84,6 +98,7 @@ import sys
 
 _PRELOADED = set(sys.modules)
 
+import collections  # noqa: E402
 import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import io  # noqa: E402
@@ -108,8 +123,11 @@ from mcqueens_torch.core.schedules import (build_schedule,  # noqa: E402
 from mcqueens_torch.dist import runner  # noqa: E402
 from mcqueens_torch.experiments import drivers  # noqa: E402
 from mcqueens_torch.experiments.config import load_config, parse_config  # noqa: E402
+from mcqueens_torch import tools as port_tools  # noqa: E402
 from mcqueens_torch.kernels import (_build, board_shared, full3d_pallas,  # noqa: E402
-                                    full3d_shared, metropolis_pallas)
+                                    full3d_shared, metropolis_pallas, probes)
+from mcqueens_torch.tools import (probe_full3d_alternatives,  # noqa: E402
+                                  probe_full3d_cap, probe_swar_sweep, roofline)
 from mcqueens_torch.search.tempering import geometric_ladder  # noqa: E402
 
 KERNELS = {
@@ -144,15 +162,38 @@ FREEZE_ROW = dict(name="board_shared_kernel (freeze mode)",
                   source="mcqueens_torch/kernels/csrc/board_shared.cu",
                   replaces="mcqueens/kernels/board_shared.py:176")
 SCAN = (board_chain, full3d_chain)
+# The measurement tools' probe kernels: wrapper key -> row, and the CUDA
+# function each launches.
+PROBES = {
+    "vpu": dict(name="vpu_probe_kernel",
+                source="mcqueens_torch/kernels/csrc/probe_alu.cu",
+                replaces="tools/roofline.py:100"),
+    "test": dict(name="test_probe_kernel",
+                 source="mcqueens_torch/kernels/csrc/probe_attack.cu",
+                 replaces="tools/probe_full3d_alternatives.py:74"),
+    "op": dict(name="op_probe_kernel",
+               source="mcqueens_torch/kernels/csrc/probe_alu.cu",
+               replaces="tools/probe_full3d_alternatives.py:194"),
+    "sweep": dict(name="sweep_probe_kernel",
+                  source="mcqueens_torch/kernels/csrc/probe_attack.cu",
+                  replaces="tools/probe_swar_sweep.py:119"),
+}
+PROBE_FUNCS = {key: row["name"] for key, row in PROBES.items()}
 REPO = os.path.dirname(os.path.abspath(__file__))
 # The per-chain samplers keep their state chains major, (C, n_bins) bins.
 PER_CHAIN = (metropolis_pallas, full3d_pallas)
-INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 units (NVIDIA H100 white paper)
+# int32 lanes an SM issues per clock on both its int32 pipes: kernel C's
+# add + or chains (IMAD beside LOP3) ran at 1.8x the ALU pipe's 64 lanes, so
+# a bound at one pipe's rate is beatable.
+INT32_LANES_PER_SM = port_tools.INT32_ISSUE_LANES_PER_SM
 # One threefry2x32 in threefry.cuh: 20 rounds of add, rotate (one funnel
 # shift on sm_90) and xor, 5 key injections of 2 adds (IADD3 folds the
 # constant), and 3 to set up the key and counter.
 THREEFRY_OPS = 20 * 3 + 5 * 2 + 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+
+
+nvidia_smi = port_tools.nvidia_smi
 
 
 def phase(name, msg):
@@ -164,13 +205,6 @@ def timed(name):
     t0 = time.perf_counter()
     yield
     phase(name, f"phase took {time.perf_counter() - t0:.1f} s")
-
-
-def nvidia_smi(query):
-    out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def spec_of(N, n_steps, stride, schedule, kernel="pallas_shared", **kw):
@@ -213,14 +247,26 @@ class Bounds:
         mhz = float(nvidia_smi("clocks.max.sm").split()[0])
         self.int_ops_per_s = props.multi_processor_count * (
             INT32_LANES_PER_SM * mhz * 1e6)
+        self.bytes_per_s = HBM_BYTES_PER_S
         phase("bound", f"{props.multi_processor_count} SMs x "
               f"{INT32_LANES_PER_SM} int32 lanes x {mhz:.0f} MHz = "
               f"{self.int_ops_per_s:.4e} int32 ops/s; HBM "
               f"{HBM_BYTES_PER_S:.3e} B/s")
 
+    def raise_to(self, int_ops_per_s, bytes_per_s):
+        """Rates measured in this run: a bound must not be beatable, so
+        each rate becomes the larger of the constant and the measurement."""
+        for attr, got in (("int_ops_per_s", int_ops_per_s),
+                          ("bytes_per_s", bytes_per_s)):
+            want = getattr(self, attr)
+            phase("bound", f"{attr}: measured {got:.4e}, constant {want:.4e}"
+                  f" ({got / want:.3f}); "
+                  + ("raised to the measurement" if got > want else "kept"))
+            setattr(self, attr, max(want, got))
+
     def of(self, ops, nbytes):
         t_ops = ops / self.int_ops_per_s * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_bytes = nbytes / self.bytes_per_s * 1e3
         return ((t_ops, "operations") if t_ops >= t_bytes
                 else (t_bytes, "bytes"))
 
@@ -451,6 +497,8 @@ def zero_launches():
     for mod in KERNELS:
         mod.KERNEL_LAUNCHES = 0
     board_shared.FREEZE_LAUNCHES = 0
+    for key in probes.LAUNCHES:
+        probes.LAUNCHES[key] = 0
 
 
 def warm_up():
@@ -1143,6 +1191,269 @@ def throughput(mod, label, spec, chain_counts, bounds):
           + nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
 
 
+def sass_loops():
+    """Innermost loops of each probe kernel instance in the built library
+    (``cuobjdump -sass``): ``{(kernel, template args): [Counter of the
+    opcodes of one loop body, ...]}``, a loop being the instructions from a
+    backward branch's target to the branch."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    text = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+         str(_build.library_path())],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = next((p for p in PROBE_FUNCS.values() if p in m.group(1)),
+                        None)
+            args = m.group(1).split(name, 1)[1] if name else ""
+            cur = (name, tuple(int(v) for v in re.findall(r"L[ib](\d+)E",
+                                                           args)))
+            funcs[cur] = [] if name else None
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if m and cur and funcs.get(cur) is not None:
+            funcs[cur].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = {}
+    for key, ins in funcs.items():
+        if not ins:
+            continue
+        loops = []
+        for addr, op, rest in ins:
+            t = re.search(r"0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and t and int(t.group(1), 16) <= addr:
+                loops.append((int(t.group(1), 16), addr))
+        inner = [lp for lp in loops if not any(
+            o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+        out[key] = [collections.Counter(
+            op.split(".")[0] for a, op, _ in ins if lo <= a <= hi)
+            for lo, hi in inner]
+    return out
+
+
+# Evaluations one trip of each probe's hot loop makes, by its template
+# arguments: A and C unroll 16 and 8 trips of K chains, B one trip of K
+# chains, D one row against the 9 targets.
+LOOP_EVALS = {"vpu": lambda t: 16 * t[0], "test": lambda t: t[0],
+              "op": lambda t: 8 * t[0], "sweep": lambda t: 9}
+
+
+def probe_instance(key, kw):
+    """(CUDA function, template arguments) a probe launch runs."""
+    if key == "vpu":
+        return PROBES[key]["name"], (kw["k"] if kw["independent"] else 1,)
+    if key == "test":
+        return PROBES[key]["name"], (kw["k"],
+                                     probes.TEST_KINDS.index(kw["kind"]))
+    if key == "op":
+        return PROBES[key]["name"], (kw["k"], probes.OPS.index(kw["op"]))
+    return PROBES[key]["name"], (probes.SWEEP_KINDS.index(kw["kind"]),)
+
+
+def sass_per_eval(loops, key, kw):
+    """Instructions the hot loop issues per evaluation (its largest
+    innermost loop, branch and counter included), and its opcodes."""
+    inst = probe_instance(key, kw)
+    body = max(loops[inst], key=lambda c: sum(c.values()))
+    return sum(body.values()) / LOOP_EVALS[key](inst[1]), body
+
+
+def probe_work(key, row, per_eval):
+    """(int32 instructions, bytes) of a probe launch: its evaluations
+    times the instructions its loop issues per evaluation; each input word
+    read once, each output word written once."""
+    inputs = row["inputs"]
+    words = sum(t.numel() for t in inputs) + (
+        inputs[0].shape[1] if key == "sweep" else inputs[0].numel())
+    return row["evals"] * per_eval, 4 * words
+
+
+def probe_cases(rs):
+    """(kernel key, label, inputs, keywords, timing shape?) of the probe
+    compare phase: the JAX tools' parity shapes at small n_iter (random
+    words too), and the card-filling timing shapes of the tools."""
+    W = port_tools.ALU_WIDTH
+
+    def rows(v, width=1024):
+        return torch.full((8, width), v, dtype=torch.int32, device="cuda")
+
+    def rand(shape=(8, 1024)):
+        return torch.from_numpy(rs.integers(-2 ** 31, 2 ** 31, shape).astype(
+            np.int32)).cuda()
+
+    def planes(kind, Q, C, width):
+        return tuple(torch.from_numpy(np.tile(p, (1, width // C))).cuda()
+                     for p in probe_swar_sweep.sweep_planes(kind, Q, C))
+
+    cases = [
+        ("vpu", "A ones (8,1024) n_iter=2048 k=8 (the JAX shape; all 0)",
+         (rows(1),), dict(independent=True, n_iter=2048, k=8, inner=16),
+         False),
+        ("vpu", "A random (8,1024) n_iter=1 k=8 inner=3", (rand(),),
+         dict(independent=True, n_iter=1, k=8, inner=3), False),
+        ("vpu", "A random (8,1024) dependent n_iter=1 k=2 inner=7", (rand(),),
+         dict(independent=False, n_iter=1, k=2, inner=7), False),
+        ("vpu", f"A ones (8,{W}) n_iter=2048 k=8", (rows(1, W),),
+         dict(independent=True, n_iter=2048, k=8, inner=16), True),
+        ("vpu", f"A ones (8,{W}) dependent n_iter=2048 k=8", (rows(1, W),),
+         dict(independent=False, n_iter=2048, k=8, inner=16), False),
+    ]
+    for kind in probes.TEST_KINDS:
+        for k in (2, 4, 16):
+            cases.append(("test", f"B {kind} 70s (8,1024) n_iter=3 k={k}",
+                          (rows(70),), dict(kind=kind, n_iter=3, k=k),
+                          False))
+        cases.append(("test", f"B {kind} random (8,1024) n_iter=2 k=4",
+                      (rand(),), dict(kind=kind, n_iter=2, k=4), False))
+        cases.append(("test", f"B {kind} 70s (8,{W}) n_iter=128 k=4",
+                      (rows(70, W),), dict(kind=kind, n_iter=128, k=4),
+                      kind == "production"))
+    for op in probes.OPS:
+        for k in (4, 16):
+            cases.append(("op", f"C {op} 3s (8,1024) n_iter=4 k={k}",
+                          (rows(3),), dict(op=op, n_iter=4, k=k, u=8),
+                          False))
+        # k=1: no XOR fold, whose pairs cancel in the add chains
+        for k in (1, 16):
+            cases.append(("op", f"C {op} random (8,1024) n_iter=2 k={k}",
+                          (rand(),), dict(op=op, n_iter=2, k=k, u=8), False))
+        cases.append(("op", f"C {op} 3s (8,{W}) n_iter=128 k=16",
+                      (rows(3, W),), dict(op=op, n_iter=128, k=16, u=8),
+                      op == "mul"))
+    S = port_tools.SWEEP_WIDTH
+    for kind in probes.SWEEP_KINDS:
+        for Q in (16, 32):
+            cases.append(("sweep", f"D {kind} Q={Q} C=256 4 chunks",
+                          planes(kind, Q, 256, 256),
+                          dict(kind=kind, n_chunks=4), False))
+        cases.append(("sweep", f"D {kind} Q=32 C={S} 8 chunks",
+                      planes(kind, 32, 2048, S), dict(kind=kind, n_chunks=8),
+                      kind == "production"))
+    return cases
+
+
+def probe_evals(key, inputs, kw):
+    """Evaluations one launch makes: doublings (A), attack tests (B; a SWAR
+    test scores two queens), op + or pairs (C), (row, target) tests (D)."""
+    n = inputs[0].numel()
+    if key == "vpu":
+        return n * kw["n_iter"] * kw["k"] * kw["inner"]
+    if key == "test":
+        return n * kw["n_iter"] * kw["k"] * probes._test_u(kw["k"])
+    if key == "op":
+        return n * kw["n_iter"] * kw["k"] * kw["u"]
+    return n * kw["n_chunks"] * probes.SWEEP_TARGETS
+
+
+def probe_call(key, reference, inputs, kw):
+    fn = {"vpu": (probes.vpu_doubling, probes.vpu_doubling_reference),
+          "test": (probes.attack_test, probes.attack_test_reference),
+          "op": (probes.op_chain, probes.op_chain_reference),
+          "sweep": (probes.sweep, probes.sweep_reference)}[key][reference]
+    kw = dict(kw)
+    pos = [kw.pop(a) for a in ("independent", "kind", "op") if a in kw]
+    return fn(*inputs, *pos, **kw)
+
+
+def probe_compare(rs):
+    """Each probe kernel against its twin on the card, bitwise (any
+    difference raises); returns {key: result at the row's timing shape}."""
+    saved = dict(probes.LAUNCHES)
+    rows = {}
+    for key, label, inputs, kw, timing in probe_cases(rs):
+        got = probe_call(key, False, inputs, kw)
+        want = probe_call(key, True, inputs, kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            err = int((got.long() - want.long()).abs().max())
+            raise AssertionError(f"probe kernel != twin on {label}: "
+                                 f"{int((got != want).sum())} words differ, "
+                                 f"max abs err {err}")
+        line = f"{label}: kernel == twin ({got.numel()} words)"
+        if timing:
+            k_ms = cuda_ms(lambda: probe_call(key, False, inputs, kw), reps=3)
+            t_ms = cuda_ms(lambda: probe_call(key, True, inputs, kw))
+            rows[key] = dict(label=label, kernel_ms=k_ms, twin_ms=t_ms,
+                             evals=probe_evals(key, inputs, kw), kw=kw,
+                             inputs=inputs)
+            line += f"; kernel {k_ms:.4f} ms, twin {t_ms:.1f} ms"
+        phase("probes", line)
+    probes.LAUNCHES.update(saved)
+    return rows
+
+
+def probe_scaling(rows):
+    """Time each probe at its timing shape with its trip count and with
+    twice it: the ratio must lie in [1.8, 2.2], else the compiler cut the
+    loop."""
+    trip = {"vpu": "n_iter", "test": "n_iter", "op": "n_iter",
+            "sweep": "n_chunks"}
+    saved = dict(probes.LAUNCHES)
+    for key, row in rows.items():
+        kw1 = dict(row["kw"])
+        kw2 = dict(kw1, **{trip[key]: 2 * kw1[trip[key]]})
+        probe_call(key, False, row["inputs"], kw2)
+        t1 = cuda_ms(lambda: probe_call(key, False, row["inputs"], kw1),
+                     reps=3)
+        t2 = cuda_ms(lambda: probe_call(key, False, row["inputs"], kw2),
+                     reps=3)
+        row["scaling"] = t2 / t1
+        phase("probes", f"{row['label']}: {trip[key]} x2 -> time x"
+              f"{t2 / t1:.3f} ({t1:.4f} -> {t2:.4f} ms)")
+        if not 1.8 <= t2 / t1 <= 2.2:
+            raise AssertionError(f"{row['label']}: time scales x{t2 / t1:.3f}"
+                                 f" under 2x {trip[key]}, not 1.8-2.2")
+    probes.LAUNCHES.update(saved)
+
+
+TOOLS = (probe_full3d_cap, probe_full3d_alternatives, probe_swar_sweep,
+         roofline)
+# Probe launches of the tools' --quick runs: a warm-up launch and the timed
+# reps of each point (roofline: 2 variants x 4 reps; alternatives: 3 kinds
+# x 2 k x 3 reps, 2 ops x 4 reps; swar sweep: 2 kinds x 3 reps at Q=256).
+TOOL_LAUNCHES = {"vpu": 2 * (1 + 4), "test": 3 * 2 * (1 + 3),
+                 "op": 2 * (1 + 4), "sweep": 2 * (1 + 3)}
+
+
+def tools_slice():
+    """Each ported tool's ``main(["--quick", "--json", tmp])`` on the card
+    (the alternatives and the swar sweep read the cap probe's fit of this
+    run), the probe launch counts zeroed just before and read just after;
+    prints each JSON.  Returns the launches."""
+    outs = {}
+    with tempfile.TemporaryDirectory() as d:
+        cap = os.path.join(d, "probe_full3d_cap.json")
+        zero_launches()
+        for mod in TOOLS:
+            name = mod.__name__.rsplit(".", 1)[1]
+            path = os.path.join(d, f"{name}.json")
+            extra = ["--cap", cap] if mod in (probe_full3d_alternatives,
+                                             probe_swar_sweep) else []
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = mod.main(["--quick", "--json", path] + extra)
+            with open(path) as f:
+                out = json.load(f)
+            if rc != 0 or out["device"] != "cuda" or not out["card"]:
+                raise AssertionError(f"{name} --quick: rc {rc}, {out}")
+            phase("tools", f"{name} --quick ({time.perf_counter() - t0:.1f}"
+                  f" s): {json.dumps(out)}")
+            outs[name] = out
+    for name in ("probe_full3d_alternatives", "probe_swar_sweep"):
+        if not outs[name]["fitted_b_us_per_queen"] > 0:
+            raise AssertionError(f"{name} did not read this run's fit")
+    if not all(v > 0 for v in outs["roofline"]["kernels"].values()):
+        raise AssertionError("roofline: a sampler row is not positive")
+    got = dict(probes.LAUNCHES)
+    if got != TOOL_LAUNCHES:
+        raise AssertionError(f"tools: probe launches {got}, expected "
+                             f"{TOOL_LAUNCHES}")
+    return got
+
+
 def main():
     t_start = time.perf_counter()
     # 1. device -----------------------------------------------------------
@@ -1164,15 +1475,50 @@ def main():
               f"{_build.library_path().name} from "
               f"{len(_build.SOURCES)} sources in {build_s:.2f} s")
         log = _build.library_path().with_suffix(".log")
-        names = [k["name"] for k in KERNELS.values()]
+        names = [k["name"] for k in KERNELS.values()] + list(
+            PROBE_FUNCS.values())
         kernel = None
+        regs, spills = collections.defaultdict(list), collections.Counter()
         for ln in (log.read_text().splitlines() if log.exists() else []):
             if "Compiling entry function" in ln:
                 kernel = next(n for n in names if n in ln)
+            elif kernel in PROBE_FUNCS.values():
+                # one line per template instance: summarised below
+                regs[kernel] += map(int, re.findall(r"Used (\d+) reg", ln))
+                spills[kernel] += sum(map(int, re.findall(
+                    r"(\d+) bytes spill", ln)))
             elif kernel and ("registers" in ln or "spill" in ln):
                 phase("build", f"{kernel}: {ln.strip()}")
+        for kernel, vals in regs.items():
+            phase("build", f"{kernel}: {len(vals)} template instances, "
+                  f"{min(vals)}-{max(vals)} registers, {spills[kernel]} "
+                  f"bytes of spills in all")
         bounds = Bounds()
         warm_up()
+
+    # 3a. the probe kernels vs their twins --------------------------------
+    with timed("compare probes"):
+        loops = sass_loops()
+        by_name = {v: k for k, v in PROBE_FUNCS.items()}
+        for (name, targs), bodies in sorted(loops.items()):
+            per = max(sum(b.values()) for b in bodies)
+            phase("sass", f"{name}<{', '.join(map(str, targs))}>: hot loop "
+                  f"{per} instructions, "
+                  f"{per / LOOP_EVALS[by_name[name]](targs):.3f} per "
+                  f"evaluation")
+        probe_rows = probe_compare(np.random.default_rng(11))
+        probe_scaling(probe_rows)
+        rates = {}
+        for key, row in probe_rows.items():
+            per_eval, body = sass_per_eval(loops, key, row["kw"])
+            row["work"] = probe_work(key, row, per_eval)
+            rates[key] = row["work"][0] / row["kernel_ms"] * 1e3
+            phase("probes", f"{row['label']}: {per_eval:.4f} SASS "
+                  f"instructions per evaluation (hot loop "
+                  f"{dict(body.most_common())}); {rates[key]:.4e} "
+                  f"instructions/s")
+        hbm = roofline.hbm_bandwidth_gbs(device="cuda") * 1e9
+        bounds.raise_to(max(rates.values()), hbm)
 
     # 3. kernel vs twin ---------------------------------------------------
     ladder = geometric_ladder(0.8, 7.0, 16)
@@ -1437,8 +1783,13 @@ def main():
                                 kernel="tables", mcmc_type="full_3d"),
                         4096, bounds)
 
+    # 6. the measurement tools --------------------------------------------
+    with timed("slice tools"):
+        tool_launches = tools_slice()
+
     leaked = sorted(m for m in set(sys.modules) - _PRELOADED
-                    if m == "jax" or m.startswith(("jax.", "mcqueens.")))
+                    if m == "jax" or m.startswith(("jax.", "mcqueens.",
+                                                   "tools.")))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
 
@@ -1499,6 +1850,23 @@ def main():
             "bound_by": bound_by,
             "library_ms": None,
         })
+    for key, row in probe_rows.items():
+        bound_ms, bound_by = bounds.of(*row["work"])
+        share = bound_ms / row["kernel_ms"]
+        phase("bound", f"{PROBES[key]['name']} on '{row['label']}': "
+              f"{row['work'][0]:.4e} int32 instructions, "
+              f"{row['work'][1]:.4e} bytes -> bound {bound_ms:.4f} ms "
+              f"({bound_by}) = {share:.3f} of the kernel's "
+              f"{row['kernel_ms']:.4f} ms")
+        if share > 1.05:
+            raise AssertionError(f"{PROBES[key]['name']} ran at {share:.3f} "
+                                 f"of its bound: the loop was cut")
+        rows.append({**PROBES[key], "route": "cuda",
+                     "launches": tool_launches[key], "max_abs_err": 0,
+                     "ms": row["kernel_ms"], "plain_ms": row["twin_ms"],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     # No PyTorch call computes a probe's loop.
+                     "library_ms": None})
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} "
           f"s")
     print(json.dumps({"kernels": rows}))

@@ -36,6 +36,10 @@ ENTRY_POINTS = {
     "mcq_full3d_shared_segment": [_P] * 17 + [_I] * 9 + [_P],
     "mcq_metropolis_segment": [_P] * 11 + [_I] * 7 + [_P],
     "mcq_full3d_pallas_segment": [_P] * 16 + [_I] * 8 + [_P],
+    "mcq_probe_vpu": [_P] * 2 + [_I] * 5 + [_P],
+    "mcq_probe_op": [_P] * 2 + [_I] * 5 + [_P],
+    "mcq_probe_test": [_P] * 2 + [_I] * 7 + [_P],
+    "mcq_probe_sweep": [_P] * 4 + [_I] * 4 + [_P],
 }
 # Shared memory one block may opt into on the H100 (sm_90).
 SMEM_PER_BLOCK = 232448

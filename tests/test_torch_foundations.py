@@ -286,8 +286,14 @@ def test_port_never_imports_jax():
         "import mcqueens_torch.dist.runner, mcqueens_torch.kernels._build\n"
         "import mcqueens_torch.search.tempering\n"
         "import mcqueens_torch.kernels.full3d_shared\n"
+        "import mcqueens_torch.kernels.probes, mcqueens_torch.tools\n"
+        "import mcqueens_torch.tools.roofline\n"
+        "import mcqueens_torch.tools.probe_full3d_cap\n"
+        "import mcqueens_torch.tools.probe_full3d_alternatives\n"
+        "import mcqueens_torch.tools.probe_swar_sweep\n"
         "bad = sorted(m for m in set(sys.modules) - before if m == 'jax' "
-        "or m.startswith(('jax.', 'jaxlib')) or m.startswith('mcqueens.'))\n"
+        "or m.startswith(('jax.', 'jaxlib')) or m.startswith('mcqueens.') "
+        "or m == 'tools' or m.startswith('tools.'))\n"
         "assert not bad, bad\n"
     )
     root = str(__import__("pathlib").Path(__file__).resolve().parents[1])
