@@ -15,11 +15,11 @@ and the script exits non-zero without printing a result:
    (``kernels/probes.py``: A int32 doublings, B the attack test in three
    forms, C mul/add chains, D the production-shaped sweep) against their
    twins on the card, bitwise, at the JAX tools' parity shapes (small
-   n_iter, random words too) and at the card-filling timing shapes; the
-   SASS of each template instance's hot loop (``cuobjdump -sass``); the time
-   under twice the trip count (must be 1.8-2.2x); then the measured int32
-   instruction rate and memory bandwidth raise the bound constants if they
-   beat them.
+   n_iter, random words too) and at the shapes the tools launch; the SASS
+   of each template instance's hot loop (``cuobjdump -sass``), which must
+   issue at least half as many int32 instructions per evaluation as the
+   TPU source has operations; the time under twice the trip count (must be
+   1.8-2.2x).  Each probe's bound counts the TPU source's operations.
 3. kernel vs twin: one launch through each CUDA kernel and one through its
    plain-torch twin (``segment_reference``), both on the card from the same
    ``init_carry_batch`` state, betas and beta scales; every state field must
@@ -87,6 +87,8 @@ and the script exits non-zero without printing a result:
    ``mcqueens_torch.tools.probe_full3d_cap``, ``probe_full3d_alternatives``,
    ``probe_swar_sweep`` (both reading this run's fit) and ``roofline``, the
    probe launch counts zeroed before and read after; prints each JSON.
+   The memory bandwidth and int32 rates they measured must stay below the
+   constants the bounds divide by.
 
 Then one JSON line describing the kernels (the six, the board kernel's
 freeze mode on a row of its own, and the four probes, each of which must
@@ -252,17 +254,6 @@ class Bounds:
               f"{INT32_LANES_PER_SM} int32 lanes x {mhz:.0f} MHz = "
               f"{self.int_ops_per_s:.4e} int32 ops/s; HBM "
               f"{HBM_BYTES_PER_S:.3e} B/s")
-
-    def raise_to(self, int_ops_per_s, bytes_per_s):
-        """Rates measured in this run: a bound must not be beatable, so
-        each rate becomes the larger of the constant and the measurement."""
-        for attr, got in (("int_ops_per_s", int_ops_per_s),
-                          ("bytes_per_s", bytes_per_s)):
-            want = getattr(self, attr)
-            phase("bound", f"{attr}: measured {got:.4e}, constant {want:.4e}"
-                  f" ({got / want:.3f}); "
-                  + ("raised to the measurement" if got > want else "kept"))
-            setattr(self, attr, max(want, got))
 
     def of(self, ops, nbytes):
         t_ops = ops / self.int_ops_per_s * 1e3
@@ -1239,36 +1230,88 @@ def sass_loops():
 # chains, D one row against the 9 targets.
 LOOP_EVALS = {"vpu": lambda t: 16 * t[0], "test": lambda t: t[0],
               "op": lambda t: 8 * t[0], "sweep": lambda t: 9}
+# int32 operations of one evaluation as the TPU function writes it (each
+# elementwise jnp operation one, constant expressions none), the yardstick
+# of the samplers' bounds too:
+#   A (roofline.py:100) a + a: 1.
+#   C (probe_full3d_alternatives.py:194) the op and its | 1: 2.
+#   B (probe_full3d_alternatives.py:74) xi ^ a and a + fn(...): 2, plus fn:
+#     production 21 (3 deltas, 3 squares, 2 max, 3 subtractions, 3 products
+#     and 2 ors for t, 2 compares, 2 selects, 1 add); nomul 26 (3 deltas,
+#     3 negations, 3 max for |d|, 2 max, 6 compares, 3 ors and 2 ands, then
+#     1 compare, 2 selects, 1 add); swar 101 (3 biased adds; 6 eq_halves of
+#     8 ops; 3 smax of 11 ops with their 128 - d; 3 ands + 2 ors, 3 + 3,
+#     1 + 1 and the & _ONES of att).
+#   D (probe_swar_sweep.py:119) per (row, target): production 22 (3 deltas,
+#     prod_scores 18, the accumulate); swar 105 (3 biased adds, swar_scores
+#     100 with its occupancy's 2 ands, the two accumulates).  The 9 targets'
+#     hashes are per chunk, not per column, and left out: leaving work out
+#     only lowers a bound.
+PROBE_OPS = {"vpu": {None: 1}, "op": {None: 2},
+             "test": {"production": 23, "nomul": 28, "swar": 103},
+             "sweep": {"production": 22, "swar": 105}}
+# SASS that issues no int32 arithmetic: branches and barriers, loads and
+# stores, and the uniform datapath (one per warp: the loop's scalars).
+NOT_INT32 = ("BRA", "EXIT", "NOP", "BSSY", "BSYNC", "BAR", "WARPSYNC", "LD",
+             "ST", "S2R", "CS2R", "U")
 
 
-def probe_instance(key, kw):
-    """(CUDA function, template arguments) a probe launch runs."""
-    if key == "vpu":
-        return PROBES[key]["name"], (kw["k"] if kw["independent"] else 1,)
+def instance_kind(key, targs):
+    """The kind a probe instance's template arguments select (None for A
+    and C, whose count does not depend on the op)."""
     if key == "test":
-        return PROBES[key]["name"], (kw["k"],
-                                     probes.TEST_KINDS.index(kw["kind"]))
-    if key == "op":
-        return PROBES[key]["name"], (kw["k"], probes.OPS.index(kw["op"]))
-    return PROBES[key]["name"], (probes.SWEEP_KINDS.index(kw["kind"]),)
+        return probes.TEST_KINDS[targs[1]]
+    if key == "sweep":
+        return probes.SWEEP_KINDS[targs[0]]
+    return None
 
 
-def sass_per_eval(loops, key, kw):
-    """Instructions the hot loop issues per evaluation (its largest
-    innermost loop, branch and counter included), and its opcodes."""
-    inst = probe_instance(key, kw)
-    body = max(loops[inst], key=lambda c: sum(c.values()))
-    return sum(body.values()) / LOOP_EVALS[key](inst[1]), body
+def probe_instances():
+    """Every (CUDA function, template arguments) the entry points launch."""
+    f = PROBE_FUNCS
+    return ([(f["vpu"], (k,)) for k in probes.VPU_KS]
+            + [(f["test"], (k, i)) for k in probes.TEST_KS
+               for i in range(len(probes.TEST_KINDS))]
+            + [(f["op"], (k, i)) for k in probes.OP_KS
+               for i in range(len(probes.OPS))]
+            + [(f["sweep"], (i,)) for i in range(len(probes.SWEEP_KINDS))])
 
 
-def probe_work(key, row, per_eval):
-    """(int32 instructions, bytes) of a probe launch: its evaluations
-    times the instructions its loop issues per evaluation; each input word
-    read once, each output word written once."""
-    inputs = row["inputs"]
+def check_sass(loops):
+    """Each probe instance's hot loop must issue at least half as many
+    int32 instructions per evaluation as the TPU source has operations.
+    ptxas fuses ops into three-input instructions (IADD3, IMAD, LOP3,
+    VIMNMX3) and these loops keep 0.67-1.13 instruction per source op; a
+    loop with part of the test hoisted or the chains merged keeps a third
+    or less, and would also run faster than its bound."""
+    by_name = {row["name"]: key for key, row in PROBES.items()}
+    missing = set(probe_instances()) - set(loops)
+    if missing:
+        raise AssertionError(f"cuobjdump found no hot loop in {missing}")
+    for name, targs in probe_instances():
+        key = by_name[name]
+        body = max(loops[name, targs], key=lambda c: sum(c.values()))
+        n_int = sum(v for op, v in body.items()
+                    if not op.startswith(NOT_INT32))
+        per = n_int / LOOP_EVALS[key](targs)
+        need = PROBE_OPS[key][instance_kind(key, targs)]
+        phase("sass", f"{name}<{', '.join(map(str, targs))}>: hot loop "
+              f"{sum(body.values())} instructions, {per:.3f} int32 per "
+              f"evaluation against {need} source ops ({per / need:.3f})")
+        if per < need / 2:
+            raise AssertionError(f"{name}<{targs}>: {per:.3f} int32 "
+                                 f"instructions per evaluation, under half "
+                                 f"the source's {need}: the loop was cut")
+
+
+def probe_work(key, row):
+    """(int32 operations, bytes) of a probe launch: its evaluations times
+    the TPU source's operations per evaluation; each input word read once,
+    each output word written once."""
+    inputs, kw = row["inputs"], row["kw"]
     words = sum(t.numel() for t in inputs) + (
         inputs[0].shape[1] if key == "sweep" else inputs[0].numel())
-    return row["evals"] * per_eval, 4 * words
+    return row["evals"] * PROBE_OPS[key][kw.get("kind")], 4 * words
 
 
 def probe_cases(rs):
@@ -1311,6 +1354,11 @@ def probe_cases(rs):
         cases.append(("test", f"B {kind} 70s (8,{W}) n_iter=128 k=4",
                       (rows(70, W),), dict(kind=kind, n_iter=128, k=4),
                       kind == "production"))
+        # the alternatives tool's ILP sweep at its own width
+        for k in (2, 8, 16, 32):
+            cases.append(("test", f"B {kind} 70s (8,{W}) n_iter=2 k={k}",
+                          (rows(70, W),), dict(kind=kind, n_iter=2, k=k),
+                          False))
     for op in probes.OPS:
         for k in (4, 16):
             cases.append(("op", f"C {op} 3s (8,1024) n_iter=4 k={k}",
@@ -1329,9 +1377,16 @@ def probe_cases(rs):
             cases.append(("sweep", f"D {kind} Q={Q} C=256 4 chunks",
                           planes(kind, Q, 256, 256),
                           dict(kind=kind, n_chunks=4), False))
-        cases.append(("sweep", f"D {kind} Q=32 C={S} 8 chunks",
-                      planes(kind, 32, 2048, S), dict(kind=kind, n_chunks=8),
-                      kind == "production"))
+        # the swar sweep's own shapes: its planes (C=2048 tiled to S
+        # columns) at the full run's Q=144 and the --quick run's Q=256
+        cases.append(("sweep", f"D {kind} Q=144 C={S} 1 chunk",
+                      planes(kind, 144, 2048, S), dict(kind=kind, n_chunks=1),
+                      False))
+        cases.append(("sweep", f"D {kind} Q=256 C={S} "
+                      f"{8 if kind == 'production' else 2} chunks",
+                      planes(kind, 256, 2048, S),
+                      dict(kind=kind, n_chunks=8 if kind == "production"
+                           else 2), kind == "production"))
     return cases
 
 
@@ -1365,8 +1420,9 @@ def probe_compare(rs):
     rows = {}
     for key, label, inputs, kw, timing in probe_cases(rs):
         got = probe_call(key, False, inputs, kw)
-        want = probe_call(key, True, inputs, kw)
-        torch.cuda.synchronize()
+        box = []  # the twin runs once: timed, and its words compared
+        t_ms = cuda_ms(lambda: box.append(probe_call(key, True, inputs, kw)))
+        want = box[0]
         if not torch.equal(got, want):
             err = int((got.long() - want.long()).abs().max())
             raise AssertionError(f"probe kernel != twin on {label}: "
@@ -1375,7 +1431,6 @@ def probe_compare(rs):
         line = f"{label}: kernel == twin ({got.numel()} words)"
         if timing:
             k_ms = cuda_ms(lambda: probe_call(key, False, inputs, kw), reps=3)
-            t_ms = cuda_ms(lambda: probe_call(key, True, inputs, kw))
             rows[key] = dict(label=label, kernel_ms=k_ms, twin_ms=t_ms,
                              evals=probe_evals(key, inputs, kw), kw=kw,
                              inputs=inputs)
@@ -1451,7 +1506,28 @@ def tools_slice():
     if got != TOOL_LAUNCHES:
         raise AssertionError(f"tools: probe launches {got}, expected "
                              f"{TOOL_LAUNCHES}")
-    return got
+    return got, outs
+
+
+def check_rates(outs, bounds):
+    """The rates the tools measured in this run must stay below the fixed
+    constants the bounds divide by, else a bound would be beatable."""
+    rl, alt = outs["roofline"], outs["probe_full3d_alternatives"]
+    for label, rate, limit in (
+            ("HBM bytes/s (roofline in-place add)",
+             rl["hbm_bandwidth_GB_s"] * 1e9, bounds.bytes_per_s),
+            ("int32 adds/s (roofline, kernel A)", rl["int32_add_ops_per_s"],
+             bounds.int_ops_per_s),
+            ("int32 add + or ops/s (kernel C)",
+             1024e9 / alt["int32_add_ns_per_1024_ops"], bounds.int_ops_per_s),
+            ("int32 mul + or ops/s (kernel C)",
+             1024e9 / alt["int32_mul_ns_per_1024_ops"],
+             bounds.int_ops_per_s)):
+        phase("bound", f"{label}: measured {rate:.4e}, constant {limit:.4e}"
+              f" ({rate / limit:.3f})")
+        if rate > limit:
+            raise AssertionError(f"{label} {rate:.4e} beats the bound's "
+                                 f"constant {limit:.4e}")
 
 
 def main():
@@ -1498,27 +1574,14 @@ def main():
 
     # 3a. the probe kernels vs their twins --------------------------------
     with timed("compare probes"):
-        loops = sass_loops()
-        by_name = {v: k for k, v in PROBE_FUNCS.items()}
-        for (name, targs), bodies in sorted(loops.items()):
-            per = max(sum(b.values()) for b in bodies)
-            phase("sass", f"{name}<{', '.join(map(str, targs))}>: hot loop "
-                  f"{per} instructions, "
-                  f"{per / LOOP_EVALS[by_name[name]](targs):.3f} per "
-                  f"evaluation")
+        check_sass(sass_loops())
         probe_rows = probe_compare(np.random.default_rng(11))
         probe_scaling(probe_rows)
-        rates = {}
         for key, row in probe_rows.items():
-            per_eval, body = sass_per_eval(loops, key, row["kw"])
-            row["work"] = probe_work(key, row, per_eval)
-            rates[key] = row["work"][0] / row["kernel_ms"] * 1e3
-            phase("probes", f"{row['label']}: {per_eval:.4f} SASS "
-                  f"instructions per evaluation (hot loop "
-                  f"{dict(body.most_common())}); {rates[key]:.4e} "
-                  f"instructions/s")
-        hbm = roofline.hbm_bandwidth_gbs(device="cuda") * 1e9
-        bounds.raise_to(max(rates.values()), hbm)
+            row["work"] = probe_work(key, row)
+            phase("probes", f"{row['label']}: "
+                  f"{row['work'][0] / row['kernel_ms'] * 1e3:.4e} int32 "
+                  f"ops/s as the TPU source counts them")
 
     # 3. kernel vs twin ---------------------------------------------------
     ladder = geometric_ladder(0.8, 7.0, 16)
@@ -1785,7 +1848,8 @@ def main():
 
     # 6. the measurement tools --------------------------------------------
     with timed("slice tools"):
-        tool_launches = tools_slice()
+        tool_launches, tool_outs = tools_slice()
+        check_rates(tool_outs, bounds)
 
     leaked = sorted(m for m in set(sys.modules) - _PRELOADED
                     if m == "jax" or m.startswith(("jax.", "mcqueens.",
@@ -1854,7 +1918,7 @@ def main():
         bound_ms, bound_by = bounds.of(*row["work"])
         share = bound_ms / row["kernel_ms"]
         phase("bound", f"{PROBES[key]['name']} on '{row['label']}': "
-              f"{row['work'][0]:.4e} int32 instructions, "
+              f"{row['work'][0]:.4e} int32 ops, "
               f"{row['work'][1]:.4e} bytes -> bound {bound_ms:.4f} ms "
               f"({bound_by}) = {share:.3f} of the kernel's "
               f"{row['kernel_ms']:.4f} ms")

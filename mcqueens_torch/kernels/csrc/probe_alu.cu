@@ -121,9 +121,10 @@ void launch_op(const int32_t* x, int32_t* out, int n, int mul, int n_iter,
 
 }  // namespace
 
-// Kernel A on `stream`: x and out are n int32 device words; k in {1, 2, 4,
-// 8, 16, 32}; zero must be 0.  Returns cudaGetLastError() (0 on success),
-// cudaErrorInvalidValue for another k.
+// Kernel A on `stream`: x and out are n int32 device words; k in {1, 4, 8}
+// (the roofline's 8 chains and its dependent chain, and 4); zero must be 0.
+// Returns cudaGetLastError() (0 on success), cudaErrorInvalidValue for
+// another k.
 extern "C" int mcq_probe_vpu(const void* x, void* out, int n, int k,
                              int n_iter, int inner, int zero, void* stream) {
   const int32_t* xi = (const int32_t*)x;
@@ -132,17 +133,15 @@ extern "C" int mcq_probe_vpu(const void* x, void* out, int n, int k,
   const uint32_t z = (uint32_t)zero;
   switch (k) {
     case 1: launch_vpu<1>(xi, o, n, n_iter, inner, z, s); break;
-    case 2: launch_vpu<2>(xi, o, n, n_iter, inner, z, s); break;
     case 4: launch_vpu<4>(xi, o, n, n_iter, inner, z, s); break;
     case 8: launch_vpu<8>(xi, o, n, n_iter, inner, z, s); break;
-    case 16: launch_vpu<16>(xi, o, n, n_iter, inner, z, s); break;
-    case 32: launch_vpu<32>(xi, o, n, n_iter, inner, z, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// Kernel C on `stream`: op 0 is add, 1 is mul; k as for mcq_probe_vpu.
+// Kernel C on `stream`: op 0 is add, 1 is mul; k in {1, 4, 16} (the
+// alternatives probe's 16 chains, 4, and one chain with no XOR fold).
 extern "C" int mcq_probe_op(const void* x, void* out, int n, int op, int k,
                             int n_iter, int u, void* stream) {
   const int32_t* xi = (const int32_t*)x;
@@ -150,11 +149,8 @@ extern "C" int mcq_probe_op(const void* x, void* out, int n, int op, int k,
   const cudaStream_t s = (cudaStream_t)stream;
   switch (k) {
     case 1: launch_op<1>(xi, o, n, op, n_iter, u, s); break;
-    case 2: launch_op<2>(xi, o, n, op, n_iter, u, s); break;
     case 4: launch_op<4>(xi, o, n, op, n_iter, u, s); break;
-    case 8: launch_op<8>(xi, o, n, op, n_iter, u, s); break;
     case 16: launch_op<16>(xi, o, n, op, n_iter, u, s); break;
-    case 32: launch_op<32>(xi, o, n, op, n_iter, u, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

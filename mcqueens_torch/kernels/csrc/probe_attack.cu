@@ -16,8 +16,9 @@
 //
 // What bounds them on the H100: int32 issue.  B touches one word in and
 // one out per element.  D reads 3 * QS words per column per chunk and does
-// ~20 (production) or ~70 (SWAR, two queens) int32 operations per row and
-// target, 9 targets a row: operations outweigh bytes by two orders.
+// 22 (production) or 105 (SWAR, two queens) int32 operations per row and
+// target as the TPU source writes them, 9 targets a row: operations
+// outweigh bytes by two orders.
 //
 // Design: B is one thread per (row, column) element with the accumulators
 // in registers (K a template parameter dispatched from the runtime k; n_iter
@@ -238,7 +239,8 @@ void launch_test(const int32_t* x, int32_t* out, int n, int kind, int n_iter,
 }  // namespace
 
 // Kernel B on `stream`: x and out are n int32 device words; kind 0
-// production, 1 nomul, 2 swar; k in {1, 2, 4, 8, 16, 32}; c0 the candidate
+// production, 1 nomul, 2 swar; k in {2, 4, 8, 16, 32} (the alternatives
+// probe's ILP sweep); c0 the candidate
 // constant; zero must be 0.  Returns cudaGetLastError() (0 on success),
 // cudaErrorInvalidValue for another k or kind.
 extern "C" int mcq_probe_test(const void* x, void* out, int n, int kind,
@@ -250,7 +252,6 @@ extern "C" int mcq_probe_test(const void* x, void* out, int n, int kind,
   const uint32_t c = (uint32_t)c0, z = (uint32_t)zero;
   if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
   switch (k) {
-    case 1: launch_test<1>(xi, o, n, kind, n_iter, u, c, z, s); break;
     case 2: launch_test<2>(xi, o, n, kind, n_iter, u, c, z, s); break;
     case 4: launch_test<4>(xi, o, n, kind, n_iter, u, c, z, s); break;
     case 8: launch_test<8>(xi, o, n, kind, n_iter, u, c, z, s); break;

@@ -45,8 +45,12 @@ from mcqueens_torch.kernels import segment
 LAUNCHES = {"vpu": 0, "test": 0, "op": 0, "sweep": 0}
 
 # The kernels keep their accumulators in registers, one template instance
-# per count.
-ACCUMULATOR_COUNTS = (1, 2, 4, 8, 16, 32)
+# per count: the counts the tools launch (the roofline's 8 chains and its
+# dependent chain; the alternatives probe's ILP sweep and its 16 op chains)
+# and those the parity checks use.
+VPU_KS = (1, 4, 8)
+TEST_KS = (2, 4, 8, 16, 32)
+OP_KS = (1, 4, 16)
 TEST_KINDS = ("production", "nomul", "swar")
 OPS = ("add", "mul")
 SWEEP_KINDS = ("production", "swar")
@@ -70,9 +74,9 @@ TEST_C0 = {"production": 3, "nomul": 3, "swar": 61 | (61 << 16)}
 _SWEEP_SALT = 0x7F4A7C15
 
 
-def _check_k(k: int) -> None:
-    if k not in ACCUMULATOR_COUNTS:
-        raise ValueError(f"k={k}: the kernels take k in {ACCUMULATOR_COUNTS}")
+def _check_k(k: int, counts: tuple) -> None:
+    if k not in counts:
+        raise ValueError(f"k={k}: the kernel takes k in {counts}")
 
 
 def _check_rows(name: str, x: torch.Tensor) -> None:
@@ -151,7 +155,7 @@ def vpu_doubling(x: torch.Tensor, independent: bool = True, *,
     per iteration for ``n_iter`` iterations, summed (``independent``), or
     one accumulator ``x`` over ``n_iter * k`` iterations."""
     _check_rows("x", x)
-    _check_k(_vpu_shape(independent, n_iter, k)[0])
+    _check_k(_vpu_shape(independent, n_iter, k)[0], VPU_KS)
     return segment.on_device("vpu_doubling", x.device,
                              vpu_doubling_reference, vpu_doubling_cuda, x,
                              independent, n_iter=n_iter, k=k, inner=inner)
@@ -253,7 +257,7 @@ def attack_test(x: torch.Tensor, kind: str, *, n_iter: int = 2048,
     if kind not in TEST_KINDS:
         raise ValueError(f"kind must be one of {TEST_KINDS}, got {kind!r}")
     _check_rows("x", x)
-    _check_k(k)
+    _check_k(k, TEST_KS)
     return segment.on_device("attack_test", x.device, attack_test_reference,
                              attack_test_cuda, x, kind, n_iter=n_iter, k=k)
 
@@ -289,7 +293,7 @@ def op_chain(x: torch.Tensor, op: str, *, n_iter: int = 4096, k: int = 16,
     if op not in OPS:
         raise ValueError(f"op must be one of {OPS}, got {op!r}")
     _check_rows("x", x)
-    _check_k(k)
+    _check_k(k, OP_KS)
     return segment.on_device("op_chain", x.device, op_chain_reference,
                              op_chain_cuda, x, op, n_iter=n_iter, k=k, u=u)
 

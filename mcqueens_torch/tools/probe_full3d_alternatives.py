@@ -160,6 +160,16 @@ def issue_bound(out: dict, dev, cap_path) -> None:
         out["sweep_fraction_of_issue_bound_band"] = {
             k: sorted(ops / (v * 1e-6) / r for v in band)
             for k, r in rates.items()}
+    # The cost per queen changes with Q: the same ratios per Q range, from
+    # the slope between neighbouring points of the fit.
+    slopes = fit.get("segment_slopes_us_per_queen", {})
+    out["by_q_range"] = {
+        seg: {"b_us_per_queen": v,
+              "harness_replay_over_slope":
+                  out["harness_replay_b_us_per_queen"] / v,
+              "sweep_fraction_of_issue_bound": {
+                  k: ops / (v * 1e-6) / r for k, r in rates.items()}}
+        for seg, v in slopes.items()}
 
 
 def main(argv=None) -> int:

@@ -12,10 +12,12 @@ counts Q (same N, chains and segment) and fits
 
 where a block is ``DEFAULT_BLOCK`` chains and its step time is the launch
 time spread over all blocks (on the card the blocks run side by side).  The
-b*Q term is the coordinate pass; the fit prints its share of the step.
+b*Q term is the coordinate pass; the fit prints its share of the step, its
+residuals and the slope between neighbouring Q points (on the H100 the cost
+per queen grows with Q, so one b does not describe every range).
 
 Usage:  python -m mcqueens_torch.tools.probe_full3d_cap [--json out.json]
-            [--quick] [--reps R] [--device cuda|cpu]
+            [--quick] [--reps R] [--chains C] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -70,6 +72,14 @@ def _fit(qs, ts):
     return float(a), float(b)
 
 
+def _segments(qs, ts):
+    """Slope of t between neighbouring Q points, ``{"q0-q1": us per
+    queen}``: where the cost per queen changes with Q, one line's b hides
+    it."""
+    return {f"{q0}-{q1}": (t1 - t0) / (q1 - q0)
+            for q0, q1, t0, t1 in zip(qs, qs[1:], ts, ts[1:])}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--json", default=str(tools.H100_ARTIFACTS
@@ -79,6 +89,9 @@ def main(argv=None) -> int:
                         help="independent timing windows per Q point "
                              "(default 3, 1 with --quick); the fit reports "
                              "a [min, max]-rep band")
+    parser.add_argument("--chains", type=int, default=32768,
+                        help="chains per launch (the JAX tool's 32768); "
+                             "fewer shrink the planes' footprint")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     tools.output_path(args.json)
@@ -87,7 +100,7 @@ def main(argv=None) -> int:
     qs = [64, 256] if args.quick else [32, 64, 128, 256, 384]
     seconds = 2.0 if args.quick else 5.0
     reps = args.reps if args.reps is not None else (1 if args.quick else 3)
-    chains = 32768
+    chains = args.chains
     out = {**tools.card(dev), "N": 16, "chains": chains,
            "block": mod.DEFAULT_BLOCK, "reps_per_point": reps, "points": {}}
     t_med, t_min, t_max = [], [], []
@@ -111,12 +124,19 @@ def main(argv=None) -> int:
     _, b_lo = _fit(qs, t_min)
     _, b_hi = _fit(qs, t_max)
     share_256 = b * 256 / (a + b * 256)
+    slopes = _segments(qs, t_med)
     out["fit"] = {"a_us": a, "b_us_per_queen": b,
                   "b_us_per_queen_band": [min(b_lo, b_hi), max(b_lo, b_hi)],
-                  "pass_share_at_Q256": share_256}
+                  "pass_share_at_Q256": share_256,
+                  # the band is the spread between reps; these show how far
+                  # the points are from one line
+                  "residuals_us": {str(q): t - (a + b * q)
+                                   for q, t in zip(qs, t_med)},
+                  "segment_slopes_us_per_queen": slopes}
     print(f"fit: t(Q) = {a:.4f} + {b:.6f}*Q us (b band "
           f"[{min(b_lo, b_hi):.6f}, {max(b_lo, b_hi):.6f}]); O(Q) pass share "
-          f"at Q=256: {share_256:.1%}", flush=True)
+          f"at Q=256: {share_256:.1%}; slope between neighbouring points: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in slopes.items()), flush=True)
     tools.write_json(args.json, out)
     return 0
 

@@ -130,11 +130,16 @@ def main(argv=None) -> int:
     # (us/queen = ns/queen-step / 1e3).
     cap = tools.input_path(args.cap)
     if cap.exists():
-        fitted = json.loads(cap.read_text())["fit"]["b_us_per_queen"]
+        fit = json.loads(cap.read_text())["fit"]
+        fitted = fit["b_us_per_queen"]
         harness = out["Q256"]["production"]["b_ns_per_queen_step"]["median"]
         out["fitted_b_us_per_queen"] = fitted
         out["fitted_b_source"] = tools.shown(cap)
         out["harness_production_over_fitted"] = harness / 1e3 / fitted
+        # per Q range of the fit: its cost per queen grows with Q
+        out["harness_production_over_slope_by_q_range"] = {
+            seg: harness / 1e3 / v for seg, v in
+            fit.get("segment_slopes_us_per_queen", {}).items()}
     else:
         out["fitted_b_us_per_queen"] = f"not measured (no {cap})"
 

@@ -180,6 +180,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                                    device="meta"), "mul")
 
 
+@pytest.mark.parametrize("fn,counts", [
+    (lambda x, k: probes.vpu_doubling(x, True, n_iter=1, k=k), probes.VPU_KS),
+    (lambda x, k: probes.attack_test(x, "nomul", n_iter=1, k=k),
+     probes.TEST_KS),
+    (lambda x, k: probes.op_chain(x, "add", n_iter=1, k=k), probes.OP_KS)])
+def test_each_kernel_takes_only_its_instances(fn, counts):
+    # The CUDA kernels hold one template instance per accumulator count the
+    # tools launch; the wrappers refuse any other count on every device.
+    x = torch.ones((8, 16), dtype=torch.int32)
+    for k in (1, 2, 4, 8, 16, 32):
+        if k in counts:
+            assert fn(x, k).shape == x.shape
+        else:
+            with pytest.raises(ValueError, match=f"k={k}"):
+                fn(x, k)
+
+
 def test_twins_count_no_launch():
     before = dict(probes.LAUNCHES)
     x = torch.ones((8, 16), dtype=torch.int32)
@@ -222,6 +239,17 @@ def test_full3d_cap_on_cpu():
     want = np.linalg.lstsq(A, ts, rcond=None)[0]
     np.testing.assert_allclose(probe_full3d_cap._fit(qs, ts), want,
                                rtol=0, atol=0)
+
+
+def test_full3d_cap_segment_slopes():
+    qs, ts = [32, 64, 128, 256], [0.1, 0.2, 0.5, 1.5]
+    got = probe_full3d_cap._segments(qs, ts)
+    assert list(got) == ["32-64", "64-128", "128-256"]
+    np.testing.assert_allclose(list(got.values()),
+                               np.diff(ts) / np.diff(qs), rtol=1e-15)
+    # on a straight line every segment has the line's slope
+    line = probe_full3d_cap._segments(qs, [0.5 + 0.01 * q for q in qs])
+    np.testing.assert_allclose(list(line.values()), 0.01, rtol=1e-12)
 
 
 def test_alternatives_and_sweep_on_cpu():
