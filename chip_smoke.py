@@ -20,6 +20,21 @@ and the script exits non-zero without printing a result:
    issue at least half as many int32 instructions per evaluation as the
    TPU source has operations; the time under twice the trip count (must be
    1.8-2.2x).  Each probe's bound counts the TPU source's operations.
+   Then the gather and slice tools' kernels (``kernels/probes_mem.py``:
+   the gather and the gather chain, ``csrc/probe_gather.cu``; the slice
+   copy in load and store mode, the slice loop, the reduce and the PRNG
+   draws in both generators, ``csrc/probe_slice.cu``; kernel A with every
+   doubling in its inner loop, one chain and eight) against their twins,
+   bitwise, through the public wrappers: the JAX tools' parity shapes with
+   their own inputs, random words with ragged tiles and every gather-chain
+   instance, and the tools' card-filling shapes; one shape of each timed on
+   the card alone (a spin kernel ahead of the launches, so no launch waits
+   for the host), and beside it torch.gather, narrow_copy and index_fill
+   where one call computes the same words.  The loop kernels' SASS is
+   checked as above (a shared-memory kernel's hot loop is its largest loop
+   that touches no device memory) and their time under twice n_iter.  A
+   bound adds shared-memory bytes (32 banks x 4 B per SM per clock) to
+   device-memory bytes and int32 operations.
 3. kernel vs twin: one launch through each CUDA kernel and one through its
    plain-torch twin (``segment_reference``), both on the card from the same
    ``init_carry_batch`` state, betas and beta scales; every state field must
@@ -85,15 +100,19 @@ and the script exits non-zero without printing a result:
    chains (board N=16 over 2^24 steps, full-3D N=12/Q=144 over 1M).
 6. the measurement tools: ``main(["--quick", "--json", tmp])`` of
    ``mcqueens_torch.tools.probe_full3d_cap``, ``probe_full3d_alternatives``,
-   ``probe_swar_sweep`` (both reading this run's fit) and ``roofline``, the
-   probe launch counts zeroed before and read after; prints each JSON.
-   The memory bandwidth and int32 rates they measured must stay below the
-   constants the bounds divide by.
+   ``probe_swar_sweep`` (both reading this run's fit), ``roofline``,
+   ``probe_gather`` and ``probe_slice`` (every probe must say OK and
+   correct), the probe launch counts zeroed before and read after; prints
+   each JSON.  The memory bandwidth and int32 rates they measured must stay
+   below the constants the bounds divide by.
 
 Then one JSON line describing the kernels (the six, the board kernel's
-freeze mode on a row of its own, and the four probes, each of which must
-run at no more than 1.05 of its bound), the ``nvidia-smi`` name/power
-line, and last ``{"ok": true, "device": {...}}``.
+freeze mode on a row of its own, the four probes and the gather and slice
+tools' ten rows, which with their "sites" account for all eleven
+``pallas_call`` sites of those tools; every probe must run at no more than
+1.05 of its bound, and none faster than the shared-memory rate), the
+``nvidia-smi`` name/power line, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 import sys
@@ -105,6 +124,7 @@ import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import io  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import os  # noqa: E402
 import re  # noqa: E402
 import subprocess  # noqa: E402
@@ -127,9 +147,11 @@ from mcqueens_torch.experiments import drivers  # noqa: E402
 from mcqueens_torch.experiments.config import load_config, parse_config  # noqa: E402
 from mcqueens_torch import tools as port_tools  # noqa: E402
 from mcqueens_torch.kernels import (_build, board_shared, full3d_pallas,  # noqa: E402
-                                    full3d_shared, metropolis_pallas, probes)
+                                    full3d_shared, metropolis_pallas, probes,
+                                    probes_mem)
 from mcqueens_torch.tools import (probe_full3d_alternatives,  # noqa: E402
-                                  probe_full3d_cap, probe_swar_sweep, roofline)
+                                  probe_full3d_cap, probe_gather,
+                                  probe_slice, probe_swar_sweep, roofline)
 from mcqueens_torch.search.tempering import geometric_ladder  # noqa: E402
 
 KERNELS = {
@@ -181,6 +203,60 @@ PROBES = {
                   replaces="tools/probe_swar_sweep.py:119"),
 }
 PROBE_FUNCS = {key: row["name"] for key, row in PROBES.items()}
+# The gather and slice tools' kernels (kernels/probes_mem.py): launch count
+# key -> row; "sites" lists every pallas_call site a row stands for.  Kernel
+# A serves three sites through probes_mem's own counts.
+_GATHER_CU = "mcqueens_torch/kernels/csrc/probe_gather.cu"
+_SLICE_CU = "mcqueens_torch/kernels/csrc/probe_slice.cu"
+MEM_PROBES = {
+    "gather": dict(name="gather_probe_kernel", source=_GATHER_CU,
+                   replaces="tools/probe_gather.py:41",
+                   sites=["tools/probe_gather.py:41",
+                          "tools/probe_gather.py:60"]),
+    "gather_chain": dict(name="gather_chain_probe_kernel", source=_GATHER_CU,
+                         replaces="tools/probe_gather.py:84",
+                         sites=["tools/probe_gather.py:84"]),
+    "pass": dict(name="vpu_probe_kernel (one chain: add and pass costs)",
+                 source=PROBES["vpu"]["source"],
+                 replaces="tools/probe_gather.py:114",
+                 sites=["tools/probe_gather.py:114",
+                        "tools/probe_slice.py:129"]),
+    "ind_pass": dict(name="vpu_probe_kernel (8 chains: independent passes)",
+                     source=PROBES["vpu"]["source"],
+                     replaces="tools/probe_slice.py:149",
+                     sites=["tools/probe_slice.py:149"]),
+    "slice_load": dict(name="slice_probe_kernel (load)", source=_SLICE_CU,
+                       replaces="tools/probe_slice.py:46",
+                       sites=["tools/probe_slice.py:46"]),
+    "slice_store": dict(name="slice_probe_kernel (store)", source=_SLICE_CU,
+                        replaces="tools/probe_slice.py:70",
+                        sites=["tools/probe_slice.py:70"]),
+    "slice_loop": dict(name="slice_loop_probe_kernel", source=_SLICE_CU,
+                       replaces="tools/probe_slice.py:105",
+                       sites=["tools/probe_slice.py:105"]),
+    "reduce": dict(name="reduce_probe_kernel", source=_SLICE_CU,
+                   replaces="tools/probe_slice.py:174",
+                   sites=["tools/probe_slice.py:174"]),
+    "prng_lowbias32": dict(name="prng_probe_kernel (lowbias32)",
+                           source=_SLICE_CU,
+                           replaces="tools/probe_slice.py:194",
+                           sites=["tools/probe_slice.py:194"]),
+    "prng_threefry": dict(name="prng_probe_kernel (threefry)",
+                          source=_SLICE_CU,
+                          replaces="tools/probe_slice.py:194",
+                          sites=["tools/probe_slice.py:194"]),
+}
+# CUDA functions of those kernels (kernel A's is PROBE_FUNCS["vpu"]); the
+# loop kernels' hot loops are checked like A-D's.
+MEM_FUNCS = {"gather": "gather_probe_kernel",
+             "gather_chain": "gather_chain_probe_kernel",
+             "slice": "slice_probe_kernel",
+             "slice_loop": "slice_loop_probe_kernel",
+             "reduce": "reduce_probe_kernel", "prng": "prng_probe_kernel"}
+LOOP_FUNCS = {**PROBE_FUNCS, **{k: MEM_FUNCS[k] for k in (
+    "gather_chain", "slice_loop", "reduce", "prng")}}
+# Probe kernels whose ptxas lines are summed over their template instances.
+TEMPLATED = {*PROBE_FUNCS.values(), *MEM_FUNCS.values()}
 REPO = os.path.dirname(os.path.abspath(__file__))
 # The per-chain samplers keep their state chains major, (C, n_bins) bins.
 PER_CHAIN = (metropolis_pallas, full3d_pallas)
@@ -193,9 +269,16 @@ INT32_LANES_PER_SM = port_tools.INT32_ISSUE_LANES_PER_SM
 # constant), and 3 to set up the key and counter.
 THREEFRY_OPS = 20 * 3 + 5 * 2 + 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+SMEM_BYTES_PER_SM_CLOCK = 32 * 4  # 32 banks of 4-byte words
 
 
 nvidia_smi = port_tools.nvidia_smi
+
+
+def mangled(name):
+    """``name`` as a mangled C++ symbol spells it (length, then name), so
+    that ``op_probe_kernel`` does not match ``slice_loop_probe_kernel``."""
+    return f"{len(name)}{name}"
 
 
 def phase(name, msg):
@@ -227,10 +310,21 @@ def const(n, b):
     return build_schedule("constant", n, beta_const=b)
 
 
-def cuda_ms(fn, reps=1):
+def device_ms(fn, reps=10):
+    """Milliseconds per call of ``fn`` on the card alone: a spin kernel of
+    about 2.5 ms keeps the card busy while the host queues the events and
+    the ``reps`` launches, so no launch waits for the host (a probe of a few
+    microseconds takes less than the host needs to launch it)."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(5_000_000)
+    return cuda_ms(fn, reps, sync=False)
+
+
+def cuda_ms(fn, reps=1, sync=True):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    if sync:
+        torch.cuda.synchronize()
     start.record()
     for _ in range(reps):
         fn()
@@ -240,9 +334,12 @@ def cuda_ms(fn, reps=1):
 
 
 class Bounds:
-    """Least time the card could take for a launch's work: the larger of
+    """Least time the card could take for a launch's work: the largest of
     its bytes (each input read once, each output written once) over the HBM
-    rate and its int32 operations over the int32 instruction rate."""
+    rate, its int32 operations over the int32 instruction rate, and the
+    shared-memory bytes a kernel that keeps its working set there must load
+    and store (each gathered or loaded word and each stored word once) over
+    the shared-memory rate: 32 banks x 4 bytes per SM per clock."""
 
     def __init__(self):
         props = torch.cuda.get_device_properties(0)
@@ -250,16 +347,28 @@ class Bounds:
         self.int_ops_per_s = props.multi_processor_count * (
             INT32_LANES_PER_SM * mhz * 1e6)
         self.bytes_per_s = HBM_BYTES_PER_S
+        self.smem_bytes_per_s = props.multi_processor_count * (
+            SMEM_BYTES_PER_SM_CLOCK * mhz * 1e6)
         phase("bound", f"{props.multi_processor_count} SMs x "
               f"{INT32_LANES_PER_SM} int32 lanes x {mhz:.0f} MHz = "
               f"{self.int_ops_per_s:.4e} int32 ops/s; HBM "
-              f"{HBM_BYTES_PER_S:.3e} B/s")
+              f"{HBM_BYTES_PER_S:.3e} B/s; shared memory "
+              f"{props.multi_processor_count} SMs x {SMEM_BYTES_PER_SM_CLOCK}"
+              f" B x {mhz:.0f} MHz = {self.smem_bytes_per_s:.4e} B/s")
 
-    def of(self, ops, nbytes):
-        t_ops = ops / self.int_ops_per_s * 1e3
-        t_bytes = nbytes / self.bytes_per_s * 1e3
-        return ((t_ops, "operations") if t_ops >= t_bytes
-                else (t_bytes, "bytes"))
+    def terms(self, ops, nbytes, smem_bytes=0):
+        """{term: ms} of the three times."""
+        return {"operations": ops / self.int_ops_per_s * 1e3,
+                "bytes": nbytes / self.bytes_per_s * 1e3,
+                "shared-memory bytes": smem_bytes / self.smem_bytes_per_s
+                * 1e3}
+
+    def of(self, ops, nbytes, smem_bytes=0):
+        """(bound ms, what bounds it: "operations" or "bytes", the latter
+        for device or shared memory)."""
+        t = self.terms(ops, nbytes, smem_bytes)
+        key = max(t, key=t.get)
+        return t[key], "operations" if key == "operations" else "bytes"
 
 
 def line_cells(N):
@@ -488,8 +597,9 @@ def zero_launches():
     for mod in KERNELS:
         mod.KERNEL_LAUNCHES = 0
     board_shared.FREEZE_LAUNCHES = 0
-    for key in probes.LAUNCHES:
-        probes.LAUNCHES[key] = 0
+    for counts in (probes.LAUNCHES, probes_mem.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def warm_up():
@@ -1197,8 +1307,8 @@ def sass_loops():
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = next((p for p in PROBE_FUNCS.values() if p in m.group(1)),
-                        None)
+            name = next((p for p in LOOP_FUNCS.values()
+                         if mangled(p) in m.group(1)), None)
             args = m.group(1).split(name, 1)[1] if name else ""
             cur = (name, tuple(int(v) for v in re.findall(r"L[ib](\d+)E",
                                                            args)))
@@ -1229,7 +1339,11 @@ def sass_loops():
 # arguments: A and C unroll 16 and 8 trips of K chains, B one trip of K
 # chains, D one row against the 9 targets.
 LOOP_EVALS = {"vpu": lambda t: 16 * t[0], "test": lambda t: t[0],
-              "op": lambda t: 8 * t[0], "sweep": lambda t: 9}
+              "op": lambda t: 8 * t[0], "sweep": lambda t: 9,
+              # the gather chain: one step of E elements a thread; the slice
+              # loop and the reduce unroll 16 rows; one draw per trip
+              "gather_chain": lambda t: t[0], "slice_loop": lambda t: 16,
+              "reduce": lambda t: 16, "prng": lambda t: 1}
 # int32 operations of one evaluation as the TPU function writes it (each
 # elementwise jnp operation one, constant expressions none), the yardstick
 # of the samplers' bounds too:
@@ -1247,9 +1361,23 @@ LOOP_EVALS = {"vpu": lambda t: 16 * t[0], "test": lambda t: t[0],
 #     100 with its occupancy's 2 ands, the two accumulates).  The 9 targets'
 #     hashes are per chunk, not per column, and left out: leaving work out
 #     only lowers a bound.
+#   gather chain (probe_gather.py:84) per (word, step) the take and the + 1:
+#     2 (and a gathered load and a store, charged as shared-memory bytes).
+#   slice loop (probe_slice.py:105) per (row word, step) blk + acc: 1 (and
+#     a load and a store); the offset and acc + 1 are per step, not per word.
+#   reduce (probe_slice.py:174) per (row word, step) x + acc and the sum: 2.
+#   PRNG draws (probe_slice.py:194, the port's generators as
+#     mcqueens/kernels/prng.py and core/rng.py write them): lowbias32 39
+#     (g ^ step*K, three lowbias32 of 11 with their masked shifts, the ^ W0,
+#     + W1, & 0x7FFFFFFF, w0 + w1 and the accumulate); threefry 75 (one
+#     threefry2x32 of 73, the x0 ^ x1 and the accumulate; the step's
+#     fold_in is once per step for the whole array).
 PROBE_OPS = {"vpu": {None: 1}, "op": {None: 2},
              "test": {"production": 23, "nomul": 28, "swar": 103},
-             "sweep": {"production": 22, "swar": 105}}
+             "sweep": {"production": 22, "swar": 105},
+             "gather_chain": {None: 2}, "slice_loop": {None: 1},
+             "reduce": {None: 2},
+             "prng": {"lowbias32": 39, "threefry": 75}}
 # SASS that issues no int32 arithmetic: branches and barriers, loads and
 # stores, and the uniform datapath (one per warp: the loop's scalars).
 NOT_INT32 = ("BRA", "EXIT", "NOP", "BSSY", "BSYNC", "BAR", "WARPSYNC", "LD",
@@ -1263,6 +1391,8 @@ def instance_kind(key, targs):
         return probes.TEST_KINDS[targs[1]]
     if key == "sweep":
         return probes.SWEEP_KINDS[targs[0]]
+    if key == "prng":
+        return probes_mem.PRNG_MODES[targs[0]]
     return None
 
 
@@ -1274,23 +1404,43 @@ def probe_instances():
                for i in range(len(probes.TEST_KINDS))]
             + [(f["op"], (k, i)) for k in probes.OP_KS
                for i in range(len(probes.OPS))]
-            + [(f["sweep"], (i,)) for i in range(len(probes.SWEEP_KINDS))])
+            + [(f["sweep"], (i,)) for i in range(len(probes.SWEEP_KINDS))]
+            + [(MEM_FUNCS["gather_chain"], (e,)) for e in probes_mem.CHAIN_ES]
+            + [(MEM_FUNCS["slice_loop"], ()), (MEM_FUNCS["reduce"], ())]
+            + [(MEM_FUNCS["prng"], (i,))
+               for i in range(len(probes_mem.PRNG_MODES))])
+
+
+# Kernels that keep their working set in shared memory: their hot loop is
+# the largest innermost loop that touches no device memory (the strips'
+# fill and drain are loops too, with 8 global loads or stores a trip).
+SMEM_LOOP_KEYS = ("gather_chain", "slice_loop", "reduce")
+
+
+def hot_candidates(key, loops):
+    """The innermost loops of one kernel instance that may be its hot
+    loop."""
+    if key not in SMEM_LOOP_KEYS:
+        return loops
+    return [c for c in loops if not (c["LDG"] or c["STG"])]
 
 
 def check_sass(loops):
     """Each probe instance's hot loop must issue at least half as many
-    int32 instructions per evaluation as the TPU source has operations.
+    int32 instructions per evaluation as the TPU source has operations (the
+    one-pass gather and slice copy have no loop and are not checked).
     ptxas fuses ops into three-input instructions (IADD3, IMAD, LOP3,
     VIMNMX3) and these loops keep 0.67-1.13 instruction per source op; a
     loop with part of the test hoisted or the chains merged keeps a third
     or less, and would also run faster than its bound."""
-    by_name = {row["name"]: key for key, row in PROBES.items()}
+    by_name = {name: key for key, name in LOOP_FUNCS.items()}
     missing = set(probe_instances()) - set(loops)
     if missing:
         raise AssertionError(f"cuobjdump found no hot loop in {missing}")
     for name, targs in probe_instances():
         key = by_name[name]
-        body = max(loops[name, targs], key=lambda c: sum(c.values()))
+        body = max(hot_candidates(key, loops[name, targs]),
+                   key=lambda c: sum(c.values()))
         n_int = sum(v for op, v in body.items()
                     if not op.startswith(NOT_INT32))
         per = n_int / LOOP_EVALS[key](targs)
@@ -1464,13 +1614,347 @@ def probe_scaling(rows):
     probes.LAUNCHES.update(saved)
 
 
+# -- the gather and slice tools' kernels (kernels/probes_mem.py) -------------
+
+# key -> (public wrapper, kernel launcher, plain twin).
+MEM_CALLS = {
+    "gather": (probes_mem.gather, probes_mem.gather_cuda,
+               probes_mem.gather_reference),
+    "gather_chain": (probes_mem.gather_chain, probes_mem.gather_chain_cuda,
+                     probes_mem.gather_chain_reference),
+    "pass": (probes_mem.doubling_pass, probes_mem.doubling_pass_cuda,
+             probes_mem.doubling_pass_reference),
+    "ind_pass": (probes_mem.independent_passes,
+                 probes_mem.independent_passes_cuda,
+                 probes_mem.independent_passes_reference),
+    "slice_load": (probes_mem.slice_load, probes_mem.slice_load_cuda,
+                   probes_mem.slice_load_reference),
+    "slice_store": (probes_mem.slice_store, probes_mem.slice_store_cuda,
+                    probes_mem.slice_store_reference),
+    "slice_loop": (probes_mem.slice_loop, probes_mem.slice_loop_cuda,
+                   probes_mem.slice_loop_reference),
+    "reduce": (probes_mem.sublane_reduce, probes_mem.sublane_reduce_cuda,
+               probes_mem.sublane_reduce_reference),
+    "prng_lowbias32": (probes_mem.prng_draws, probes_mem.prng_draws_cuda,
+                       probes_mem.prng_draws_reference),
+    "prng_threefry": (probes_mem.prng_draws, probes_mem.prng_draws_cuda,
+                      probes_mem.prng_draws_reference),
+}
+
+
+def mem_cases(rs):
+    """(key, label, inputs, keywords, timing shape?) of the gather and
+    slice kernels' compare phase: the JAX tools' parity shapes (their own
+    inputs, small trip counts), random words with ragged tiles, and the
+    tools' card-filling shapes, one of each kernel timed (at the tools'
+    --quick trip counts where they cut them)."""
+    T, W, W1 = (port_tools.TIMING_THREADS, port_tools.ALU_WIDTH,
+                port_tools.ONE_PASS_WORDS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    def arange(S, L):
+        return torch.arange(S * L, dtype=torch.int32,
+                            device="cuda").reshape(S, L)
+
+    def rand(S, L):
+        return cuda(rs.integers(-2 ** 31, 2 ** 31, (S, L)).astype(np.int32))
+
+    def index(seed, hi, shape):
+        return cuda(np.random.default_rng(seed).integers(0, hi, size=shape,
+                                                         dtype=np.int32))
+
+    def big_index(hi, shape):
+        return torch.randint(0, hi, shape, dtype=torch.int32, device="cuda",
+                             generator=gen)
+
+    def ones(S, L):
+        return torch.ones((S, L), dtype=torch.int32, device="cuda")
+
+    def off(o):
+        return torch.tensor([o], dtype=torch.int32, device="cuda")
+
+    cases = []
+    for S, L, axis in ((8, 128, 1), (8, 256, 1), (64, 128, 1), (256, 512, 1),
+                       (8, 128, 0), (32, 128, 0), (256, 128, 0),
+                       (256, 1024, 0)):
+        cases.append(("gather", f"5a gather ({S},{L}) axis {axis}",
+                      (arange(S, L), index(0, L if axis == 1 else S, (S, L)),
+                       axis), {}, False))
+    cases += [
+        ("gather", "5b gather narrow (8,256->64) axis 1",
+         (arange(8, 256), index(1, 256, (8, 64)), 1), {}, False),
+        ("gather", "5b gather narrow (256,128->64) axis 0",
+         (arange(256, 128), index(1, 256, (64, 128)), 0), {}, False),
+        ("gather", "gather random (40,100) axis 1",
+         (rand(40, 100), index(3, 100, (40, 100)), 1), {}, False),
+        ("gather", f"gather ({W1 // 512},512) axis 1",
+         (arange(W1 // 512, 512), big_index(512, (W1 // 512, 512)), 1), {},
+         True),
+        ("gather", f"gather (256,{W1 // 256}) axis 0",
+         (arange(256, W1 // 256), big_index(256, (256, W1 // 256)), 0), {},
+         False),
+        ("gather", f"gather narrow ({W1 // 64},256->64) axis 1",
+         (arange(W1 // 64, 256), big_index(256, (W1 // 64, 64)), 1), {},
+         False),
+    ]
+    for S, L, axis in ((8, 128, 1), (64, 256, 1), (256, 1024, 0)):
+        cases.append(("gather_chain", f"5c gather chain ({S},{L}) axis {axis}"
+                      f" n_iter=3", (arange(S, L) % 7,
+                                     index(2, L if axis == 1 else S, (S, L)),
+                                     axis), dict(n_iter=3), False))
+    # ragged tiles, and every elements-per-thread instance (1, 2, 8, 16, 32,
+    # 4 in this order)
+    for S, L, axis in ((40, 100, 1), (6, 400, 1), (5, 2000, 1), (3, 4000, 1),
+                       (300, 45, 0), (32, 128, 0)):
+        cases.append(("gather_chain", f"gather chain random ({S},{L}) axis "
+                      f"{axis} n_iter=5", (rand(S, L), index(
+                          4, L if axis == 1 else S, (S, L)), axis),
+                      dict(n_iter=5), False))
+    cases += [
+        ("gather_chain", f"gather chain ({T // 256},256) axis 1 n_iter=512",
+         (arange(T // 256, 256) % 7, big_index(256, (T // 256, 256)), 1),
+         dict(n_iter=512), True),
+        ("gather_chain", f"gather chain (256,{T // 8}) axis 0 n_iter=512",
+         (arange(256, T // 8) % 7, big_index(256, (256, T // 8)), 0),
+         dict(n_iter=512), False),
+        ("pass", "5d add cost (256,1024) n_iter=2048", (ones(256, 1024),),
+         dict(n_iter=2048), False),
+        ("pass", "5h pass cost (1,1024) n_iter=8192", (ones(1, 1024),),
+         dict(n_iter=8192), False),
+        ("pass", "5h pass cost (1024,256) n_iter=8192", (ones(1024, 256),),
+         dict(n_iter=8192), False),
+        ("pass", "pass random (8,1024) n_iter=7", (rand(8, 1024),),
+         dict(n_iter=7), False),
+        ("pass", f"pass cost (8,{W}) n_iter=8192", (ones(8, W),),
+         dict(n_iter=8192), True),
+        ("ind_pass", "5i ind pass cost (64,1024) n_iter=2048",
+         (ones(64, 1024),), dict(n_iter=2048, k=8), False),
+        ("ind_pass", "ind pass random (8,1024) n_iter=3", (rand(8, 1024),),
+         dict(n_iter=3, k=8), False),
+        ("ind_pass", f"ind pass cost (8,{W}) n_iter=2048", (ones(8, W),),
+         dict(n_iter=2048, k=8), True),
+    ]
+    for S, o in ((256, 16), (256, 8), (256, 12), (496, 240)):
+        cases.append(("slice_load", f"5e slice load ({S},1024) w16 off{o}",
+                      (arange(S, 1024), off(o), 16), {}, False))
+    cases += [
+        ("slice_load", "slice load random (256,1024) w16 off100",
+         (rand(256, 1024), off(100), 16), {}, False),
+        ("slice_load", f"slice load (256,{W1 // 256}) w16 off240",
+         (arange(256, W1 // 256), off(240), 16), {}, True),
+        ("slice_store", "5f slice store (256,1024) w16 off48",
+         (arange(256, 1024), off(48), 16), {}, False),
+        ("slice_store", "slice store random (40,100) w5 off35",
+         (rand(40, 100), off(35), 5), {}, False),
+        ("slice_store", f"slice store (256,{W1 // 256}) w16 off48",
+         (arange(256, W1 // 256), off(48), 16), {}, True),
+        ("slice_loop", "5g slice loop (256,1024) w16 n_iter=4096",
+         (torch.zeros((256, 1024), dtype=torch.int32, device="cuda"), 16),
+         dict(n_iter=4096), False),
+        ("slice_loop", "slice loop random (40,100) w8 n_iter=11",
+         (rand(40, 100), 8), dict(n_iter=11), False),
+        ("slice_loop", f"slice loop (256,{W}) w16 n_iter=4096",
+         (torch.zeros((256, W), dtype=torch.int32, device="cuda"), 16),
+         dict(n_iter=4096), True),
+        ("reduce", "5j reduce (64,1024) n_iter=4096", (ones(64, 1024),),
+         dict(n_iter=4096), False),
+        ("reduce", "reduce random (24,200) n_iter=5", (rand(24, 200),),
+         dict(n_iter=5), False),
+        ("reduce", f"reduce (64,{T}) n_iter=512", (ones(64, T),),
+         dict(n_iter=512), True),
+    ]
+    for mode in probes_mem.PRNG_MODES:
+        key = f"prng_{mode}"
+        for R in (8, 2):
+            cases.append((key, f"5k prng {mode} ({R},1024) n_iter=4096",
+                          ((R, 1024), mode),
+                          dict(n_iter=4096, device="cuda"), False))
+        cases.append((key, f"prng {mode} (8,{W}) n_iter=512", ((8, W), mode),
+                      dict(n_iter=512, device="cuda"), True))
+    return cases
+
+
+def mem_work(key, inputs, kw):
+    """(int32 operations, device-memory bytes, shared-memory bytes) of one
+    launch of a gather or slice kernel, counted from the TPU source: each
+    input word read once (the gather: each distinct gathered word), each
+    output word written once; the shared-memory kernels' loaded and stored
+    words there (the strip's fill and drain included)."""
+    n_it = kw.get("n_iter", 0)
+    if key in ("prng_lowbias32", "prng_threefry"):
+        n = math.prod(inputs[0])
+        per = PROBE_OPS["prng"][inputs[1]]
+        ops = per * n * n_it + (THREEFRY_OPS * n_it if key.endswith(
+            "threefry") else 0)
+        return ops, 4 * n, 0
+    x = inputs[0]
+    words = x.numel()
+    if key == "gather":
+        idx, axis = inputs[1], inputs[2]
+        need = int(torch.unique(probes_mem._flat_index(
+            idx, x.shape[1], axis)).numel())
+        return idx.numel(), 4 * (need + 2 * idx.numel()), 0
+    if key == "gather_chain":
+        return (2 * words * n_it, 12 * words, 8 * words * n_it + 4 * words)
+    if key == "pass":
+        return words * n_it, 8 * words, 0
+    if key == "ind_pass":
+        return words * kw["k"] * n_it, 8 * words, 0
+    S, C = x.shape
+    width = inputs[-1] if key != "reduce" else 0
+    if key == "slice_load":
+        return 0, 4 * (2 * width * C + 1), 0
+    if key == "slice_store":
+        return 0, 4 * ((2 * S - width) * C + 1), 0
+    if key == "slice_loop":
+        return (width * C * n_it, 8 * words, 8 * width * C * n_it
+                + 8 * words)
+    return 2 * words * n_it, 4 * (words + C), 4 * words * n_it + 4 * words
+
+
+def mem_call(key, which, inputs, kw):
+    """Call a gather or slice kernel's public wrapper (0), its launcher
+    (1, no checks) or its twin (2)."""
+    return MEM_CALLS[key][which](*inputs, **kw)
+
+
+def mem_compare(rs):
+    """Each gather and slice kernel against its twin on the card, bitwise
+    (any difference raises), the result through the public wrapper;
+    returns {key: timing row}: the launcher alone timed on the card alone
+    (the wrappers' index and offset checks read the card back), the twin
+    once."""
+    saved = dict(probes_mem.LAUNCHES), dict(probes.LAUNCHES)
+    rows = {}
+    for key, label, inputs, kw, timing in mem_cases(rs):
+        got = mem_call(key, 0, inputs, kw)
+        box = []
+        t_ms = cuda_ms(lambda: box.append(mem_call(key, 2, inputs, kw)))
+        want = box[0]
+        if not torch.equal(got, want):
+            err = int((got.long() - want.long()).abs().max())
+            raise AssertionError(f"probe kernel != twin on {label}: "
+                                 f"{int((got != want).sum())} words differ, "
+                                 f"max abs err {err}")
+        line = f"{label}: kernel == twin ({got.numel()} words)"
+        if timing:
+            k_ms = device_ms(lambda: mem_call(key, 1, inputs, kw))
+            rows[key] = dict(label=label, kernel_ms=k_ms, twin_ms=t_ms,
+                             kw=kw, inputs=inputs,
+                             work=mem_work(key, inputs, kw))
+            line += f"; kernel {k_ms:.4f} ms, twin {t_ms:.1f} ms"
+        phase("probes", line)
+    probes_mem.LAUNCHES.update(saved[0])
+    probes.LAUNCHES.update(saved[1])
+    return rows
+
+
+# The one-pass kernels have no hot loop: no SASS check, no 2x scaling.
+MEM_LOOPS = ("gather_chain", "pass", "ind_pass", "slice_loop", "reduce",
+             "prng_lowbias32", "prng_threefry")
+
+
+def mem_scaling(rows):
+    """Each loop kernel at its timing shape under its trip count and twice
+    it: the time must scale 1.8-2.2x."""
+    saved = dict(probes_mem.LAUNCHES), dict(probes.LAUNCHES)
+    for key in MEM_LOOPS:
+        row = rows[key]
+        kw1 = dict(row["kw"])
+        kw2 = dict(kw1, n_iter=2 * kw1["n_iter"])
+        mem_call(key, 1, row["inputs"], kw2)
+        t1 = device_ms(lambda: mem_call(key, 1, row["inputs"], kw1), reps=3)
+        t2 = device_ms(lambda: mem_call(key, 1, row["inputs"], kw2), reps=3)
+        row["scaling"] = t2 / t1
+        phase("probes", f"{row['label']}: n_iter x2 -> time x{t2 / t1:.3f} "
+              f"({t1:.4f} -> {t2:.4f} ms)")
+        if not 1.8 <= t2 / t1 <= 2.2:
+            raise AssertionError(f"{row['label']}: time scales x{t2 / t1:.3f}"
+                                 f" under 2x n_iter, not 1.8-2.2")
+    probes_mem.LAUNCHES.update(saved[0])
+    probes.LAUNCHES.update(saved[1])
+
+
+def mem_kernel_rows(mem_rows, launches, bounds):
+    """The kernels line's rows of the gather and slice kernels: each must
+    run at no more than 1.05 of its bound, and none may move shared-memory
+    bytes faster than the bound's shared-memory rate."""
+    rows = []
+    for key, meta in MEM_PROBES.items():
+        row = mem_rows[key]
+        bound_ms, bound_by = bounds.of(*row["work"])
+        share = bound_ms / row["kernel_ms"]
+        terms = ", ".join(f"{k} {v:.4f} ms" for k, v in
+                          bounds.terms(*row["work"]).items())
+        phase("bound", f"{meta['name']} on '{row['label']}': "
+              f"{row['work'][0]:.4e} int32 ops, {row['work'][1]:.4e} bytes, "
+              f"{row['work'][2]:.4e} shared-memory bytes -> {terms}; bound "
+              f"{bound_ms:.4f} ms ({bound_by}) = {share:.3f} of the "
+              f"kernel's {row['kernel_ms']:.4f} ms")
+        if share > 1.05:
+            raise AssertionError(f"{meta['name']} ran at {share:.3f} of its "
+                                 f"bound: work was cut")
+        smem_rate = row["work"][2] / (row["kernel_ms"] / 1e3)
+        if smem_rate > bounds.smem_bytes_per_s:
+            raise AssertionError(
+                f"{meta['name']} moved {smem_rate:.4e} shared-memory B/s, "
+                f"above the bound's {bounds.smem_bytes_per_s:.4e}")
+        rows.append({**meta, "route": "cuda", "launches": launches[key],
+                     "max_abs_err": 0, "ms": row["kernel_ms"],
+                     "plain_ms": row["twin_ms"], "bound_ms": bound_ms,
+                     "bound_by": bound_by,
+                     # torch.gather, narrow_copy and index_fill compute the
+                     # one-pass kernels; no PyTorch call computes a loop.
+                     "library_ms": row["library_ms"]})
+    return rows
+
+
+def mem_library_ms(key, row):
+    """One PyTorch call computing the same function on the row's inputs,
+    timed, where there is one (None otherwise): torch.gather (its index
+    widened to int64 outside the timing), narrow_copy, index_fill."""
+    inputs = row["inputs"]
+    if key == "gather":
+        x, idx, axis = inputs
+        idx64 = idx.long()
+        fn = lambda: torch.gather(x, axis, idx64)  # noqa: E731
+    elif key in ("slice_load", "slice_store"):
+        x, off, width = inputs
+        o = int(off[0])
+        rows = torch.arange(o, o + width, device="cuda")
+        fn = ((lambda: torch.narrow_copy(x, 0, o, width))
+              if key == "slice_load" else (lambda: x.index_fill(0, rows, 7)))
+    else:
+        return None
+    want = mem_call(key, 1, inputs, row["kw"])
+    if not torch.equal(fn(), want):
+        raise AssertionError(f"the library call of {key} disagrees")
+    return device_ms(fn)
+
+
 TOOLS = (probe_full3d_cap, probe_full3d_alternatives, probe_swar_sweep,
-         roofline)
+         roofline, probe_gather, probe_slice)
 # Probe launches of the tools' --quick runs: a warm-up launch and the timed
 # reps of each point (roofline: 2 variants x 4 reps; alternatives: 3 kinds
-# x 2 k x 3 reps, 2 ops x 4 reps; swar sweep: 2 kinds x 3 reps at Q=256).
-TOOL_LAUNCHES = {"vpu": 2 * (1 + 4), "test": 3 * 2 * (1 + 3),
-                 "op": 2 * (1 + 4), "sweep": 2 * (1 + 3)}
+# x 2 k x 3 reps, 2 ops x 4 reps; swar sweep: 2 kinds x 3 reps at Q=256;
+# kernel A also through the gather tool's 2 add costs and the slice tool's
+# 6 pass and 3 independent pass costs, 1 + 2 reps each).
+TOOL_LAUNCHES = {"vpu": 2 * (1 + 4) + (2 + 6 + 3) * (1 + 2),
+                 "test": 3 * 2 * (1 + 3), "op": 2 * (1 + 4),
+                 "sweep": 2 * (1 + 3)}
+# The gather tool: 13 gathers (10 of the JAX tool, 3 filling the card), 2
+# add and 5 gather-chain costs; the slice tool: 5 loads and 2 stores, and 2
+# slice loops, 6 + 3 passes, 2 reduces and 3 draws of each generator timed;
+# each timed point a warm-up launch and 2 reps.
+MEM_TOOL_LAUNCHES = {"gather": 13, "gather_chain": 5 * 3,
+                     "pass": (2 + 6) * 3, "ind_pass": 3 * 3,
+                     "slice_load": 5, "slice_store": 2, "slice_loop": 2 * 3,
+                     "reduce": 2 * 3, "prng_lowbias32": 3 * 3,
+                     "prng_threefry": 3 * 3}
 
 
 def tools_slice():
@@ -1502,10 +1986,15 @@ def tools_slice():
             raise AssertionError(f"{name} did not read this run's fit")
     if not all(v > 0 for v in outs["roofline"]["kernels"].values()):
         raise AssertionError("roofline: a sampler row is not positive")
-    got = dict(probes.LAUNCHES)
-    if got != TOOL_LAUNCHES:
+    for name in ("probe_gather", "probe_slice"):
+        failed = [k for k, v in outs[name]["probes"].items()
+                  if v["status"] != "OK" or v["result"].startswith("WRONG")]
+        if failed:
+            raise AssertionError(f"{name}: probes not OK: {failed}")
+    got = {**probes.LAUNCHES, **probes_mem.LAUNCHES}
+    if got != {**TOOL_LAUNCHES, **MEM_TOOL_LAUNCHES}:
         raise AssertionError(f"tools: probe launches {got}, expected "
-                             f"{TOOL_LAUNCHES}")
+                             f"{TOOL_LAUNCHES} and {MEM_TOOL_LAUNCHES}")
     return got, outs
 
 
@@ -1552,13 +2041,13 @@ def main():
               f"{len(_build.SOURCES)} sources in {build_s:.2f} s")
         log = _build.library_path().with_suffix(".log")
         names = [k["name"] for k in KERNELS.values()] + list(
-            PROBE_FUNCS.values())
+            PROBE_FUNCS.values()) + list(MEM_FUNCS.values())
         kernel = None
         regs, spills = collections.defaultdict(list), collections.Counter()
         for ln in (log.read_text().splitlines() if log.exists() else []):
             if "Compiling entry function" in ln:
-                kernel = next(n for n in names if n in ln)
-            elif kernel in PROBE_FUNCS.values():
+                kernel = next(n for n in names if mangled(n) in ln)
+            elif kernel in TEMPLATED:
                 # one line per template instance: summarised below
                 regs[kernel] += map(int, re.findall(r"Used (\d+) reg", ln))
                 spills[kernel] += sum(map(int, re.findall(
@@ -1582,6 +2071,14 @@ def main():
             phase("probes", f"{row['label']}: "
                   f"{row['work'][0] / row['kernel_ms'] * 1e3:.4e} int32 "
                   f"ops/s as the TPU source counts them")
+        mem_rows = mem_compare(np.random.default_rng(13))
+        mem_scaling(mem_rows)
+        for key, row in mem_rows.items():
+            row["library_ms"] = mem_library_ms(key, row)
+            if row["library_ms"] is not None:
+                phase("probes", f"{row['label']}: library call "
+                      f"{row['library_ms']:.4f} ms, kernel "
+                      f"{row['kernel_ms']:.4f} ms")
 
     # 3. kernel vs twin ---------------------------------------------------
     ladder = geometric_ladder(0.8, 7.0, 16)
@@ -1931,6 +2428,7 @@ def main():
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      # No PyTorch call computes a probe's loop.
                      "library_ms": None})
+    rows += mem_kernel_rows(mem_rows, tool_launches, bounds)
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} "
           f"s")
     print(json.dumps({"kernels": rows}))

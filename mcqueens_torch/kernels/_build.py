@@ -40,6 +40,12 @@ ENTRY_POINTS = {
     "mcq_probe_op": [_P] * 2 + [_I] * 5 + [_P],
     "mcq_probe_test": [_P] * 2 + [_I] * 7 + [_P],
     "mcq_probe_sweep": [_P] * 4 + [_I] * 4 + [_P],
+    "mcq_probe_gather": [_P] * 3 + [_I] * 4 + [_P],
+    "mcq_probe_gather_chain": [_P] * 3 + [_I] * 7 + [_P],
+    "mcq_probe_slice": [_P] * 3 + [_I] * 5 + [_P],
+    "mcq_probe_slice_loop": [_P] * 2 + [_I] * 5 + [_P],
+    "mcq_probe_reduce": [_P] * 2 + [_I] * 4 + [_P],
+    "mcq_probe_prng": [_P] + [_I] * 5 + [_P],
 }
 # Shared memory one block may opt into on the H100 (sm_90).
 SMEM_PER_BLOCK = 232448

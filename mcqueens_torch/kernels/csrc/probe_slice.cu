@@ -1,0 +1,230 @@
+// Dynamic-slice, reduction and PRNG-draw probes for Hopper (sm_90a).
+//
+// Replace the TPU Pallas kernels of tools/probe_slice.py:
+//   slice copy  dyn_sublane_load: rows [off, off + w) of x (S, C); and
+//               dyn_sublane_store: a copy of x with `value` in those rows.
+//               off is one int32 word in device memory that the kernel
+//               reads, as the TPU kernel reads its offset from SMEM.
+//   slice loop  dyn_slice_loop_cost: from x, step t adds t + 1 to rows
+//               [(16 t) mod S, + w), in place.
+//   reduce      sublane_reduce_cost: acc (1, C) from zeros, n_iter times
+//               acc = sum over the S rows of (x + acc).
+//   PRNG draws  prng_cost: the wrapping sum of n_iter draws per word.  The
+//               TPU's hardware generator has no stream to match, so this
+//               times the generators the port's kernels draw from: mode 0
+//               w0 + w1 of lowbias32 step_words(chain_streams(seed + e),
+//               step0 + t) (mcqueens_torch/kernels/prng.py), mode 1
+//               random_bits(fold_in(key(seed), step0 + t))[e] of threefry
+//               (threefry.cuh).
+// Plain-torch twins: mcqueens_torch/kernels/probes_mem.py:*_reference.
+//
+// What bounds them on the H100.  The slice copy is one pass over device
+// memory.  The slice loop and the reduce run out of shared memory: per
+// (row, step) the loop loads and stores a word there and adds, the reduce
+// loads a word and does two adds; shared memory serves 32 banks x 4 bytes
+// per SM per clock, which binds before the int32 pipes.  The PRNG draws are
+// int32 issue: 39 operations per lowbias32 draw and 75 per threefry draw as
+// the reference functions write them, and one word written per element.
+//
+// Design.  The slice copy is one thread per output word.  The slice loop is
+// one thread per column, 32 columns a block, the block's (S, 32) strip in
+// shared memory: each thread owns its column, so the threads never wait for
+// each other, and each step loads, adds and stores its w rows (a runtime
+// count) at a runtime offset.  The reduce is one thread per column, 128
+// columns a block, x's (S, 128) strip in shared memory; each step walks the
+// S rows.  LLVM would rewrite sum(x_s + acc) as sum(x_s) + S * acc and hoist
+// sum(x_s) out of the step loop, so each x_s is tied to acc through a
+// runtime zero (the wrapper passes 0): x_s ^ (acc & zero) is x_s, one LOP3,
+// and every step really walks the rows.  The PRNG kernel is one thread per
+// word, its draw loop over a runtime n_iter.  Every count, offset and width
+// is a runtime argument; all arithmetic is uint32_t.  The strips' fill and
+// drain unroll 8 rows, so each thread keeps 8 loads in flight (one at a time
+// left the fill at 7 warps per SM latency-bound, a fixed cost as large as
+// 500 steps of the loop), and the step loops unroll 16: the hot loop stays
+// the largest loop of its kernel, the one the smoke test's SASS check reads.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "threefry.cuh"
+
+namespace {
+
+constexpr int kCopyThreads = 256;
+constexpr int kLoopCols = 32;
+constexpr int kReduceCols = 128;
+constexpr int kPrngThreads = 128;
+
+__global__ void __launch_bounds__(kCopyThreads) slice_probe_kernel(
+    const int32_t* __restrict__ x, const int32_t* __restrict__ off_word,
+    int32_t* __restrict__ out, int C, int width, int n_out, int store,
+    int value) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_out) return;
+  const long long off = *off_word;
+  if (store) {
+    const long long r = e / C;
+    out[e] = (r >= off && r < off + width) ? value : x[e];
+  } else {
+    out[e] = x[off * C + e];
+  }
+}
+
+__global__ void __launch_bounds__(kLoopCols) slice_loop_probe_kernel(
+    const int32_t* __restrict__ x, int32_t* __restrict__ out, int S, int C,
+    int width, int n_iter, int stride) {
+  extern __shared__ uint32_t strip[];  // (S, kLoopCols)
+  const int lane = threadIdx.x;
+  const int c = blockIdx.x * kLoopCols + lane;
+  const bool live = c < C;
+#pragma unroll 8
+  for (int r = 0; r < S; ++r) {
+    strip[r * kLoopCols + lane] =
+        live ? (uint32_t)x[(long long)r * C + c] : 0u;
+  }
+  uint32_t acc = 1;
+  int off = 0;
+  for (int t = 0; t < n_iter; ++t) {
+    uint32_t* p = strip + off * kLoopCols + lane;
+#pragma unroll 16
+    for (int i = 0; i < width; ++i) p[i * kLoopCols] += acc;
+    acc += 1u;
+    off += stride;
+    if (off >= S) off -= S;
+  }
+  if (live) {
+#pragma unroll 8
+    for (int r = 0; r < S; ++r) {
+      out[(long long)r * C + c] = (int32_t)strip[r * kLoopCols + lane];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kReduceCols) reduce_probe_kernel(
+    const int32_t* __restrict__ x, int32_t* __restrict__ out, int S, int C,
+    int n_iter, uint32_t zero) {
+  extern __shared__ uint32_t xs[];  // (S, kReduceCols)
+  const int lane = threadIdx.x;
+  const int c = blockIdx.x * kReduceCols + lane;
+  const bool live = c < C;
+#pragma unroll 8
+  for (int r = 0; r < S; ++r) {
+    xs[r * kReduceCols + lane] =
+        live ? (uint32_t)x[(long long)r * C + c] : 0u;
+  }
+  uint32_t acc = 0;
+  for (int t = 0; t < n_iter; ++t) {
+    const uint32_t tie = acc & zero;
+    uint32_t s = 0;
+#pragma unroll 16
+    for (int r = 0; r < S; ++r) s += (xs[r * kReduceCols + lane] ^ tie) + acc;
+    acc = s;
+  }
+  if (live) out[c] = (int32_t)acc;
+}
+
+// mcqueens_torch/kernels/prng.py, in uint32_t (logical shifts need no mask).
+constexpr uint32_t kM1 = 0x7FEB352Du, kM2 = 0x846CA68Bu;
+constexpr uint32_t kStepK = 0x9E3779B9u, kChainK = 0x85EBCA6Bu;
+constexpr uint32_t kW0K = 0x68BC21EBu, kW1K = 0x02E5BE93u;
+
+__device__ __forceinline__ uint32_t lowbias32(uint32_t z) {
+  z ^= z >> 16;
+  z *= kM1;
+  z ^= z >> 15;
+  z *= kM2;
+  return z ^ (z >> 16);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kPrngThreads) prng_probe_kernel(
+    int32_t* __restrict__ out, int n, int n_iter, uint32_t seed,
+    uint32_t step0) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  uint32_t acc = 0;
+  if (MODE == 0) {
+    const uint32_t s = seed + (uint32_t)e;
+    const uint32_t g = s * kChainK + lowbias32(s);
+#pragma unroll 1
+    for (int t = 0; t < n_iter; ++t) {
+      const uint32_t base = lowbias32(g ^ ((step0 + (uint32_t)t) * kStepK));
+      const uint32_t w0 = lowbias32(base ^ kW0K) & 0x7FFFFFFFu;
+      const uint32_t w1 = lowbias32(base + kW1K);
+      acc += w0 + w1;
+    }
+  } else {
+    const mcq::Key root = {0u, seed};
+#pragma unroll 1
+    for (int t = 0; t < n_iter; ++t) {
+      const mcq::Key k = mcq::hash(root, step0 + (uint32_t)t);
+      const mcq::Key b = mcq::hash(k, (uint32_t)e);
+      acc += b.k0 ^ b.k1;
+    }
+  }
+  out[e] = (int32_t)acc;
+}
+
+int set_smem(const void* kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+}  // namespace
+
+// The slice copy on `stream`: x (S, C) int32; off_word one int32 device word
+// with 0 <= off and off + width <= S (the wrapper checks).  store 0: out is
+// (width, C), the rows [off, off + width); store 1: out is (S, C), x with
+// `value` in those rows.  n_out is out's element count.
+extern "C" int mcq_probe_slice(const void* x, const void* off_word,
+                               void* out, int C, int width, int n_out,
+                               int store, int value, void* stream) {
+  const int blocks = (n_out + kCopyThreads - 1) / kCopyThreads;
+  slice_probe_kernel<<<blocks, kCopyThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x, (const int32_t*)off_word, (int32_t*)out, C, width,
+      n_out, store, value);
+  return (int)cudaGetLastError();
+}
+
+// The slice loop on `stream`: x, out (S, C) int32; stride = 16 mod S; every
+// offset a step reaches plus width stays within S (the wrapper checks);
+// S * 32 words of shared memory per block.
+extern "C" int mcq_probe_slice_loop(const void* x, void* out, int S, int C,
+                                    int width, int n_iter, int stride,
+                                    void* stream) {
+  const int smem = S * kLoopCols * (int)sizeof(uint32_t);
+  const int err = set_smem((const void*)slice_loop_probe_kernel, smem);
+  if (err != 0) return err;
+  const int blocks = (C + kLoopCols - 1) / kLoopCols;
+  slice_loop_probe_kernel<<<blocks, kLoopCols, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)x, (int32_t*)out, S, C, width, n_iter, stride);
+  return (int)cudaGetLastError();
+}
+
+// The reduce on `stream`: x (S, C) int32, out (1, C); zero must be 0;
+// S * 128 words of shared memory per block.
+extern "C" int mcq_probe_reduce(const void* x, void* out, int S, int C,
+                                int n_iter, int zero, void* stream) {
+  const int smem = S * kReduceCols * (int)sizeof(uint32_t);
+  const int err = set_smem((const void*)reduce_probe_kernel, smem);
+  if (err != 0) return err;
+  const int blocks = (C + kReduceCols - 1) / kReduceCols;
+  reduce_probe_kernel<<<blocks, kReduceCols, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)x, (int32_t*)out, S, C, n_iter, (uint32_t)zero);
+  return (int)cudaGetLastError();
+}
+
+// The PRNG draws on `stream`: out holds n int32 words; mode 0 lowbias32,
+// 1 threefry; returns cudaErrorInvalidValue for another mode.
+extern "C" int mcq_probe_prng(void* out, int n, int mode, int n_iter,
+                              int seed, int step0, void* stream) {
+  const int blocks = (n + kPrngThreads - 1) / kPrngThreads;
+  const cudaStream_t s = (cudaStream_t)stream;
+  int32_t* o = (int32_t*)out;
+  switch (mode) {
+    case 0: prng_probe_kernel<0><<<blocks, kPrngThreads, 0, s>>>(o, n, n_iter, (uint32_t)seed, (uint32_t)step0); break;
+    case 1: prng_probe_kernel<1><<<blocks, kPrngThreads, 0, s>>>(o, n, n_iter, (uint32_t)seed, (uint32_t)step0); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -88,8 +88,9 @@ def _check_rows(name: str, x: torch.Tensor) -> None:
                          f"2^31 elements, got shape {tuple(x.shape)}")
 
 
-def _launch(key: str, fn, *args) -> None:
-    """Call entry point ``fn`` on the current stream; count the launch."""
+def _launch(key: str, fn, *args, counts: dict = LAUNCHES) -> None:
+    """Call entry point ``fn`` on the current stream; count the launch in
+    ``counts[key]``."""
     dev = args[0].device
     ptrs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
             else a for a in args]
@@ -99,7 +100,7 @@ def _launch(key: str, fn, *args) -> None:
     if err != 0:
         raise RuntimeError(f"probe kernel '{key}' launch failed "
                            f"(cudaError {err})")
-    LAUNCHES[key] += 1
+    counts[key] += 1
 
 
 def _lib():

@@ -7,13 +7,17 @@
   * :mod:`.probe_full3d_alternatives`: the attack test's three forms
     (kernel B), int32 multiply against add (kernel C), one-hot scoring;
   * :mod:`.probe_swar_sweep`: both attack tests inside the production
-    sweep's structure (kernel D).
+    sweep's structure (kernel D);
+  * :mod:`.probe_gather`: the dynamic gather's forms and costs, and an int32
+    add pass (``kernels/probes_mem.py``);
+  * :mod:`.probe_slice`: dynamic row slices, pass costs, a row reduction
+    and the port's PRNG draws (``kernels/probes_mem.py``).
 
 Each runs on the card unless given ``--device cpu`` (the kernels' plain
 twins; no number of such a run is a device measurement) and writes its
 JSON under ``artifacts/h100/``, with the card's name and power limit.  The
 TPU's files in ``artifacts/`` are never read or written.  This module holds
-what the four share: timing, the card's description and the output paths.
+what they share: timing, the card's description and the output paths.
 """
 
 from __future__ import annotations
@@ -43,6 +47,10 @@ INT32_LANES_PER_SM = 64
 INT32_ISSUE_LANES_PER_SM = 2 * INT32_LANES_PER_SM
 ALU_WIDTH = TIMING_THREADS // ALU_ROWS
 SWEEP_WIDTH = TIMING_THREADS
+# Words a one-pass probe (a gather, a slice copy) moves at its card-filling
+# shape: 16 per timing thread, 69 MB an array, past the 50 MB L2, so the
+# launch is a small share of the time.
+ONE_PASS_WORDS = 16 * TIMING_THREADS
 
 
 def device(name) -> torch.device:
@@ -78,6 +86,34 @@ def elapsed_s(fn, dev: torch.device, reps: int = 1) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) / reps
+
+
+def probe(results: dict, name: str, fn) -> None:
+    """One probe of the gather and slice tools, as their JAX tools' ``probe``
+    runs it: print ``PROBE <name>: OK <result>  [<s>s]`` or ``FAIL
+    <error>``, and record it in ``results[name]``.  ``fn`` returns its
+    result text, or (text, a dict of numbers)."""
+    t0 = time.time()
+    try:
+        out = fn()
+        text, numbers = out if isinstance(out, tuple) else (out, {})
+        dt = time.time() - t0
+        print(f"PROBE {name}: OK {text}  [{dt:.1f}s]", flush=True)
+        results[name] = {"status": "OK", "result": text, "seconds": dt,
+                         **numbers}
+    except Exception as e:  # noqa: BLE001
+        dt = time.time() - t0
+        msg = " | ".join(str(e).split("\n")[:3])[:300]
+        print(f"PROBE {name}: FAIL {type(e).__name__}: {msg}  [{dt:.1f}s]",
+              flush=True)
+        results[name] = {"status": "FAIL",
+                         "result": f"{type(e).__name__}: {msg}",
+                         "seconds": dt}
+
+
+def ns_per_1024(seconds: float, words: int) -> float:
+    """Nanoseconds per 1024 words (the TPU tools' per-VREG unit)."""
+    return seconds * 1e9 / (words / 1024)
 
 
 def nvidia_smi(query: str) -> str:

@@ -291,6 +291,9 @@ def test_port_never_imports_jax():
         "import mcqueens_torch.tools.probe_full3d_cap\n"
         "import mcqueens_torch.tools.probe_full3d_alternatives\n"
         "import mcqueens_torch.tools.probe_swar_sweep\n"
+        "import mcqueens_torch.kernels.probes_mem\n"
+        "import mcqueens_torch.tools.probe_gather\n"
+        "import mcqueens_torch.tools.probe_slice\n"
         "bad = sorted(m for m in set(sys.modules) - before if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib')) or m.startswith('mcqueens.') "
         "or m == 'tools' or m.startswith('tools.'))\n"
