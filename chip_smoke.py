@@ -20,20 +20,21 @@ and the script exits non-zero without printing a result:
    issue at least half as many int32 instructions per evaluation as the
    TPU source has operations; the time under twice the trip count (must be
    1.8-2.2x).  Each probe's bound counts the TPU source's operations.
-   Then the gather and slice tools' kernels (``kernels/probes_mem.py``:
-   the gather and the gather chain, ``csrc/probe_gather.cu``; the slice
-   copy in load and store mode, the slice loop, the reduce and the PRNG
-   draws in both generators, ``csrc/probe_slice.cu``; kernel A with every
-   doubling in its inner loop, one chain and eight) against their twins,
-   bitwise, through the public wrappers: the JAX tools' parity shapes with
+   The gather and slice tools' kernels (``kernels/probes_mem.py``: the
+   gather and the gather chain, ``csrc/probe_gather.cu``; the slice copy in
+   load and store mode, the slice loop, the reduce and the PRNG draws in
+   both generators, ``csrc/probe_slice.cu``; kernel A with every doubling
+   in its inner loop, one chain and eight) go through the same checks, one
+   table (``PROBES``) driving all of them: the JAX tools' parity shapes with
    their own inputs, random words with ragged tiles and every gather-chain
-   instance, and the tools' card-filling shapes; one shape of each timed on
-   the card alone (a spin kernel ahead of the launches, so no launch waits
-   for the host), and beside it torch.gather, narrow_copy and index_fill
-   where one call computes the same words.  The loop kernels' SASS is
-   checked as above (a shared-memory kernel's hot loop is its largest loop
-   that touches no device memory) and their time under twice n_iter.  A
-   bound adds shared-memory bytes (32 banks x 4 B per SM per clock) to
+   instance, and the tools' card-filling shapes; the one-pass gather and
+   slice copy have no loop, so no SASS check and no scaling, and are timed
+   beside torch.gather, narrow_copy and index_fill, which compute the same
+   words.  Every probe is checked through its public wrapper and timed
+   through its launcher on the card alone (a spin kernel ahead of the
+   launches, so no launch waits for the host).  A shared-memory kernel's
+   hot loop is its largest loop that touches no device memory.  A bound
+   adds shared-memory bytes (32 banks x 4 B per SM per clock) to
    device-memory bytes and int32 operations.
 3. kernel vs twin: one launch through each CUDA kernel and one through its
    plain-torch twin (``segment_reference``), both on the card from the same
@@ -107,9 +108,10 @@ and the script exits non-zero without printing a result:
    below the constants the bounds divide by.
 
 Then one JSON line describing the kernels (the six, the board kernel's
-freeze mode on a row of its own, the four probes and the gather and slice
-tools' ten rows, which with their "sites" account for all eleven
-``pallas_call`` sites of those tools; every probe must run at no more than
+freeze mode on a row of its own, and thirteen probe rows: kernel A's split
+between the roofline and the gather and slice tools' three sites, the PRNG
+kernel's by generator; their "sites" account for all fifteen
+``pallas_call`` sites of the tools; every probe must run at no more than
 1.05 of its bound, and none faster than the shared-memory rate), the
 ``nvidia-smi`` name/power line, and last ``{"ok": true, "device":
 {...}}``.
@@ -186,77 +188,6 @@ FREEZE_ROW = dict(name="board_shared_kernel (freeze mode)",
                   source="mcqueens_torch/kernels/csrc/board_shared.cu",
                   replaces="mcqueens/kernels/board_shared.py:176")
 SCAN = (board_chain, full3d_chain)
-# The measurement tools' probe kernels: wrapper key -> row, and the CUDA
-# function each launches.
-PROBES = {
-    "vpu": dict(name="vpu_probe_kernel",
-                source="mcqueens_torch/kernels/csrc/probe_alu.cu",
-                replaces="tools/roofline.py:100"),
-    "test": dict(name="test_probe_kernel",
-                 source="mcqueens_torch/kernels/csrc/probe_attack.cu",
-                 replaces="tools/probe_full3d_alternatives.py:74"),
-    "op": dict(name="op_probe_kernel",
-               source="mcqueens_torch/kernels/csrc/probe_alu.cu",
-               replaces="tools/probe_full3d_alternatives.py:194"),
-    "sweep": dict(name="sweep_probe_kernel",
-                  source="mcqueens_torch/kernels/csrc/probe_attack.cu",
-                  replaces="tools/probe_swar_sweep.py:119"),
-}
-PROBE_FUNCS = {key: row["name"] for key, row in PROBES.items()}
-# The gather and slice tools' kernels (kernels/probes_mem.py): launch count
-# key -> row; "sites" lists every pallas_call site a row stands for.  Kernel
-# A serves three sites through probes_mem's own counts.
-_GATHER_CU = "mcqueens_torch/kernels/csrc/probe_gather.cu"
-_SLICE_CU = "mcqueens_torch/kernels/csrc/probe_slice.cu"
-MEM_PROBES = {
-    "gather": dict(name="gather_probe_kernel", source=_GATHER_CU,
-                   replaces="tools/probe_gather.py:41",
-                   sites=["tools/probe_gather.py:41",
-                          "tools/probe_gather.py:60"]),
-    "gather_chain": dict(name="gather_chain_probe_kernel", source=_GATHER_CU,
-                         replaces="tools/probe_gather.py:84",
-                         sites=["tools/probe_gather.py:84"]),
-    "pass": dict(name="vpu_probe_kernel (one chain: add and pass costs)",
-                 source=PROBES["vpu"]["source"],
-                 replaces="tools/probe_gather.py:114",
-                 sites=["tools/probe_gather.py:114",
-                        "tools/probe_slice.py:129"]),
-    "ind_pass": dict(name="vpu_probe_kernel (8 chains: independent passes)",
-                     source=PROBES["vpu"]["source"],
-                     replaces="tools/probe_slice.py:149",
-                     sites=["tools/probe_slice.py:149"]),
-    "slice_load": dict(name="slice_probe_kernel (load)", source=_SLICE_CU,
-                       replaces="tools/probe_slice.py:46",
-                       sites=["tools/probe_slice.py:46"]),
-    "slice_store": dict(name="slice_probe_kernel (store)", source=_SLICE_CU,
-                        replaces="tools/probe_slice.py:70",
-                        sites=["tools/probe_slice.py:70"]),
-    "slice_loop": dict(name="slice_loop_probe_kernel", source=_SLICE_CU,
-                       replaces="tools/probe_slice.py:105",
-                       sites=["tools/probe_slice.py:105"]),
-    "reduce": dict(name="reduce_probe_kernel", source=_SLICE_CU,
-                   replaces="tools/probe_slice.py:174",
-                   sites=["tools/probe_slice.py:174"]),
-    "prng_lowbias32": dict(name="prng_probe_kernel (lowbias32)",
-                           source=_SLICE_CU,
-                           replaces="tools/probe_slice.py:194",
-                           sites=["tools/probe_slice.py:194"]),
-    "prng_threefry": dict(name="prng_probe_kernel (threefry)",
-                          source=_SLICE_CU,
-                          replaces="tools/probe_slice.py:194",
-                          sites=["tools/probe_slice.py:194"]),
-}
-# CUDA functions of those kernels (kernel A's is PROBE_FUNCS["vpu"]); the
-# loop kernels' hot loops are checked like A-D's.
-MEM_FUNCS = {"gather": "gather_probe_kernel",
-             "gather_chain": "gather_chain_probe_kernel",
-             "slice": "slice_probe_kernel",
-             "slice_loop": "slice_loop_probe_kernel",
-             "reduce": "reduce_probe_kernel", "prng": "prng_probe_kernel"}
-LOOP_FUNCS = {**PROBE_FUNCS, **{k: MEM_FUNCS[k] for k in (
-    "gather_chain", "slice_loop", "reduce", "prng")}}
-# Probe kernels whose ptxas lines are summed over their template instances.
-TEMPLATED = {*PROBE_FUNCS.values(), *MEM_FUNCS.values()}
 REPO = os.path.dirname(os.path.abspath(__file__))
 # The per-chain samplers keep their state chains major, (C, n_bins) bins.
 PER_CHAIN = (metropolis_pallas, full3d_pallas)
@@ -1367,17 +1298,20 @@ LOOP_EVALS = {"vpu": lambda t: 16 * t[0], "test": lambda t: t[0],
 #     a load and a store); the offset and acc + 1 are per step, not per word.
 #   reduce (probe_slice.py:174) per (row word, step) x + acc and the sum: 2.
 #   PRNG draws (probe_slice.py:194, the port's generators as
-#     mcqueens/kernels/prng.py and core/rng.py write them): lowbias32 39
-#     (g ^ step*K, three lowbias32 of 11 with their masked shifts, the ^ W0,
-#     + W1, & 0x7FFFFFFF, w0 + w1 and the accumulate); threefry 75 (one
-#     threefry2x32 of 73, the x0 ^ x1 and the accumulate; the step's
+#     mcqueens/kernels/prng.py and core/rng.py write them), counted as the
+#     uint32 operations they need, as THREEFRY_OPS counts a rotate as one
+#     funnel shift: lowbias32 30 (g ^ step*K, three lowbias32 of 8, three
+#     shift-xor pairs and two products, the ^ W0, + W1, & 0x7FFFFFFF, w0 +
+#     w1 and the accumulate; the & masks of prng.py's _shr stand in for a
+#     logical shift that int32 jnp lacks, and are not counted); threefry 75
+#     (one threefry2x32 of 73, the x0 ^ x1 and the accumulate; the step's
 #     fold_in is once per step for the whole array).
 PROBE_OPS = {"vpu": {None: 1}, "op": {None: 2},
              "test": {"production": 23, "nomul": 28, "swar": 103},
              "sweep": {"production": 22, "swar": 105},
              "gather_chain": {None: 2}, "slice_loop": {None: 1},
              "reduce": {None: 2},
-             "prng": {"lowbias32": 39, "threefry": 75}}
+             "prng": {"lowbias32": 30, "threefry": 75}}
 # SASS that issues no int32 arithmetic: branches and barriers, loads and
 # stores, and the uniform datapath (one per warp: the loop's scalars).
 NOT_INT32 = ("BRA", "EXIT", "NOP", "BSSY", "BSYNC", "BAR", "WARPSYNC", "LD",
@@ -1398,29 +1332,24 @@ def instance_kind(key, targs):
 
 def probe_instances():
     """Every (CUDA function, template arguments) the entry points launch."""
-    f = PROBE_FUNCS
+    f = LOOP_FUNCS
     return ([(f["vpu"], (k,)) for k in probes.VPU_KS]
             + [(f["test"], (k, i)) for k in probes.TEST_KS
                for i in range(len(probes.TEST_KINDS))]
             + [(f["op"], (k, i)) for k in probes.OP_KS
                for i in range(len(probes.OPS))]
             + [(f["sweep"], (i,)) for i in range(len(probes.SWEEP_KINDS))]
-            + [(MEM_FUNCS["gather_chain"], (e,)) for e in probes_mem.CHAIN_ES]
-            + [(MEM_FUNCS["slice_loop"], ()), (MEM_FUNCS["reduce"], ())]
-            + [(MEM_FUNCS["prng"], (i,))
-               for i in range(len(probes_mem.PRNG_MODES))])
-
-
-# Kernels that keep their working set in shared memory: their hot loop is
-# the largest innermost loop that touches no device memory (the strips'
-# fill and drain are loops too, with 8 global loads or stores a trip).
-SMEM_LOOP_KEYS = ("gather_chain", "slice_loop", "reduce")
+            + [(f["gather_chain"], (e,)) for e in probes_mem.CHAIN_ES]
+            + [(f["slice_loop"], ()), (f["reduce"], ())]
+            + [(f["prng"], (i,)) for i in range(len(probes_mem.PRNG_MODES))])
 
 
 def hot_candidates(key, loops):
-    """The innermost loops of one kernel instance that may be its hot
-    loop."""
-    if key not in SMEM_LOOP_KEYS:
+    """The innermost loops of one kernel instance that may be its hot loop:
+    in a kernel that keeps its working set in shared memory, the loops that
+    touch no device memory (the strips' fill and drain are loops too, with
+    8 global loads or stores a trip)."""
+    if key not in SMEM_LOOPS:
         return loops
     return [c for c in loops if not (c["LDG"] or c["STG"])]
 
@@ -1452,16 +1381,6 @@ def check_sass(loops):
             raise AssertionError(f"{name}<{targs}>: {per:.3f} int32 "
                                  f"instructions per evaluation, under half "
                                  f"the source's {need}: the loop was cut")
-
-
-def probe_work(key, row):
-    """(int32 operations, bytes) of a probe launch: its evaluations times
-    the TPU source's operations per evaluation; each input word read once,
-    each output word written once."""
-    inputs, kw = row["inputs"], row["kw"]
-    words = sum(t.numel() for t in inputs) + (
-        inputs[0].shape[1] if key == "sweep" else inputs[0].numel())
-    return row["evals"] * PROBE_OPS[key][kw.get("kind")], 4 * words
 
 
 def probe_cases(rs):
@@ -1553,94 +1472,7 @@ def probe_evals(key, inputs, kw):
     return n * kw["n_chunks"] * probes.SWEEP_TARGETS
 
 
-def probe_call(key, reference, inputs, kw):
-    fn = {"vpu": (probes.vpu_doubling, probes.vpu_doubling_reference),
-          "test": (probes.attack_test, probes.attack_test_reference),
-          "op": (probes.op_chain, probes.op_chain_reference),
-          "sweep": (probes.sweep, probes.sweep_reference)}[key][reference]
-    kw = dict(kw)
-    pos = [kw.pop(a) for a in ("independent", "kind", "op") if a in kw]
-    return fn(*inputs, *pos, **kw)
-
-
-def probe_compare(rs):
-    """Each probe kernel against its twin on the card, bitwise (any
-    difference raises); returns {key: result at the row's timing shape}."""
-    saved = dict(probes.LAUNCHES)
-    rows = {}
-    for key, label, inputs, kw, timing in probe_cases(rs):
-        got = probe_call(key, False, inputs, kw)
-        box = []  # the twin runs once: timed, and its words compared
-        t_ms = cuda_ms(lambda: box.append(probe_call(key, True, inputs, kw)))
-        want = box[0]
-        if not torch.equal(got, want):
-            err = int((got.long() - want.long()).abs().max())
-            raise AssertionError(f"probe kernel != twin on {label}: "
-                                 f"{int((got != want).sum())} words differ, "
-                                 f"max abs err {err}")
-        line = f"{label}: kernel == twin ({got.numel()} words)"
-        if timing:
-            k_ms = cuda_ms(lambda: probe_call(key, False, inputs, kw), reps=3)
-            rows[key] = dict(label=label, kernel_ms=k_ms, twin_ms=t_ms,
-                             evals=probe_evals(key, inputs, kw), kw=kw,
-                             inputs=inputs)
-            line += f"; kernel {k_ms:.4f} ms, twin {t_ms:.1f} ms"
-        phase("probes", line)
-    probes.LAUNCHES.update(saved)
-    return rows
-
-
-def probe_scaling(rows):
-    """Time each probe at its timing shape with its trip count and with
-    twice it: the ratio must lie in [1.8, 2.2], else the compiler cut the
-    loop."""
-    trip = {"vpu": "n_iter", "test": "n_iter", "op": "n_iter",
-            "sweep": "n_chunks"}
-    saved = dict(probes.LAUNCHES)
-    for key, row in rows.items():
-        kw1 = dict(row["kw"])
-        kw2 = dict(kw1, **{trip[key]: 2 * kw1[trip[key]]})
-        probe_call(key, False, row["inputs"], kw2)
-        t1 = cuda_ms(lambda: probe_call(key, False, row["inputs"], kw1),
-                     reps=3)
-        t2 = cuda_ms(lambda: probe_call(key, False, row["inputs"], kw2),
-                     reps=3)
-        row["scaling"] = t2 / t1
-        phase("probes", f"{row['label']}: {trip[key]} x2 -> time x"
-              f"{t2 / t1:.3f} ({t1:.4f} -> {t2:.4f} ms)")
-        if not 1.8 <= t2 / t1 <= 2.2:
-            raise AssertionError(f"{row['label']}: time scales x{t2 / t1:.3f}"
-                                 f" under 2x {trip[key]}, not 1.8-2.2")
-    probes.LAUNCHES.update(saved)
-
-
 # -- the gather and slice tools' kernels (kernels/probes_mem.py) -------------
-
-# key -> (public wrapper, kernel launcher, plain twin).
-MEM_CALLS = {
-    "gather": (probes_mem.gather, probes_mem.gather_cuda,
-               probes_mem.gather_reference),
-    "gather_chain": (probes_mem.gather_chain, probes_mem.gather_chain_cuda,
-                     probes_mem.gather_chain_reference),
-    "pass": (probes_mem.doubling_pass, probes_mem.doubling_pass_cuda,
-             probes_mem.doubling_pass_reference),
-    "ind_pass": (probes_mem.independent_passes,
-                 probes_mem.independent_passes_cuda,
-                 probes_mem.independent_passes_reference),
-    "slice_load": (probes_mem.slice_load, probes_mem.slice_load_cuda,
-                   probes_mem.slice_load_reference),
-    "slice_store": (probes_mem.slice_store, probes_mem.slice_store_cuda,
-                    probes_mem.slice_store_reference),
-    "slice_loop": (probes_mem.slice_loop, probes_mem.slice_loop_cuda,
-                   probes_mem.slice_loop_reference),
-    "reduce": (probes_mem.sublane_reduce, probes_mem.sublane_reduce_cuda,
-               probes_mem.sublane_reduce_reference),
-    "prng_lowbias32": (probes_mem.prng_draws, probes_mem.prng_draws_cuda,
-                       probes_mem.prng_draws_reference),
-    "prng_threefry": (probes_mem.prng_draws, probes_mem.prng_draws_cuda,
-                      probes_mem.prng_draws_reference),
-}
-
 
 def mem_cases(rs):
     """(key, label, inputs, keywords, timing shape?) of the gather and
@@ -1676,6 +1508,11 @@ def mem_cases(rs):
 
     def off(o):
         return torch.tensor([o], dtype=torch.int32, device="cuda")
+
+    def passes(independent, n):
+        # kernel A as the tools call it: every doubling in its inner loop
+        return dict(independent=independent, n_iter=1,
+                    k=8 if independent else 1, inner=n)
 
     cases = []
     for S, L, axis in ((8, 128, 1), (8, 256, 1), (64, 128, 1), (256, 512, 1),
@@ -1721,22 +1558,22 @@ def mem_cases(rs):
         ("gather_chain", f"gather chain (256,{T // 8}) axis 0 n_iter=512",
          (arange(256, T // 8) % 7, big_index(256, (256, T // 8)), 0),
          dict(n_iter=512), False),
-        ("pass", "5d add cost (256,1024) n_iter=2048", (ones(256, 1024),),
-         dict(n_iter=2048), False),
-        ("pass", "5h pass cost (1,1024) n_iter=8192", (ones(1, 1024),),
-         dict(n_iter=8192), False),
-        ("pass", "5h pass cost (1024,256) n_iter=8192", (ones(1024, 256),),
-         dict(n_iter=8192), False),
-        ("pass", "pass random (8,1024) n_iter=7", (rand(8, 1024),),
-         dict(n_iter=7), False),
-        ("pass", f"pass cost (8,{W}) n_iter=8192", (ones(8, W),),
-         dict(n_iter=8192), True),
-        ("ind_pass", "5i ind pass cost (64,1024) n_iter=2048",
-         (ones(64, 1024),), dict(n_iter=2048, k=8), False),
-        ("ind_pass", "ind pass random (8,1024) n_iter=3", (rand(8, 1024),),
-         dict(n_iter=3, k=8), False),
-        ("ind_pass", f"ind pass cost (8,{W}) n_iter=2048", (ones(8, W),),
-         dict(n_iter=2048, k=8), True),
+        ("vpu_mem", "5d add cost (256,1024) n_iter=2048", (ones(256, 1024),),
+         passes(False, 2048), False),
+        ("vpu_mem", "5h pass cost (1,1024) n_iter=8192", (ones(1, 1024),),
+         passes(False, 8192), False),
+        ("vpu_mem", "5h pass cost (1024,256) n_iter=8192",
+         (ones(1024, 256),), passes(False, 8192), False),
+        ("vpu_mem", "pass random (8,1024) n_iter=7", (rand(8, 1024),),
+         passes(False, 7), False),
+        ("vpu_mem", f"pass cost (8,{W}) n_iter=8192", (ones(8, W),),
+         passes(False, 8192), True),
+        ("vpu_mem", "5i ind pass cost (64,1024) n_iter=2048",
+         (ones(64, 1024),), passes(True, 2048), False),
+        ("vpu_mem", "ind pass random (8,1024) n_iter=3", (rand(8, 1024),),
+         passes(True, 3), False),
+        ("vpu_mem", f"ind pass cost (8,{W}) n_iter=2048", (ones(8, W),),
+         passes(True, 2048), False),
     ]
     for S, o in ((256, 16), (256, 8), (256, 12), (496, 240)):
         cases.append(("slice_load", f"5e slice load ({S},1024) w16 off{o}",
@@ -1778,62 +1615,195 @@ def mem_cases(rs):
     return cases
 
 
-def mem_work(key, inputs, kw):
-    """(int32 operations, device-memory bytes, shared-memory bytes) of one
-    launch of a gather or slice kernel, counted from the TPU source: each
-    input word read once (the gather: each distinct gathered word), each
-    output word written once; the shared-memory kernels' loaded and stored
-    words there (the strip's fill and drain included)."""
-    n_it = kw.get("n_iter", 0)
-    if key in ("prng_lowbias32", "prng_threefry"):
-        n = math.prod(inputs[0])
-        per = PROBE_OPS["prng"][inputs[1]]
-        ops = per * n * n_it + (THREEFRY_OPS * n_it if key.endswith(
-            "threefry") else 0)
-        return ops, 4 * n, 0
-    x = inputs[0]
-    words = x.numel()
-    if key == "gather":
-        idx, axis = inputs[1], inputs[2]
-        need = int(torch.unique(probes_mem._flat_index(
-            idx, x.shape[1], axis)).numel())
-        return idx.numel(), 4 * (need + 2 * idx.numel()), 0
-    if key == "gather_chain":
-        return (2 * words * n_it, 12 * words, 8 * words * n_it + 4 * words)
-    if key == "pass":
-        return words * n_it, 8 * words, 0
-    if key == "ind_pass":
-        return words * kw["k"] * n_it, 8 * words, 0
+# -- the probe table -----------------------------------------------------------
+
+def alu_work(ops):
+    """Work of kernels A-D: evaluations times the TPU source's operations
+    per evaluation; each input word read once, each output word written
+    once (D writes one row)."""
+    def work(inputs, kw):
+        out = inputs[0].shape[1] if ops == "sweep" else inputs[0].numel()
+        words = sum(t.numel() for t in inputs) + out
+        return (probe_evals(ops, inputs, kw) * PROBE_OPS[ops][kw.get("kind")],
+                4 * words, 0)
+    return work
+
+
+# The gather and slice kernels' work, counted from the TPU source: each
+# input word read once (the gather: each distinct gathered word), each
+# output word written once; the shared-memory kernels' loaded and stored
+# words there (the strip's fill and drain included).
+
+def gather_work(inputs, kw):
+    x, idx, axis = inputs
+    need = int(torch.unique(probes_mem._flat_index(idx, x.shape[1],
+                                                   axis)).numel())
+    return idx.numel(), 4 * (need + 2 * idx.numel()), 0
+
+
+def chain_work(inputs, kw):
+    words, n = inputs[0].numel(), kw["n_iter"]
+    return 2 * words * n, 12 * words, 8 * words * n + 4 * words
+
+
+def load_work(inputs, kw):
+    x, _, width = inputs
+    return 0, 4 * (2 * width * x.shape[1] + 1), 0
+
+
+def store_work(inputs, kw):
+    x, _, width = inputs
     S, C = x.shape
-    width = inputs[-1] if key != "reduce" else 0
-    if key == "slice_load":
-        return 0, 4 * (2 * width * C + 1), 0
-    if key == "slice_store":
-        return 0, 4 * ((2 * S - width) * C + 1), 0
-    if key == "slice_loop":
-        return (width * C * n_it, 8 * words, 8 * width * C * n_it
-                + 8 * words)
-    return 2 * words * n_it, 4 * (words + C), 4 * words * n_it + 4 * words
+    return 0, 4 * ((2 * S - width) * C + 1), 0
 
 
-def mem_call(key, which, inputs, kw):
-    """Call a gather or slice kernel's public wrapper (0), its launcher
-    (1, no checks) or its twin (2)."""
-    return MEM_CALLS[key][which](*inputs, **kw)
+def loop_work(inputs, kw):
+    x, width = inputs
+    strip, n = width * x.shape[1], kw["n_iter"]
+    return strip * n, 8 * x.numel(), 8 * strip * n + 8 * x.numel()
 
 
-def mem_compare(rs):
-    """Each gather and slice kernel against its twin on the card, bitwise
-    (any difference raises), the result through the public wrapper;
-    returns {key: timing row}: the launcher alone timed on the card alone
-    (the wrappers' index and offset checks read the card back), the twin
-    once."""
-    saved = dict(probes_mem.LAUNCHES), dict(probes.LAUNCHES)
+def reduce_work(inputs, kw):
+    x, n = inputs[0], kw["n_iter"]
+    words = x.numel()
+    return 2 * words * n, 4 * (words + x.shape[1]), 4 * words * (n + 1)
+
+
+def prng_work(inputs, kw):
+    shape, mode = inputs
+    words, n = math.prod(shape), kw["n_iter"]
+    fold_in = THREEFRY_OPS * n if mode == "threefry" else 0
+    return PROBE_OPS["prng"][mode] * words * n + fold_in, 4 * words, 0
+
+
+# One PyTorch call computing a one-pass kernel's words on the same inputs:
+# torch.gather (its index widened to int64 outside the timing), narrow_copy,
+# index_fill.  No PyTorch call computes a probe's loop.
+
+def gather_library(inputs):
+    x, idx, axis = inputs
+    idx64 = idx.long()
+    return lambda: torch.gather(x, axis, idx64)
+
+
+def load_library(inputs):
+    x, off, width = inputs
+    o = int(off[0])
+    return lambda: torch.narrow_copy(x, 0, o, width)
+
+
+def store_library(inputs):
+    x, off, width = inputs
+    rows = torch.arange(int(off[0]), int(off[0]) + width, device=x.device)
+    return lambda: x.index_fill(0, rows, 7)
+
+
+def probe_row(name, source, replaces, calls, work, *, ops=None,
+              trip="n_iter", sites=None, smem=False, library=None):
+    """One probe row of the kernels line.  ``calls``: (public wrapper,
+    launcher, plain twin); ``work(inputs, kw)``: (int32 operations,
+    device-memory bytes, shared-memory bytes) of a launch; ``ops``: the
+    PROBE_OPS and LOOP_EVALS key of its hot loop, None for a one-pass kernel
+    (no loop: no SASS check, no scaling); ``trip``: the trip count the
+    scaling check doubles; ``sites``: every pallas_call site the row stands
+    for; ``smem``: the hot loop works out of shared memory; ``library``:
+    inputs -> one PyTorch call computing the same words, or None."""
+    return dict(name=name, func=name.split(" ")[0], source=source,
+                replaces=replaces, sites=sites or [replaces], calls=calls,
+                work=work, ops=ops, trip=trip, smem=smem, library=library)
+
+
+_ALU_CU = "mcqueens_torch/kernels/csrc/probe_alu.cu"
+_ATTACK_CU = "mcqueens_torch/kernels/csrc/probe_attack.cu"
+_GATHER_CU = "mcqueens_torch/kernels/csrc/probe_gather.cu"
+_SLICE_CU = "mcqueens_torch/kernels/csrc/probe_slice.cu"
+_A = (probes.vpu_doubling, probes.vpu_doubling_cuda,
+      probes.vpu_doubling_reference)
+_PRNG = (probes_mem.prng_draws, probes_mem.prng_draws_cuda,
+         probes_mem.prng_draws_reference)
+_SLICE = "tools/probe_slice.py"
+# The measurement tools' probe kernels, keyed by launch count: kernel A's
+# launches are split between the roofline ("vpu") and the gather and slice
+# tools ("vpu_mem"), the PRNG kernel's by generator.
+PROBES = {
+    "vpu": probe_row("vpu_probe_kernel", _ALU_CU, "tools/roofline.py:100", _A,
+                     alu_work("vpu"), ops="vpu"),
+    "test": probe_row(
+        "test_probe_kernel", _ATTACK_CU,
+        "tools/probe_full3d_alternatives.py:74",
+        (probes.attack_test, probes.attack_test_cuda,
+         probes.attack_test_reference), alu_work("test"), ops="test"),
+    "op": probe_row(
+        "op_probe_kernel", _ALU_CU, "tools/probe_full3d_alternatives.py:194",
+        (probes.op_chain, probes.op_chain_cuda, probes.op_chain_reference),
+        alu_work("op"), ops="op"),
+    "sweep": probe_row(
+        "sweep_probe_kernel", _ATTACK_CU, "tools/probe_swar_sweep.py:119",
+        (probes.sweep, probes.sweep_cuda, probes.sweep_reference),
+        alu_work("sweep"), ops="sweep", trip="n_chunks"),
+    "gather": probe_row(
+        "gather_probe_kernel", _GATHER_CU, "tools/probe_gather.py:41",
+        (probes_mem.gather, probes_mem.gather_cuda,
+         probes_mem.gather_reference), gather_work,
+        sites=["tools/probe_gather.py:41", "tools/probe_gather.py:60"],
+        library=gather_library),
+    "gather_chain": probe_row(
+        "gather_chain_probe_kernel", _GATHER_CU, "tools/probe_gather.py:84",
+        (probes_mem.gather_chain, probes_mem.gather_chain_cuda,
+         probes_mem.gather_chain_reference), chain_work, ops="gather_chain",
+        smem=True),
+    "vpu_mem": probe_row(
+        "vpu_probe_kernel (add, pass and independent pass costs)", _ALU_CU,
+        "tools/probe_gather.py:114", _A, alu_work("vpu"), ops="vpu",
+        trip="inner", sites=["tools/probe_gather.py:114", f"{_SLICE}:129",
+                             f"{_SLICE}:149"]),
+    "slice_load": probe_row(
+        "slice_probe_kernel (load)", _SLICE_CU, f"{_SLICE}:46",
+        (probes_mem.slice_load, probes_mem.slice_load_cuda,
+         probes_mem.slice_load_reference), load_work, library=load_library),
+    "slice_store": probe_row(
+        "slice_probe_kernel (store)", _SLICE_CU, f"{_SLICE}:70",
+        (probes_mem.slice_store, probes_mem.slice_store_cuda,
+         probes_mem.slice_store_reference), store_work,
+        library=store_library),
+    "slice_loop": probe_row(
+        "slice_loop_probe_kernel", _SLICE_CU, f"{_SLICE}:105",
+        (probes_mem.slice_loop, probes_mem.slice_loop_cuda,
+         probes_mem.slice_loop_reference), loop_work, ops="slice_loop",
+        smem=True),
+    "reduce": probe_row(
+        "reduce_probe_kernel", _SLICE_CU, f"{_SLICE}:174",
+        (probes_mem.sublane_reduce, probes_mem.sublane_reduce_cuda,
+         probes_mem.sublane_reduce_reference), reduce_work, ops="reduce",
+        smem=True),
+    "prng_lowbias32": probe_row(
+        "prng_probe_kernel (lowbias32)", _SLICE_CU, f"{_SLICE}:194", _PRNG,
+        prng_work, ops="prng"),
+    "prng_threefry": probe_row(
+        "prng_probe_kernel (threefry)", _SLICE_CU, f"{_SLICE}:194", _PRNG,
+        prng_work, ops="prng"),
+}
+# The CUDA function of each hot loop, the loops that work out of shared
+# memory, and every probe kernel (its ptxas lines are summed over its
+# template instances).
+LOOP_FUNCS = {row["ops"]: row["func"] for row in PROBES.values()
+              if row["ops"]}
+SMEM_LOOPS = {row["ops"] for row in PROBES.values() if row["smem"]}
+PROBE_FUNCS = sorted({row["func"] for row in PROBES.values()})
+
+
+def probe_compare(cases):
+    """Each probe kernel against its twin on the card, bitwise (any
+    difference raises), the result through the public wrapper; returns
+    {key: timing row}: the launcher alone timed on the card alone (the
+    gather and slice wrappers' checks read the card back), the twin once."""
+    saved = dict(probes.LAUNCHES), dict(probes_mem.LAUNCHES)
     rows = {}
-    for key, label, inputs, kw, timing in mem_cases(rs):
-        got = mem_call(key, 0, inputs, kw)
-        box = []
-        t_ms = cuda_ms(lambda: box.append(mem_call(key, 2, inputs, kw)))
+    for key, label, inputs, kw, timing in cases:
+        wrapper, launcher, twin = PROBES[key]["calls"]
+        got = wrapper(*inputs, **kw)
+        box = []  # the twin runs once: timed, and its words compared
+        t_ms = cuda_ms(lambda: box.append(twin(*inputs, **kw)))
         want = box[0]
         if not torch.equal(got, want):
             err = int((got.long() - want.long()).abs().max())
@@ -1842,127 +1812,110 @@ def mem_compare(rs):
                                  f"max abs err {err}")
         line = f"{label}: kernel == twin ({got.numel()} words)"
         if timing:
-            k_ms = device_ms(lambda: mem_call(key, 1, inputs, kw))
+            k_ms = device_ms(lambda: launcher(*inputs, **kw))
             rows[key] = dict(label=label, kernel_ms=k_ms, twin_ms=t_ms,
-                             kw=kw, inputs=inputs,
-                             work=mem_work(key, inputs, kw))
+                             kw=kw, inputs=inputs)
             line += f"; kernel {k_ms:.4f} ms, twin {t_ms:.1f} ms"
         phase("probes", line)
-    probes_mem.LAUNCHES.update(saved[0])
-    probes.LAUNCHES.update(saved[1])
+    probes.LAUNCHES.update(saved[0])
+    probes_mem.LAUNCHES.update(saved[1])
     return rows
 
 
-# The one-pass kernels have no hot loop: no SASS check, no 2x scaling.
-MEM_LOOPS = ("gather_chain", "pass", "ind_pass", "slice_loop", "reduce",
-             "prng_lowbias32", "prng_threefry")
-
-
-def mem_scaling(rows):
-    """Each loop kernel at its timing shape under its trip count and twice
-    it: the time must scale 1.8-2.2x."""
-    saved = dict(probes_mem.LAUNCHES), dict(probes.LAUNCHES)
-    for key in MEM_LOOPS:
-        row = rows[key]
+def probe_scaling(rows):
+    """Time each loop kernel at its timing shape with its trip count and
+    with twice it: the ratio must lie in [1.8, 2.2], else the compiler cut
+    the loop."""
+    saved = dict(probes.LAUNCHES), dict(probes_mem.LAUNCHES)
+    for key, row in rows.items():
+        meta = PROBES[key]
+        if meta["ops"] is None:
+            continue
+        launcher, trip, inputs = meta["calls"][1], meta["trip"], row["inputs"]
         kw1 = dict(row["kw"])
-        kw2 = dict(kw1, n_iter=2 * kw1["n_iter"])
-        mem_call(key, 1, row["inputs"], kw2)
-        t1 = device_ms(lambda: mem_call(key, 1, row["inputs"], kw1), reps=3)
-        t2 = device_ms(lambda: mem_call(key, 1, row["inputs"], kw2), reps=3)
+        kw2 = dict(kw1, **{trip: 2 * kw1[trip]})
+        launcher(*inputs, **kw2)
+        t1 = device_ms(lambda: launcher(*inputs, **kw1), reps=3)
+        t2 = device_ms(lambda: launcher(*inputs, **kw2), reps=3)
         row["scaling"] = t2 / t1
-        phase("probes", f"{row['label']}: n_iter x2 -> time x{t2 / t1:.3f} "
+        phase("probes", f"{row['label']}: {trip} x2 -> time x{t2 / t1:.3f} "
               f"({t1:.4f} -> {t2:.4f} ms)")
         if not 1.8 <= t2 / t1 <= 2.2:
             raise AssertionError(f"{row['label']}: time scales x{t2 / t1:.3f}"
-                                 f" under 2x n_iter, not 1.8-2.2")
-    probes_mem.LAUNCHES.update(saved[0])
-    probes.LAUNCHES.update(saved[1])
+                                 f" under 2x {trip}, not 1.8-2.2")
+    probes.LAUNCHES.update(saved[0])
+    probes_mem.LAUNCHES.update(saved[1])
 
 
-def mem_kernel_rows(mem_rows, launches, bounds):
-    """The kernels line's rows of the gather and slice kernels: each must
-    run at no more than 1.05 of its bound, and none may move shared-memory
-    bytes faster than the bound's shared-memory rate."""
-    rows = []
-    for key, meta in MEM_PROBES.items():
-        row = mem_rows[key]
-        bound_ms, bound_by = bounds.of(*row["work"])
+def probe_library_ms(key, row):
+    """The row's library call timed on its inputs, after checking it gives
+    the kernel's words; None where no PyTorch call computes them."""
+    meta = PROBES[key]
+    if meta["library"] is None:
+        return None
+    fn = meta["library"](row["inputs"])
+    if not torch.equal(fn(), meta["calls"][1](*row["inputs"], **row["kw"])):
+        raise AssertionError(f"the library call of {key} disagrees")
+    return device_ms(fn)
+
+
+def probe_kernel_rows(rows, launches, bounds):
+    """The kernels line's probe rows: each probe must run at no more than
+    1.05 of its bound, and none may move shared-memory bytes faster than
+    the bound's shared-memory rate."""
+    out = []
+    for key, meta in PROBES.items():
+        row = rows[key]
+        work = row["work"]
+        bound_ms, bound_by = bounds.of(*work)
         share = bound_ms / row["kernel_ms"]
-        terms = ", ".join(f"{k} {v:.4f} ms" for k, v in
-                          bounds.terms(*row["work"]).items())
-        phase("bound", f"{meta['name']} on '{row['label']}': "
-              f"{row['work'][0]:.4e} int32 ops, {row['work'][1]:.4e} bytes, "
-              f"{row['work'][2]:.4e} shared-memory bytes -> {terms}; bound "
-              f"{bound_ms:.4f} ms ({bound_by}) = {share:.3f} of the "
-              f"kernel's {row['kernel_ms']:.4f} ms")
+        terms = ", ".join(f"{k} {v:.4f} ms"
+                          for k, v in bounds.terms(*work).items())
+        phase("bound", f"{meta['name']} on '{row['label']}': {work[0]:.4e} "
+              f"int32 ops, {work[1]:.4e} bytes, {work[2]:.4e} shared-memory "
+              f"bytes -> {terms}; bound {bound_ms:.4f} ms ({bound_by}) = "
+              f"{share:.3f} of the kernel's {row['kernel_ms']:.4f} ms")
         if share > 1.05:
             raise AssertionError(f"{meta['name']} ran at {share:.3f} of its "
                                  f"bound: work was cut")
-        smem_rate = row["work"][2] / (row["kernel_ms"] / 1e3)
+        smem_rate = work[2] / (row["kernel_ms"] / 1e3)
         if smem_rate > bounds.smem_bytes_per_s:
             raise AssertionError(
                 f"{meta['name']} moved {smem_rate:.4e} shared-memory B/s, "
                 f"above the bound's {bounds.smem_bytes_per_s:.4e}")
-        rows.append({**meta, "route": "cuda", "launches": launches[key],
-                     "max_abs_err": 0, "ms": row["kernel_ms"],
-                     "plain_ms": row["twin_ms"], "bound_ms": bound_ms,
-                     "bound_by": bound_by,
-                     # torch.gather, narrow_copy and index_fill compute the
-                     # one-pass kernels; no PyTorch call computes a loop.
-                     "library_ms": row["library_ms"]})
-    return rows
-
-
-def mem_library_ms(key, row):
-    """One PyTorch call computing the same function on the row's inputs,
-    timed, where there is one (None otherwise): torch.gather (its index
-    widened to int64 outside the timing), narrow_copy, index_fill."""
-    inputs = row["inputs"]
-    if key == "gather":
-        x, idx, axis = inputs
-        idx64 = idx.long()
-        fn = lambda: torch.gather(x, axis, idx64)  # noqa: E731
-    elif key in ("slice_load", "slice_store"):
-        x, off, width = inputs
-        o = int(off[0])
-        rows = torch.arange(o, o + width, device="cuda")
-        fn = ((lambda: torch.narrow_copy(x, 0, o, width))
-              if key == "slice_load" else (lambda: x.index_fill(0, rows, 7)))
-    else:
-        return None
-    want = mem_call(key, 1, inputs, row["kw"])
-    if not torch.equal(fn(), want):
-        raise AssertionError(f"the library call of {key} disagrees")
-    return device_ms(fn)
+        out.append({**{k: meta[k] for k in ("name", "source", "replaces",
+                                             "sites")},
+                    "route": "cuda", "launches": launches[key],
+                    "max_abs_err": 0, "ms": row["kernel_ms"],
+                    "plain_ms": row["twin_ms"], "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": row["library_ms"]})
+    return out
 
 
 TOOLS = (probe_full3d_cap, probe_full3d_alternatives, probe_swar_sweep,
          roofline, probe_gather, probe_slice)
 # Probe launches of the tools' --quick runs: a warm-up launch and the timed
 # reps of each point (roofline: 2 variants x 4 reps; alternatives: 3 kinds
-# x 2 k x 3 reps, 2 ops x 4 reps; swar sweep: 2 kinds x 3 reps at Q=256;
-# kernel A also through the gather tool's 2 add costs and the slice tool's
-# 6 pass and 3 independent pass costs, 1 + 2 reps each).
-TOOL_LAUNCHES = {"vpu": 2 * (1 + 4) + (2 + 6 + 3) * (1 + 2),
-                 "test": 3 * 2 * (1 + 3), "op": 2 * (1 + 4),
-                 "sweep": 2 * (1 + 3)}
+# x 2 k x 3 reps, 2 ops x 4 reps; swar sweep: 2 kinds x 3 reps at Q=256).
 # The gather tool: 13 gathers (10 of the JAX tool, 3 filling the card), 2
 # add and 5 gather-chain costs; the slice tool: 5 loads and 2 stores, and 2
-# slice loops, 6 + 3 passes, 2 reduces and 3 draws of each generator timed;
+# slice loops, 6 + 3 passes, 2 reduces and 3 draws of each generator timed,
 # each timed point a warm-up launch and 2 reps.
-MEM_TOOL_LAUNCHES = {"gather": 13, "gather_chain": 5 * 3,
-                     "pass": (2 + 6) * 3, "ind_pass": 3 * 3,
-                     "slice_load": 5, "slice_store": 2, "slice_loop": 2 * 3,
-                     "reduce": 2 * 3, "prng_lowbias32": 3 * 3,
-                     "prng_threefry": 3 * 3}
+TOOL_LAUNCHES = {"vpu": 2 * (1 + 4), "test": 3 * 2 * (1 + 3),
+                 "op": 2 * (1 + 4), "sweep": 2 * (1 + 3),
+                 "gather": 13, "gather_chain": 5 * 3,
+                 "vpu_mem": (2 + 6 + 3) * 3, "slice_load": 5,
+                 "slice_store": 2, "slice_loop": 2 * 3, "reduce": 2 * 3,
+                 "prng_lowbias32": 3 * 3, "prng_threefry": 3 * 3}
 
 
 def tools_slice():
     """Each ported tool's ``main(["--quick", "--json", tmp])`` on the card
     (the alternatives and the swar sweep read the cap probe's fit of this
     run), the probe launch counts zeroed just before and read just after;
-    prints each JSON.  Returns the launches."""
-    outs = {}
+    prints each JSON.  Returns the launches, kernel A's split into the
+    roofline's and the gather and slice tools'."""
+    outs, a_before = {}, None
     with tempfile.TemporaryDirectory() as d:
         cap = os.path.join(d, "probe_full3d_cap.json")
         zero_launches()
@@ -1971,6 +1924,8 @@ def tools_slice():
             path = os.path.join(d, f"{name}.json")
             extra = ["--cap", cap] if mod in (probe_full3d_alternatives,
                                              probe_swar_sweep) else []
+            if mod is probe_gather:
+                a_before = probes.LAUNCHES["vpu"]
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 rc = mod.main(["--quick", "--json", path] + extra)
@@ -1991,10 +1946,11 @@ def tools_slice():
                   if v["status"] != "OK" or v["result"].startswith("WRONG")]
         if failed:
             raise AssertionError(f"{name}: probes not OK: {failed}")
-    got = {**probes.LAUNCHES, **probes_mem.LAUNCHES}
-    if got != {**TOOL_LAUNCHES, **MEM_TOOL_LAUNCHES}:
+    got = {**probes.LAUNCHES, **probes_mem.LAUNCHES, "vpu": a_before,
+           "vpu_mem": probes.LAUNCHES["vpu"] - a_before}
+    if got != TOOL_LAUNCHES:
         raise AssertionError(f"tools: probe launches {got}, expected "
-                             f"{TOOL_LAUNCHES} and {MEM_TOOL_LAUNCHES}")
+                             f"{TOOL_LAUNCHES}")
     return got, outs
 
 
@@ -2040,14 +1996,13 @@ def main():
               f"{_build.library_path().name} from "
               f"{len(_build.SOURCES)} sources in {build_s:.2f} s")
         log = _build.library_path().with_suffix(".log")
-        names = [k["name"] for k in KERNELS.values()] + list(
-            PROBE_FUNCS.values()) + list(MEM_FUNCS.values())
+        names = [k["name"] for k in KERNELS.values()] + PROBE_FUNCS
         kernel = None
         regs, spills = collections.defaultdict(list), collections.Counter()
         for ln in (log.read_text().splitlines() if log.exists() else []):
             if "Compiling entry function" in ln:
                 kernel = next(n for n in names if mangled(n) in ln)
-            elif kernel in TEMPLATED:
+            elif kernel in PROBE_FUNCS:
                 # one line per template instance: summarised below
                 regs[kernel] += map(int, re.findall(r"Used (\d+) reg", ln))
                 spills[kernel] += sum(map(int, re.findall(
@@ -2064,17 +2019,15 @@ def main():
     # 3a. the probe kernels vs their twins --------------------------------
     with timed("compare probes"):
         check_sass(sass_loops())
-        probe_rows = probe_compare(np.random.default_rng(11))
+        probe_rows = probe_compare(probe_cases(np.random.default_rng(11))
+                                   + mem_cases(np.random.default_rng(13)))
         probe_scaling(probe_rows)
         for key, row in probe_rows.items():
-            row["work"] = probe_work(key, row)
+            row["work"] = PROBES[key]["work"](row["inputs"], row["kw"])
             phase("probes", f"{row['label']}: "
                   f"{row['work'][0] / row['kernel_ms'] * 1e3:.4e} int32 "
                   f"ops/s as the TPU source counts them")
-        mem_rows = mem_compare(np.random.default_rng(13))
-        mem_scaling(mem_rows)
-        for key, row in mem_rows.items():
-            row["library_ms"] = mem_library_ms(key, row)
+            row["library_ms"] = probe_library_ms(key, row)
             if row["library_ms"] is not None:
                 phase("probes", f"{row['label']}: library call "
                       f"{row['library_ms']:.4f} ms, kernel "
@@ -2411,24 +2364,7 @@ def main():
             "bound_by": bound_by,
             "library_ms": None,
         })
-    for key, row in probe_rows.items():
-        bound_ms, bound_by = bounds.of(*row["work"])
-        share = bound_ms / row["kernel_ms"]
-        phase("bound", f"{PROBES[key]['name']} on '{row['label']}': "
-              f"{row['work'][0]:.4e} int32 ops, "
-              f"{row['work'][1]:.4e} bytes -> bound {bound_ms:.4f} ms "
-              f"({bound_by}) = {share:.3f} of the kernel's "
-              f"{row['kernel_ms']:.4f} ms")
-        if share > 1.05:
-            raise AssertionError(f"{PROBES[key]['name']} ran at {share:.3f} "
-                                 f"of its bound: the loop was cut")
-        rows.append({**PROBES[key], "route": "cuda",
-                     "launches": tool_launches[key], "max_abs_err": 0,
-                     "ms": row["kernel_ms"], "plain_ms": row["twin_ms"],
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     # No PyTorch call computes a probe's loop.
-                     "library_ms": None})
-    rows += mem_kernel_rows(mem_rows, tool_launches, bounds)
+    rows += probe_kernel_rows(probe_rows, tool_launches, bounds)
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} "
           f"s")
     print(json.dumps({"kernels": rows}))

@@ -1,19 +1,15 @@
 """The gather and slice probes' kernels, port of the Pallas kernels of
 ``tools/probe_gather.py`` and ``tools/probe_slice.py``.
 
-Six hand-written CUDA kernels and kernel A of :mod:`.probes` serve the
-eleven TPU kernels; each function computes, word for word, what its TPU
-kernel body computes, in int32 wrap-around arithmetic:
+Six hand-written CUDA kernels serve eight of the eleven TPU kernels; each
+function computes, word for word, what its TPU kernel body computes, in
+int32 wrap-around arithmetic:
 
   * :func:`gather` (``csrc/probe_gather.cu``) replaces ``gather_correct``
     and ``gather_narrow_idx``: ``take_along_axis(x, idx, axis)``;
   * :func:`gather_chain` (``csrc/probe_gather.cu``) replaces
     ``gather_cost``: ``n_iter`` times ``acc = take_along_axis(acc, idx,
     axis) + 1`` from ``acc = x``;
-  * :func:`doubling_pass` (kernel A, one chain) replaces ``add_cost`` and
-    ``pass_cost``: ``n_iter`` doublings; :func:`independent_passes` (kernel
-    A, ``k`` chains) replaces ``independent_pass_cost``: ``k`` chains
-    ``x + i``, each doubled ``n_iter`` times, summed;
   * :func:`slice_load` and :func:`slice_store` (``csrc/probe_slice.cu``)
     replace ``dyn_sublane_load`` and ``dyn_sublane_store``: rows ``[off, off
     + width)`` of ``x``, or ``x`` with ``value`` written there, the offset
@@ -39,12 +35,16 @@ kernel body computes, in int32 wrap-around arithmetic:
 
     7 and 9 being the TPU kernel's ``prng_seed(7, 9)``.
 
+The other three, ``add_cost``, ``pass_cost`` and ``independent_pass_cost``,
+compute kernel A's function: the tools call :func:`.probes.vpu_doubling`
+with every doubling in its unrolled inner loop (``n_iter=1, inner=n``).
+
 Each wrapper takes the plain-torch twin (``*_reference``) for CPU tensors and
 launches the CUDA kernel (``*_cuda``) for CUDA tensors, with no fallback
-between them, and counts its launches in :data:`LAUNCHES`: the kernel A
-wrappers count there besides kernel A's own count.  The wrappers refuse what
-the JAX tools never make and the kernels do not take: an index outside the
-gathered axis, an offset or width that runs past the rows.  Checking an
+between them, and counts its launches in :data:`LAUNCHES`.  The wrappers
+refuse what the JAX tools never make and the kernels do not take: an index
+outside the gathered axis, an offset or width that runs past the rows.
+Checking an
 index or an offset on the card reads it back, so the checks wait for the
 device; the ``*_cuda`` functions launch without them.
 """
@@ -58,10 +58,10 @@ import torch
 from mcqueens_torch.core import rng
 from mcqueens_torch.kernels import _build, prng, probes, segment
 
-# Launches of each kernel (and of kernel A through this module) in this
-# process, read and reset by callers that check a path ran on the card.
-LAUNCHES = {"gather": 0, "gather_chain": 0, "pass": 0, "ind_pass": 0,
-            "slice_load": 0, "slice_store": 0, "slice_loop": 0, "reduce": 0,
+# Launches of each kernel in this process, read and reset by callers that
+# check a path ran on the card.
+LAUNCHES = {"gather": 0, "gather_chain": 0, "slice_load": 0,
+            "slice_store": 0, "slice_loop": 0, "reduce": 0,
             "prng_lowbias32": 0, "prng_threefry": 0}
 
 CHAIN_THREADS = 256
@@ -186,62 +186,6 @@ def gather_chain(x: torch.Tensor, idx: torch.Tensor, axis: int, *,
     return segment.on_device("gather_chain", x.device,
                              gather_chain_reference, gather_chain_cuda, x,
                              idx, axis, n_iter=n_iter)
-
-
-# -- kernel A: the pass costs -------------------------------------------------
-
-def _a_args(independent: bool, k: int, n_iter: int) -> dict:
-    # All n_iter doublings in kernel A's unrolled inner loop: the loop its
-    # SASS check reads is the one that is timed.
-    return dict(independent=independent, n_iter=1, k=k, inner=n_iter)
-
-
-def doubling_pass_reference(x: torch.Tensor, *, n_iter: int) -> torch.Tensor:
-    """Plain-torch twin of :func:`doubling_pass` (kernel A's)."""
-    return probes.vpu_doubling_reference(x, **_a_args(False, 1, n_iter))
-
-
-def doubling_pass_cuda(x: torch.Tensor, *, n_iter: int) -> torch.Tensor:
-    """Kernel A on the card with one chain (counts the launch here and in
-    kernel A's own count)."""
-    out = probes.vpu_doubling_cuda(x, **_a_args(False, 1, n_iter))
-    LAUNCHES["pass"] += 1
-    return out
-
-
-def doubling_pass(x: torch.Tensor, *, n_iter: int) -> torch.Tensor:
-    """``n_iter`` times ``acc = acc + acc`` from ``acc = x``."""
-    probes._check_rows("x", x)
-    _check_count("n_iter", n_iter)
-    return segment.on_device("doubling_pass", x.device,
-                             doubling_pass_reference, doubling_pass_cuda, x,
-                             n_iter=n_iter)
-
-
-def independent_passes_reference(x: torch.Tensor, *, n_iter: int,
-                                 k: int = 8) -> torch.Tensor:
-    """Plain-torch twin of :func:`independent_passes` (kernel A's)."""
-    return probes.vpu_doubling_reference(x, **_a_args(True, k, n_iter))
-
-
-def independent_passes_cuda(x: torch.Tensor, *, n_iter: int,
-                            k: int = 8) -> torch.Tensor:
-    """Kernel A on the card with ``k`` chains (counts the launch here and
-    in kernel A's own count)."""
-    out = probes.vpu_doubling_cuda(x, **_a_args(True, k, n_iter))
-    LAUNCHES["ind_pass"] += 1
-    return out
-
-
-def independent_passes(x: torch.Tensor, *, n_iter: int,
-                       k: int = 8) -> torch.Tensor:
-    """``k`` chains ``x + i``, each doubled ``n_iter`` times, summed."""
-    probes._check_rows("x", x)
-    probes._check_k(k, probes.VPU_KS)
-    _check_count("n_iter", n_iter)
-    return segment.on_device("independent_passes", x.device,
-                             independent_passes_reference,
-                             independent_passes_cuda, x, n_iter=n_iter, k=k)
 
 
 # -- slice copy ---------------------------------------------------------------

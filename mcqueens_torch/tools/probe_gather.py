@@ -13,7 +13,7 @@ this tool checks each against numpy and times the same chains:
   * :func:`gather_cost`: the gather chain out of shared memory
     (:func:`probes_mem.gather_chain`);
   * :func:`add_cost`: kernel A's dependent doubling chain
-    (:func:`probes_mem.doubling_pass`).
+    (:func:`probes.vpu_doubling`, every doubling in its inner loop).
 
 The JAX tool's shapes, then one that fills the card for each kind (the
 TPU's (8, 128) is eight warps): axis-1 gathers grow rows, axis-0 gathers
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from mcqueens_torch import tools
-from mcqueens_torch.kernels import probes_mem
+from mcqueens_torch.kernels import probes, probes_mem
 
 GATHER_N_ITER = 512
 ADD_N_ITER = 2048
@@ -100,7 +100,7 @@ def add_cost(S, L, n_iter=ADD_N_ITER, *, reps=8, device="cuda"):
     x = torch.ones((S, L), dtype=torch.int32, device=dev)
 
     def run():
-        return probes_mem.doubling_pass(x, n_iter=n_iter)
+        return probes.vpu_doubling(x, False, n_iter=1, k=1, inner=n_iter)
 
     run()
     dt = tools.elapsed_s(run, dev, reps=reps) / n_iter

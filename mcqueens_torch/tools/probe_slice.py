@@ -13,7 +13,8 @@ card, through ``kernels/probes_mem.py``:
   * :func:`dyn_slice_loop_cost`: the slice loop, a dependent load, add and
     store of a (w, C) slice per step, out of shared memory;
   * :func:`pass_cost`, :func:`independent_pass_cost`: kernel A's doubling
-    chains, one chain or ``k``;
+    chains, one chain or ``k`` (:func:`probes.vpu_doubling`, every doubling
+    in its inner loop);
   * :func:`sublane_reduce_cost`: the reduce, (S, C) -> (1, C) per step;
   * :func:`prng_cost`: the PRNG draws.  The TPU kernel draws from the TPU's
     hardware generator; the card has none, and the port's kernels draw from
@@ -39,7 +40,7 @@ import numpy as np
 import torch
 
 from mcqueens_torch import tools
-from mcqueens_torch.kernels import probes_mem
+from mcqueens_torch.kernels import probes, probes_mem
 
 LOOP_N_ITER = 4096
 PASS_N_ITER = 8192
@@ -102,8 +103,8 @@ def pass_cost(S, C, n_iter=PASS_N_ITER, *, reps=8, device="cuda"):
     """Dependent int32 add chain over (S, C): ns per pass."""
     dev = tools.device(device)
     x = torch.ones((S, C), dtype=torch.int32, device=dev)
-    dt = _timed(lambda: probes_mem.doubling_pass(x, n_iter=n_iter), dev,
-                n_iter, reps)
+    dt = _timed(lambda: probes.vpu_doubling(x, False, n_iter=1, k=1,
+                                            inner=n_iter), dev, n_iter, reps)
     per = tools.ns_per_1024(dt, S * C)
     return (f"{dt * 1e9:.1f} ns/pass over ({S},{C}) = {per:.4f} ns per 1024 "
             f"words", {"ns_per_pass": dt * 1e9, "ns_per_1024_words": per,
@@ -115,8 +116,9 @@ def independent_pass_cost(S, C, n_iter=IND_N_ITER, k=8, *, reps=8,
     """k independent add chains over (S, C): ns per pass (throughput)."""
     dev = tools.device(device)
     x = torch.ones((S, C), dtype=torch.int32, device=dev)
-    dt = _timed(lambda: probes_mem.independent_passes(x, n_iter=n_iter, k=k),
-                dev, n_iter * k, reps)
+    dt = _timed(lambda: probes.vpu_doubling(x, True, n_iter=1, k=k,
+                                            inner=n_iter), dev, n_iter * k,
+                reps)
     per = tools.ns_per_1024(dt, S * C)
     return (f"{dt * 1e9:.1f} ns/pass over ({S},{C}) = {per:.4f} ns per 1024 "
             f"words ({k} streams)", {"ns_per_pass": dt * 1e9,

@@ -162,8 +162,8 @@ def test_gather_chain_tiles(S, L, axis, want):
 def test_add_cost_matches_jax(jax_output, S, L, n_iter):
     jg = _jg()
     want = jax_output(jg, jg.add_cost, S, L, n_iter=n_iter)
-    got = probes_mem.doubling_pass(torch.ones((S, L), dtype=torch.int32),
-                                   n_iter=n_iter)
+    got = probes.vpu_doubling(torch.ones((S, L), dtype=torch.int32), False,
+                              n_iter=1, k=1, inner=n_iter)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -172,8 +172,8 @@ def test_add_cost_matches_jax(jax_output, S, L, n_iter):
 def test_pass_cost_matches_jax(jax_output, S, C, n_iter):
     js = _js()
     want = jax_output(js, js.pass_cost, S, C, n_iter=n_iter)
-    got = probes_mem.doubling_pass(torch.ones((S, C), dtype=torch.int32),
-                                   n_iter=n_iter)
+    got = probes.vpu_doubling(torch.ones((S, C), dtype=torch.int32), False,
+                              n_iter=1, k=1, inner=n_iter)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -182,25 +182,27 @@ def test_independent_pass_cost_matches_jax(jax_output, S, C, n_iter, k):
     js = _js()
     want = jax_output(js, js.independent_pass_cost, S, C, n_iter=n_iter,
                       k=k)
-    got = probes_mem.independent_passes(
-        torch.ones((S, C), dtype=torch.int32), n_iter=n_iter, k=k)
+    got = probes.vpu_doubling(torch.ones((S, C), dtype=torch.int32), True,
+                              n_iter=1, k=k, inner=n_iter)
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want == sum((1 + i) << n_iter for i in range(k))).all()
 
 
 def test_pass_wrappers_are_kernel_a():
-    # Random words: the same words as kernel A's twin with every doubling
-    # in its inner loop.
-    x = _t(np.random.default_rng(8).integers(
-        -2 ** 31, 2 ** 31, size=(4, 64)).astype(np.int32))
-    np.testing.assert_array_equal(
-        probes_mem.doubling_pass(x, n_iter=7).numpy(),
-        probes.vpu_doubling_reference(x, False, n_iter=1, k=1,
-                                      inner=7).numpy())
-    np.testing.assert_array_equal(
-        probes_mem.independent_passes(x, n_iter=5).numpy(),
-        probes.vpu_doubling_reference(x, True, n_iter=1, k=8,
-                                      inner=5).numpy())
+    # Random words: kernel A with every doubling in its inner loop (the
+    # tools' split) gives the JAX loops' words, one doubling a step: x << n,
+    # and for k chains the sum of (x + i) << n, mod 2^32.
+    x = np.random.default_rng(8).integers(-2 ** 31, 2 ** 31,
+                                          size=(4, 64)).astype(np.int32)
+    x64 = x.astype(np.int64)
+    for n, k in ((7, 1), (5, 8), (31, 4)):
+        want = sum((x64 + i) << n for i in range(k)) % 2 ** 32
+        got = probes.vpu_doubling(_t(x), k > 1, n_iter=1, k=k, inner=n)
+        np.testing.assert_array_equal(got.numpy().astype(np.int64) % 2 ** 32,
+                                      want)
+        np.testing.assert_array_equal(
+            got.numpy(), probes.vpu_doubling(_t(x), k > 1, n_iter=n, k=k,
+                                             inner=1).numpy())
 
 
 # -- 5e, 5f: the slice copy ---------------------------------------------------
@@ -382,9 +384,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         probes_mem.slice_loop(torch.zeros((2000, 4), dtype=torch.int32), 16,
                               n_iter=1)
     with pytest.raises(ValueError, match="k=3"):
-        probes_mem.independent_passes(x, n_iter=1, k=3)
+        probes.vpu_doubling(x, True, n_iter=1, k=3, inner=1)
     with pytest.raises(ValueError, match="n_iter"):
-        probes_mem.doubling_pass(x, n_iter=-1)
+        probes_mem.gather_chain(x, idx, 1, n_iter=-1)
     with pytest.raises(ValueError, match="mode"):
         probes_mem.prng_draws((2, 4), "philox", n_iter=1, device="cpu")
     # Neither cpu nor cuda: no twin, no kernel.
@@ -400,8 +402,8 @@ def test_twins_count_no_launch():
     off = torch.tensor([2], dtype=torch.int32)
     probes_mem.gather(x, idx, 1)
     probes_mem.gather_chain(x, idx, 1, n_iter=2)
-    probes_mem.doubling_pass(x, n_iter=2)
-    probes_mem.independent_passes(x, n_iter=2)
+    probes.vpu_doubling(x, False, n_iter=1, k=1, inner=2)
+    probes.vpu_doubling(x, True, n_iter=1, k=8, inner=2)
     probes_mem.slice_load(x, off, 4)
     probes_mem.slice_store(x, off, 4)
     probes_mem.slice_loop(x, 4, n_iter=2)
