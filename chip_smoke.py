@@ -30,7 +30,9 @@ and the script exits non-zero without printing a result:
    instance, and the tools' card-filling shapes; the one-pass gather and
    slice copy have no loop, so no SASS check and no scaling, and are timed
    beside torch.gather, narrow_copy and index_fill, which compute the same
-   words.  Every probe is checked through its public wrapper and timed
+   words; the slice copy also at a C that is not a multiple of 4, on a view
+   4 bytes past 16-byte alignment (its int32 path) and at the last legal
+   offset.  Every probe is checked through its public wrapper and timed
    through its launcher on the card alone (a spin kernel ahead of the
    launches, so no launch waits for the host).  A shared-memory kernel's
    hot loop is its largest loop that touches no device memory.  A bound
@@ -62,7 +64,12 @@ and the script exits non-zero without printing a result:
    in both modes (tables and naive) against the twin over a whole segment
    of several chunks, and tables == naive on the card: config.yaml's cells
    (N=12 and N=18, 10 chains, stride 1), N=2 with a stride tail past
-   n_steps, patience, a warm start and wider batches; full-3D: config.yaml's
+   n_steps, patience, a warm start and wider batches; the board kernel
+   draws 32 steps ahead, a warp per chain, so also stops inside a batch,
+   segments of 1, 31 and 33 steps, start_outer > 0 with stride 13, 4099
+   chains, and N=48 (8 chains), whose table stays in device memory while
+   naive keeps its boards in shared memory (each compare line prints the
+   layout of chain/board.py:scan_layout); full-3D: config.yaml's
    beta pairs cell as full_3d (N=12/Q=144, 10 chains, stride 1), N=12/Q=144
    at 4096 chains, N=2/Q=7 with a tail, N=5/Q=13 with patience, N=3/Q=26
    and a warm start.  Each bound counts only the work its launch did: the
@@ -97,8 +104,11 @@ and the script exits non-zero without printing a result:
    of the full-3D kernel at the campaign's (N=15, Q=225, linear 0.8->7 over
    8M steps, 62500-step chunks), each at two chain counts; then the
    per-chain kernels at the same board configuration and at N=15, Q=225
-   with 8192-step chunks; then both scan kernels, in both modes, at 4096
-   chains (board N=16 over 2^24 steps, full-3D N=12/Q=144 over 1M).
+   with 8192-step chunks; then the board scan kernel alone at config.yaml's
+   launch shape (N=12 and 18, 10 chains, stride 1, 100000 steps, from step
+   0 and 900000: microseconds per step); then both scan kernels, in both
+   modes, at 4096 chains (board N=16 over 2^24 steps, full-3D N=12/Q=144
+   over 1M).
 6. the measurement tools: ``main(["--quick", "--json", tmp])`` of
    ``mcqueens_torch.tools.probe_full3d_cap``, ``probe_full3d_alternatives``,
    ``probe_swar_sweep`` (both reading this run's fit), ``roofline``,
@@ -916,6 +926,19 @@ def scan_work(mod, ln):
     return ops, 4 * words + occ_bytes
 
 
+def layout_note(mod, spec, C):
+    """The board scan kernel's layout of a launch (chain/board.py:
+    scan_layout), for the compare lines."""
+    if mod is not board_chain:
+        return ""
+    lay = board_chain.scan_layout(
+        spec.N, spec.kernel, C,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    where = (f"shared memory, {lay.smem_bytes} B a block" if lay.in_shared
+             else "device memory")
+    return f"; {lay.chains_per_block} chains a block in {where}"
+
+
 def warm_starts(mod, spec, C, seed):
     """Random warm starts: boards, or Q distinct cells per placement."""
     rs = np.random.default_rng(seed)
@@ -974,7 +997,7 @@ def scan_compare(mod, name, spec, n_chains, start_outer, n_outer, seed0=0,
               f"ys; {ln.proposals} proposals, {ln.accepted} accepted, "
               f"{ln.improved} chains improved, {int(k_st.done.sum())} "
               f"chains stopped; kernel {kernel_ms:.3f} ms, twin "
-              f"{twin_ms:.1f} ms")
+              f"{twin_ms:.1f} ms{layout_note(mod, sp, n_chains)}")
         out[kern] = dict(err=err, kernel_ms=kernel_ms, twin_ms=twin_ms,
                          st=k_st, ys=yk, spec=sp, work=work,
                          n_chains=n_chains, mod=mod)
@@ -1178,6 +1201,33 @@ def scan_throughput(mod, label, spec, chains, bounds):
               f"{bound_ms / k_ms:.3f} of the kernel's time")
     phase("throughput", "nvidia-smi clocks.sm,power.draw,temperature.gpu: "
           + nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
+
+
+def scan_config_launch(bounds):
+    """The board scan kernel alone at config.yaml's launch shape (10 chains,
+    stride 1, 100000 steps: a tenth of a cell), N=12 and 18, from step 0
+    and from step 900000: microseconds per step."""
+    for N, beta_end in ((12, 3.0), (18, 5.0)):
+        spec = spec_of(N, 10 ** 6, 1, build_schedule(
+            "exponential_annealing", 10 ** 6, beta_start=1.0,
+            beta_end=beta_end), kernel="tables")
+        keys = rng.chain_keys_from_seeds(np.arange(10, dtype=np.uint32),
+                                         "cuda")
+        for start in (0, 900_000):
+            st = board_chain.segment_state(board_chain.init_carry_batch(
+                keys, spec, device="cuda"))
+            beta = chunk_betas(spec.schedule, start, 100_000, "cuda")
+            ys = torch.empty((100_000, 10), dtype=torch.int32, device="cuda")
+            before = snapshot(st, False)
+            k_ms = cuda_ms(lambda: board_chain.segment_cuda(
+                st, ys, start, 100_000, spec, beta))
+            ln = launch_of(spec, before, snapshot(st, False), start,
+                           100_000, n_outer=100_000)
+            bound_ms, bound_by = bounds.of(*scan_work(board_chain, ln))
+            phase("throughput", f"board_scan config.yaml launch N={N} C=10 "
+                  f"100000 steps from step {start}: {k_ms:.3f} ms = "
+                  f"{k_ms * 1e3 / 100_000:.4f} us per step; bound "
+                  f"{bound_ms:.3f} ms ({bound_by})")
 
 
 def throughput(mod, label, spec, chain_counts, bounds):
@@ -1495,6 +1545,11 @@ def mem_cases(rs):
     def rand(S, L):
         return cuda(rs.integers(-2 ** 31, 2 ** 31, (S, L)).astype(np.int32))
 
+    def unaligned(S, L):
+        # a contiguous (S, L) view one word into its buffer
+        return cuda(rs.integers(-2 ** 31, 2 ** 31, S * L + 1).astype(
+            np.int32))[1:].view(S, L)
+
     def index(seed, hi, shape):
         return cuda(np.random.default_rng(seed).integers(0, hi, size=shape,
                                                          dtype=np.int32))
@@ -1587,6 +1642,16 @@ def mem_cases(rs):
          (arange(256, 1024), off(48), 16), {}, False),
         ("slice_store", "slice store random (40,100) w5 off35",
          (rand(40, 100), off(35), 5), {}, False),
+        # int32 rows (C not a multiple of 4; rows not 16-byte aligned) and
+        # the last legal offset
+        ("slice_load", "slice load random (37,1001) w5 off32",
+         (rand(37, 1001), off(32), 5), {}, False),
+        ("slice_store", "slice store random (37,1001) w5 off32",
+         (rand(37, 1001), off(32), 5), {}, False),
+        ("slice_load", "slice load random (24,128) w8 off16, x 4 B past "
+         "16-byte alignment", (unaligned(24, 128), off(16), 8), {}, False),
+        ("slice_store", "slice store random (24,128) w8 off16, x 4 B past "
+         "16-byte alignment", (unaligned(24, 128), off(16), 8), {}, False),
         ("slice_store", f"slice store (256,{W1 // 256}) w16 off48",
          (arange(256, W1 // 256), off(48), 16), {}, True),
         ("slice_loop", "5g slice loop (256,1024) w16 n_iter=4096",
@@ -2157,6 +2222,33 @@ def main():
         ("board_scan N=16 C=4096 warm start",
          spec_of(16, 2 ** 24, 64, lin(2 ** 24, 1.0, 5.0), kernel="tables"),
          4096, 0, 2, 5, True),
+        # The kernel draws 32 steps at a time from each segment's first
+        # step: stops inside a batch, segments of 1, 31 and 33 steps, a
+        # segment from start_outer > 0 with stride > 1, a C that is not a
+        # multiple of the chains per block, and an N whose table stays in
+        # device memory (tables) beside the same N in shared memory (naive).
+        ("board_scan N=5 patience 13 stops inside 32-step batches",
+         spec_of(5, 300, 50, const(300, 50.0), kernel="tables",
+                 early_stop_patience=13), 1024, 0, 6, 5, False),
+        ("board_scan N=12 C=10 one-step segment",
+         spec_of(12, 10 ** 6, 1, build_schedule(
+             "exponential_annealing", 10 ** 6, beta_start=1.0,
+             beta_end=3.0), kernel="tables"), 10, 77, 1, 42, False),
+        ("board_scan N=7 31-step segment",
+         spec_of(7, 1000, 31, lin(1000, 0.5, 3.0), kernel="tables"), 300, 0,
+         1, 1, False),
+        ("board_scan N=7 33-step segment",
+         spec_of(7, 1000, 11, lin(1000, 0.5, 3.0), kernel="tables"), 300, 0,
+         3, 2, False),
+        ("board_scan N=9 start_outer 7 stride 13",
+         spec_of(9, 400, 13, lin(400, 0.5, 3.0), kernel="tables", n_bins=7),
+         300, 7, 5, 4, False),
+        ("board_scan N=16 C=4099 warm start",
+         spec_of(16, 2 ** 24, 64, lin(2 ** 24, 1.0, 5.0), kernel="tables"),
+         4099, 0, 1, 6, True),
+        ("board_scan N=48 C=8 table in device memory",
+         spec_of(48, 10 ** 6, 100, lin(10 ** 6, 1.0, 3.0), kernel="tables"),
+         8, 0, 3, 7, False),
     ]
     scan_full3d_cases = [
         ("full3d_scan config.yaml pairs cell N=12 Q=144 C=10 stride 1",
@@ -2205,6 +2297,24 @@ def main():
                 if "patience" in name and not int(
                         out["tables"]["st"].done.sum()):
                     raise AssertionError(f"{name}: no chain stopped")
+                if "device memory" in name:
+                    n_sm = torch.cuda.get_device_properties(
+                        0).multi_processor_count
+                    shared = {k: board_chain.scan_layout(
+                        spec.N, k, n_chains, n_sm).in_shared
+                        for k in ("tables", "naive")}
+                    if shared != {"tables": False, "naive": True}:
+                        raise AssertionError(f"{name}: layouts {shared}")
+                if "inside 32-step" in name:
+                    st = out["tables"]["st"]
+                    t = st.stop_step[st.done != 0] - start_outer * \
+                        spec.history_stride
+                    inside = int((t % 32 != 31).sum())
+                    if not inside:
+                        raise AssertionError(f"{name}: no stop inside a "
+                                             f"batch")
+                    phase("compare", f"{name}: {inside} of "
+                          f"{int(st.done.sum())} stops inside a batch")
     with timed("compare"):
         for mod, cases in ((board_shared, board_cases),
                            (full3d_shared, full3d_cases),
@@ -2285,6 +2395,7 @@ def main():
                             mcmc_type="full_3d"),
                    (65536, 4096), bounds)
     with timed("throughput board_scan"):
+        scan_config_launch(bounds)
         horizon = 2 ** 24
         scan_throughput(board_chain, "board_scan N=16",
                         spec_of(16, horizon, 16384, lin(horizon, 1.0, 5.0),

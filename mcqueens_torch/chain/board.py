@@ -18,8 +18,9 @@ implementations over the same chains-minor state (:class:`SegmentState`),
 both updating it in place and writing the ``(n_outer, C)`` energy rows:
 
   * :func:`segment_cuda` launches the hand-written CUDA kernel
-    (``kernels/csrc/board_scan.cu``, one thread per chain, one launch per
-    segment) and counts the launch in :data:`KERNEL_LAUNCHES`;
+    (``kernels/csrc/board_scan.cu``, a warp per chain, one launch per
+    segment, its shared-memory layout from :func:`scan_layout`) and counts
+    the launch in :data:`KERNEL_LAUNCHES`;
   * :func:`segment_reference` is its plain-torch twin (vectorised over
     chains, a Python loop over steps).
 
@@ -42,7 +43,7 @@ from mcqueens_torch.core import init as init_mod
 from mcqueens_torch.core import rng
 from mcqueens_torch.core import tables as tables_mod
 from mcqueens_torch.core.schedules import chunk_betas
-from mcqueens_torch.kernels import segment
+from mcqueens_torch.kernels import _build, segment
 
 # Launches of the CUDA kernel in this process (read and reset by callers
 # that check the main path really ran on the card).
@@ -222,6 +223,53 @@ def segment_reference(st: SegmentState, ys: torch.Tensor, start_outer: int,
         getattr(st, name).copy_(val)
 
 
+# Chains (warps) a block of the CUDA kernel holds at most.
+MAX_CHAINS_PER_BLOCK = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanLayout:
+    """How the CUDA kernel lays out a launch: ``chains_per_block`` warps a
+    block, one a chain, and ``smem_bytes`` of shared memory a block, which
+    holds each chain's heights, best heights and (``tables``) table, or 0
+    when they do not fit a block and the kernel walks them in device
+    memory."""
+
+    chains_per_block: int
+    smem_bytes: int
+
+    @property
+    def in_shared(self) -> bool:
+        return self.smem_bytes > 0
+
+
+def scan_layout(N: int, kernel: str, C: int, n_sm: int) -> ScanLayout:
+    """The CUDA kernel's layout for ``C`` chains of board size ``N`` on a
+    card of ``n_sm`` SMs.  A chain's slot is ``2 N^2`` words, plus the
+    table's ``T(N)`` for ``tables``; the slots go to shared memory whenever
+    one fits a block (``tables`` up to N = 42).  Chains per block then
+    maximise the chains resident on an SM (ties to the larger block), and
+    are cut to ``ceil(C / n_sm)`` so that a launch of few chains spreads
+    them over the SMs, one warp an SM when C <= n_sm."""
+    words = 2 * N * N + (tables_mod.table_size(N) if kernel == "tables"
+                         else 0)
+    slot = 4 * words
+    spread = max(1, -(-C // n_sm))
+    if slot > _build.SMEM_PER_BLOCK:
+        return ScanLayout(min(MAX_CHAINS_PER_BLOCK, spread), 0)
+
+    def resident(cpb):  # chains an SM holds: its shared memory, 64 warps
+        blocks = min(_build.SMEM_PER_SM // (
+            cpb * slot + _build.SMEM_RESERVED_PER_BLOCK), 64 // cpb)
+        return cpb * blocks
+
+    fits = range(1, min(MAX_CHAINS_PER_BLOCK,
+                        _build.SMEM_PER_BLOCK // slot) + 1)
+    best = max(fits, key=lambda cpb: (resident(cpb), cpb))
+    cpb = min(best, spread)
+    return ScanLayout(cpb, cpb * slot)
+
+
 def check_steps(start_outer: int, n_outer: int, stride: int) -> None:
     if start_outer < 0 or (start_outer + n_outer) * stride > 2 ** 31 - 1:
         raise ValueError(f"chunks {start_outer}..{start_outer + n_outer} of "
@@ -233,8 +281,6 @@ def segment_cuda(st: SegmentState, ys: torch.Tensor, start_outer: int,
     """The segment with the CUDA kernel (asynchronous on the current
     stream; one launch, counted)."""
     global KERNEL_LAUNCHES
-    from mcqueens_torch.kernels import _build
-
     N, C, nb = spec.N, st.energy.shape[0], spec.n_bins
     NN, stride = N * N, spec.history_stride
     i32 = torch.int32
@@ -260,6 +306,8 @@ def segment_cuda(st: SegmentState, ys: torch.Tensor, start_outer: int,
     check_steps(start_outer, n_outer, stride)
     lib = _build.load_library()
     dev = st.heights.device
+    layout = scan_layout(N, spec.kernel, C, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     ptrs = [ctypes.c_void_p(None if t is None else t.data_ptr()) for t in (
         st.heights, st.best_heights, st.table, st.energy, st.best_energy,
         st.best_step, st.no_improve, st.done, st.stop_step, st.accept_bins,
@@ -269,7 +317,8 @@ def segment_cuda(st: SegmentState, ys: torch.Tensor, start_outer: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mcq_board_scan_segment(
             *ptrs, start_outer, n_outer, stride, N, C, spec.n_steps, nb,
-            -1 if patience is None else patience, ctypes.c_void_p(stream))
+            -1 if patience is None else patience, layout.chains_per_block,
+            layout.smem_bytes, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"board_scan CUDA kernel launch failed "
                            f"(cudaError {err})")

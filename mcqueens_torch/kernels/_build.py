@@ -31,7 +31,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # Entry point -> argument types (pointers, then ints, then the stream).
 ENTRY_POINTS = {
     "mcq_board_shared_segment": [_P] * 14 + [_I] * 9 + [_P],
-    "mcq_board_scan_segment": [_P] * 14 + [_I] * 8 + [_P],
+    "mcq_board_scan_segment": [_P] * 14 + [_I] * 10 + [_P],
     "mcq_full3d_scan_segment": [_P] * 15 + [_I] * 9 + [_P],
     "mcq_full3d_shared_segment": [_P] * 17 + [_I] * 9 + [_P],
     "mcq_metropolis_segment": [_P] * 11 + [_I] * 7 + [_P],
@@ -47,8 +47,11 @@ ENTRY_POINTS = {
     "mcq_probe_reduce": [_P] * 2 + [_I] * 4 + [_P],
     "mcq_probe_prng": [_P] + [_I] * 5 + [_P],
 }
-# Shared memory one block may opt into on the H100 (sm_90).
+# Shared memory one block may opt into on the H100 (sm_90), an SM's
+# shared memory, and what the card reserves of it for each resident block.
 SMEM_PER_BLOCK = 232448
+SMEM_PER_SM = 233472
+SMEM_RESERVED_PER_BLOCK = 1024
 
 
 def check_args(dev, want) -> None:

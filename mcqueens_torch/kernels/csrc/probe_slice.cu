@@ -26,48 +26,135 @@
 // int32 issue: 39 operations per lowbias32 draw and 75 per threefry draw as
 // the reference functions write them, and one word written per element.
 //
-// Design.  The slice copy is one thread per output word.  The slice loop is
-// one thread per column, 32 columns a block, the block's (S, 32) strip in
-// shared memory: each thread owns its column, so the threads never wait for
-// each other, and each step loads, adds and stores its w rows (a runtime
-// count) at a runtime offset.  The reduce is one thread per column, 128
-// columns a block, x's (S, 128) strip in shared memory; each step walks the
-// S rows.  LLVM would rewrite sum(x_s + acc) as sum(x_s) + S * acc and hoist
-// sum(x_s) out of the step loop, so each x_s is tied to acc through a
-// runtime zero (the wrapper passes 0): x_s ^ (acc & zero) is x_s, one LOP3,
-// and every step really walks the rows.  The PRNG kernel is one thread per
-// word, its draw loop over a runtime n_iter.  Every count, offset and width
-// is a runtime argument; all arithmetic is uint32_t.  The strips' fill and
-// drain unroll 8 rows, so each thread keeps 8 loads in flight (one at a time
-// left the fill at 7 warps per SM latency-bound, a fixed cost as large as
-// 500 steps of the loop), and the step loops unroll 16: the hot loop stays
-// the largest loop of its kernel, the one the smoke test's SASS check reads.
+// Design.  The slice copy moves 16 bytes an access (int4) when every row
+// starts 16-byte aligned (C a multiple of 4, both base pointers aligned),
+// else 4, one template each, picked by the launcher from the shape.  A 2-D
+// grid gives each thread columns and rows, so no index is divided; in store
+// mode the stored rows write `value` and never read x, and in load mode the
+// rows, contiguous in x, are one run.  Each thread moves two accesses, both
+// loads in flight before the stores, with streaming (evict-first) loads and
+// stores, as each word is touched once: on the card, fewer threads with
+// longer loops lost to this for the store's 69 MB, and more threads with
+// one access each, or cached accesses, for the load's 4 MB.
+// The slice loop is one thread per column, 32 columns a block, the block's
+// (S, 32) strip in shared memory: each thread owns its column, so the
+// threads never wait for each other, and each step loads, adds and stores
+// its w rows (a runtime count) at a runtime offset.  The reduce is one
+// thread per column, 128 columns a block, x's (S, 128) strip in shared
+// memory; each step walks the S rows.  LLVM would rewrite sum(x_s + acc) as
+// sum(x_s) + S * acc and hoist sum(x_s) out of the step loop, so each x_s is
+// tied to acc through a runtime zero (the wrapper passes 0): x_s ^ (acc &
+// zero) is x_s, one LOP3, and every step really walks the rows.  The PRNG
+// kernel is one thread per word, its draw loop over a runtime n_iter.  Every
+// count, offset and width is a runtime argument; all arithmetic is uint32_t.
+// The strips' fill and drain unroll 8 rows, so each thread keeps 8 loads in
+// flight (one at a time left the fill at 7 warps per SM latency-bound, a
+// fixed cost as large as 500 steps of the loop), and the step loops unroll
+// 16: the hot loop stays the largest loop of its kernel, the one the smoke
+// test's SASS check reads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "threefry.cuh"
 
 namespace {
 
 constexpr int kCopyThreads = 256;
+constexpr int kCopyItems = 2;
 constexpr int kLoopCols = 32;
 constexpr int kReduceCols = 128;
 constexpr int kPrngThreads = 128;
 
-__global__ void __launch_bounds__(kCopyThreads) slice_probe_kernel(
-    const int32_t* __restrict__ x, const int32_t* __restrict__ off_word,
-    int32_t* __restrict__ out, int C, int width, int n_out, int store,
-    int value) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_out) return;
+template <typename V>
+__device__ __forceinline__ V splat(int v);
+template <>
+__device__ __forceinline__ int32_t splat<int32_t>(int v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ int4 splat<int4>(int v) {
+  return make_int4(v, v, v, v);
+}
+
+// V is int4 when every row starts 16-byte aligned, else int32_t.  Threads
+// (x, y) of a 2-D grid walk columns and rows, kCopyItems accesses at a time
+// (both loads before the stores): down the rows of a column, or along a
+// single row.  No index is divided.  Store mode copies x (rows, pitch) with
+// `value` in the rows [off, off + width); load mode copies the one run of
+// `cols` V that the rows [off, off + width) of a contiguous x make, as one
+// row.
+template <typename V>
+__global__ void __launch_bounds__(kCopyThreads)
+    slice_probe_kernel(const V* __restrict__ x,
+                       const int32_t* __restrict__ off_word,
+                       V* __restrict__ out, int pitch, long long cols,
+                       int rows, int width, int store, int value) {
   const long long off = *off_word;
-  if (store) {
-    const long long r = e / C;
-    out[e] = (r >= off && r < off + width) ? value : x[e];
-  } else {
-    out[e] = x[off * C + e];
+  const V* __restrict__ src = store ? x : x + off * pitch;
+  const long long c0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long cstep = (long long)gridDim.x * blockDim.x;
+  const V fill = splat<V>(value);
+  // a stored row writes `value` and does not read x
+  auto filled = [&](long long r) {
+    return store && r >= off && r < off + width;
+  };
+  V v[kCopyItems];
+  if (rows == 1) {
+    const bool f = filled(0);
+    for (long long col = c0; col < cols; col += kCopyItems * cstep) {
+#pragma unroll
+      for (int u = 0; u < kCopyItems; ++u) {
+        const long long cu = col + u * cstep;
+        if (cu < cols) v[u] = f ? fill : __ldcs(src + cu);
+      }
+#pragma unroll
+      for (int u = 0; u < kCopyItems; ++u) {
+        const long long cu = col + u * cstep;
+        if (cu < cols) __stcs(out + cu, v[u]);
+      }
+    }
+    return;
   }
+  const int r0 = blockIdx.y * blockDim.y + threadIdx.y;
+  const int rstep = gridDim.y * blockDim.y;
+  for (long long col = c0; col < cols; col += cstep) {
+    for (long long r = r0; r < rows; r += kCopyItems * rstep) {
+#pragma unroll
+      for (int u = 0; u < kCopyItems; ++u) {
+        const long long ru = r + u * rstep;
+        if (ru < rows) {
+          v[u] = filled(ru) ? fill : __ldcs(src + ru * pitch + col);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kCopyItems; ++u) {
+        const long long ru = r + u * rstep;
+        if (ru < rows) __stcs(out + ru * cols + col, v[u]);
+      }
+    }
+  }
+}
+
+// The slice copy's grid: about kCopyItems accesses a thread, up to
+// kCopyItems rows of a column and the rest along the row.
+template <typename V>
+int launch_slice(const void* x, const void* off_word, void* out, int pitch,
+                 long long cols, int rows, int width, int store, int value,
+                 cudaStream_t s) {
+  const int bx = (int)std::min<long long>(kCopyThreads, (cols + 31) / 32 * 32);
+  const int by = kCopyThreads / bx;
+  const int ky = std::min(kCopyItems, (rows + by - 1) / by);
+  const int kx = std::max(1, kCopyItems / ky);
+  const long long gx = (cols + (long long)bx * kx - 1) / ((long long)bx * kx);
+  const int gy = std::min((rows + by * ky - 1) / (by * ky), 65535);
+  const dim3 grid((unsigned)gx, gy), block(bx, by);
+  slice_probe_kernel<V><<<grid, block, 0, s>>>(
+      (const V*)x, (const int32_t*)off_word, (V*)out, pitch, cols, rows,
+      width, store, value);
+  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kLoopCols) slice_loop_probe_kernel(
@@ -175,15 +262,24 @@ int set_smem(const void* kernel, int bytes) {
 // The slice copy on `stream`: x (S, C) int32; off_word one int32 device word
 // with 0 <= off and off + width <= S (the wrapper checks).  store 0: out is
 // (width, C), the rows [off, off + width); store 1: out is (S, C), x with
-// `value` in those rows.  n_out is out's element count.
+// `value` in those rows.  n_out is out's element count.  Rows move as int4
+// when C is a multiple of 4 and both arrays are 16-byte aligned, else as
+// int32.
 extern "C" int mcq_probe_slice(const void* x, const void* off_word,
                                void* out, int C, int width, int n_out,
                                int store, int value, void* stream) {
-  const int blocks = (n_out + kCopyThreads - 1) / kCopyThreads;
-  slice_probe_kernel<<<blocks, kCopyThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)x, (const int32_t*)off_word, (int32_t*)out, C, width,
-      n_out, store, value);
-  return (int)cudaGetLastError();
+  if (C < 1 || n_out < 1) return (int)cudaErrorInvalidValue;
+  const bool vec = C % 4 == 0 && (uintptr_t)x % 16 == 0 &&
+                   (uintptr_t)out % 16 == 0;
+  const int k = vec ? 4 : 1;
+  const int pitch = C / k;
+  const int rows = store ? n_out / C : 1;
+  const long long cols = store ? pitch : (long long)n_out / k;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return vec ? launch_slice<int4>(x, off_word, out, pitch, cols, rows, width,
+                                  store, value, s)
+             : launch_slice<int32_t>(x, off_word, out, pitch, cols, rows,
+                                     width, store, value, s);
 }
 
 // The slice loop on `stream`: x, out (S, C) int32; stride = 16 mod S; every

@@ -109,6 +109,40 @@ __device__ __forceinline__ void line_indices(int i, int j, int k, int N,
   if (full3d) idx[12] = o8 + 4 * DD + i * N + j;
 }
 
+// Board line family f (0..11) of line_indices as a linear form: its index
+// at cell (i, j, k) is base + ci * i + cj * j + ck * k.  A warp that gives
+// family f to lane f computes both ends of a move from one base + ci * i +
+// cj * j.
+struct LineForm {
+  int base, ci, cj, ck;
+};
+
+__device__ __forceinline__ LineForm line_form(int f, int N) {
+  const int D = 2 * N - 1;
+  const int NN = N * N, ND = N * D, DD = D * D;
+  const int o2 = 2 * NN, o8 = o2 + 6 * ND;
+  switch (f) {
+    case 0: return {0, N, 0, 1};
+    case 1: return {NN, 0, N, 1};
+    case 2: return {o2 + N - 1, 1, -1, D};
+    case 3: return {o2 + ND, 1, 1, D};
+    case 4: return {o2 + 2 * ND + N - 1, 1, D, -1};
+    case 5: return {o2 + 3 * ND, 1, D, 1};
+    case 6: return {o2 + 4 * ND + N - 1, D, 1, -1};
+    case 7: return {o2 + 5 * ND, D, 1, 1};
+    case 8: return {o8 + (N - 1) * D + N - 1, -D - 1, D, 1};
+    case 9: return {o8 + DD + (N - 1) * D, 1 - D, D, 1};
+    case 10: return {o8 + 2 * DD + N - 1, D - 1, D, 1};
+    default: return {o8 + 3 * DD, D + 1, D, 1};  // 11
+  }
+}
+
+// Words of the board count table (the 12 families).
+__host__ __device__ __forceinline__ long long board_table_words(int N) {
+  const long long D = 2 * N - 1;
+  return 2LL * N * N + 6 * N * D + 4 * D * D;
+}
+
 // Bin of a step: min(step * n_bins / n_steps, n_bins - 1), in 64 bits.
 __device__ __forceinline__ int bin_of(int step, int n_bins, int n_steps) {
   const long long b = (long long)step * n_bins / n_steps;

@@ -33,7 +33,11 @@ LIN = dict(sched_type="linear_annealing", beta_start=0.5, beta_end=3.0)
 COLD = dict(sched_type="constant", beta_const=50.0)
 EXP = dict(sched_type="exponential_annealing", beta_start=1.0, beta_end=3.0)
 
-# name -> (ChainSpec kwargs, schedule kwargs, warm start)
+# name -> (ChainSpec kwargs, schedule kwargs, warm start[, the n_outer of
+# each run_segment call in turn, the whole run in one call if absent]).  The
+# CUDA kernel draws 32 steps at a time from each segment's first step, so
+# the cases below "n5_warm_klarner" reach its batches' edges: a stop inside
+# a batch, segments of 31 and 33 steps, a segment from start_outer > 0.
 BOARD_CASES = {
     # stride 7 over 100 steps: the 15th chunk runs 5 steps past n_steps
     "n2_tail": (dict(N=2, n_steps=100, history_stride=7), LIN, False),
@@ -43,6 +47,15 @@ BOARD_CASES = {
                          early_stop_patience=30), COLD, False),
     "n5_warm_klarner": (dict(N=5, n_steps=200, history_stride=50,
                              init_mode="klarner"), LIN, True),
+    "n4_patience_in_batch": (dict(N=4, n_steps=300, history_stride=64,
+                                  early_stop_patience=13), COLD, False),
+    "n2_segments_31_33": (dict(N=2, n_steps=64, history_stride=1), LIN,
+                          False, (31, 33)),
+    # a 33-step chunk, then two more from start_outer 1, 9 steps past n_steps
+    "n2_stride33_tail": (dict(N=2, n_steps=90, history_stride=33), LIN,
+                         False, (1, 2)),
+    "n5_start_outer_stride7": (dict(N=5, n_steps=150, history_stride=7,
+                                    n_bins=9), LIN, False, (5, 17)),
 }
 FULL3D_CASES = {
     # one free cell in 8 (long rejection runs) and a tail chunk
@@ -96,27 +109,30 @@ def _assert_same_carry(want, got):
                                       err_msg=name)
 
 
-def _scan_parity(jmod, mod, jspec, spec, starts):
+def _scan_parity(jmod, mod, jspec, spec, starts, segments=None):
     jkeys = jrng.chain_keys_from_seeds(SEEDS)
     keys = rng.chain_keys_from_seeds(SEEDS)
     jc = jmod.init_carry_batch(
         jkeys, jspec, None if starts is None else jnp.asarray(starts))
     c = mod.init_carry_batch(keys, spec, starts, device="cpu")
     _assert_same_carry(jc, c)
-    jend, jys = jmod.run_segment(jc, np.int32(0), jspec, jspec.n_outer)
-    end, ys = mod.run_segment(c, 0, spec, spec.n_outer)
-    _assert_same_carry(jend, end)
-    np.testing.assert_array_equal(ys.numpy(), np.asarray(jys))
-    return end
+    start = 0
+    for n_outer in segments or (spec.n_outer,):
+        jc, jys = jmod.run_segment(jc, np.int32(start), jspec, n_outer)
+        c, ys = mod.run_segment(c, start, spec, n_outer)
+        _assert_same_carry(jc, c)
+        np.testing.assert_array_equal(ys.numpy(), np.asarray(jys))
+        start += n_outer
+    return c
 
 
 @pytest.mark.parametrize("kernel", ["tables", "naive"])
 @pytest.mark.parametrize("case", sorted(BOARD_CASES))
 def test_board_scan_parity(case, kernel):
-    case_kw, sched, warm = BOARD_CASES[case]
+    case_kw, sched, warm, *segments = BOARD_CASES[case]
     jspec, spec = _specs(case_kw, sched, kernel=kernel)
     starts = _warm(spec, 1) if warm else None
-    end = _scan_parity(jboard, board, jspec, spec, starts)
+    end = _scan_parity(jboard, board, jspec, spec, starts, *segments)
     assert (end.table is None) == (kernel == "naive")
     for c in range(len(SEEDS)):
         h = end.best_heights[c].reshape(spec.N, spec.N).numpy()
@@ -126,6 +142,9 @@ def test_board_scan_parity(case, kernel):
     if "patience" in case:
         assert bool(end.done.any())
         assert torch.equal(end.done, end.stop_step < spec.n_steps)
+    if "in_batch" in case:
+        # a stop at a step other than the last of a 32-step batch
+        assert bool((end.stop_step[end.done] % 32 != 31).any())
 
 
 @pytest.mark.parametrize("kernel", ["tables", "naive"])
@@ -143,6 +162,36 @@ def test_full3d_scan_parity(case, kernel):
         assert bool(end.occ[c, cells].all())
     if "patience" in case:
         assert bool(end.done.any())
+
+
+# (N, kernel, chains) -> (chains per block, shared-memory bytes a block) of
+# the CUDA board scan on a 132-SM card.  A chain's slot is 2 N^2 words plus
+# T(N) for "tables" (T = 4060, 7332, 52000 at N = 12, 16, 42); 0 bytes:
+# the slots do not fit a block (232448 bytes) and stay in device memory.
+LAYOUTS = {
+    "n12_tables_config_yaml": ((12, "tables", 10), (1, 4 * 4348)),
+    "n12_tables_4096": ((12, "tables", 4096), (6, 6 * 4 * 4348)),
+    "n12_tables_500_spread": ((12, "tables", 500), (4, 4 * 4 * 4348)),
+    "n16_tables_4096": ((16, "tables", 4096), (7, 7 * 4 * 7844)),
+    "n16_naive_4096": ((16, "naive", 4096), (8, 8 * 4 * 512)),
+    "n42_tables_shared": ((42, "tables", 64), (1, 4 * 55528)),
+    "n43_tables_device": ((43, "tables", 64), (1, 0)),
+    "n48_tables_device": ((48, "tables", 8), (1, 0)),
+    "n48_naive_shared": ((48, "naive", 8), (1, 4 * 4608)),
+    "n171_naive_device": ((171, "naive", 4096), (8, 0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAYOUTS))
+def test_scan_layout(case):
+    """The rule that picks the CUDA board scan's shared-memory or
+    device-memory variant, its chains per block and its shared memory."""
+    (N, kernel, C), (cpb, smem) = LAYOUTS[case]
+    layout = board.scan_layout(N, kernel, C, 132)
+    assert (layout.chains_per_block, layout.smem_bytes) == (cpb, smem)
+    assert layout.in_shared == (smem > 0)
+    assert 1 <= cpb <= min(board.MAX_CHAINS_PER_BLOCK, -(-C // 132))
+    assert layout.smem_bytes <= 232448
 
 
 def test_segments_resume_and_steps_past_n_steps():
