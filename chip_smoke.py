@@ -72,7 +72,13 @@ and the script exits non-zero without printing a result:
    layout of chain/board.py:scan_layout); full-3D: config.yaml's
    beta pairs cell as full_3d (N=12/Q=144, 10 chains, stride 1), N=12/Q=144
    at 4096 chains, N=2/Q=7 with a tail, N=5/Q=13 with patience, N=3/Q=26
-   and a warm start.  Each bound counts only the work its launch did: the
+   and a warm start; the full-3D kernel is a warp per chain too, drawing 32
+   steps and two rejection attempts ahead, so also stops inside a batch,
+   segments of 1, 31 and 33 steps, start_outer > 0 with stride 13, 4099
+   chains, N=2/Q=7 and N=3/Q=26 over more than a batch at stride 1, and
+   N=36/Q=1296 (4 chains), whose table stays in device memory while naive
+   keeps its state in shared memory (chain/full3d.py:scan_layout, printed
+   on each compare line).  Each bound counts only the work its launch did: the
    bins its steps fall in, the cells and table words its proposals read,
    its accepted moves, and best states only where a chain improved (none
    with track_best off).
@@ -104,9 +110,10 @@ and the script exits non-zero without printing a result:
    of the full-3D kernel at the campaign's (N=15, Q=225, linear 0.8->7 over
    8M steps, 62500-step chunks), each at two chain counts; then the
    per-chain kernels at the same board configuration and at N=15, Q=225
-   with 8192-step chunks; then the board scan kernel alone at config.yaml's
-   launch shape (N=12 and 18, 10 chains, stride 1, 100000 steps, from step
-   0 and 900000: microseconds per step); then both scan kernels, in both
+   with 8192-step chunks; then each scan kernel alone at config.yaml's
+   launch shape (10 chains, stride 1, 100000 steps, from step 0 and
+   900000: microseconds per step; board N=12 and 18, full-3D the beta
+   pairs' N=12/Q=144); then both scan kernels, in both
    modes, at 4096 chains (board N=16 over 2^24 steps, full-3D N=12/Q=144
    over 1M).
 6. the measurement tools: ``main(["--quick", "--json", tmp])`` of
@@ -926,14 +933,18 @@ def scan_work(mod, ln):
     return ops, 4 * words + occ_bytes
 
 
+def scan_layout(mod, spec, C):
+    """A scan kernel's layout of a launch of C chains on this card
+    (chain/board.py:scan_layout, chain/full3d.py:scan_layout)."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    if mod is board_chain:
+        return board_chain.scan_layout(spec.N, spec.kernel, C, n_sm)
+    return full3d_chain.scan_layout(spec.N, spec.q_eff, spec.kernel, C, n_sm)
+
+
 def layout_note(mod, spec, C):
-    """The board scan kernel's layout of a launch (chain/board.py:
-    scan_layout), for the compare lines."""
-    if mod is not board_chain:
-        return ""
-    lay = board_chain.scan_layout(
-        spec.N, spec.kernel, C,
-        torch.cuda.get_device_properties(0).multi_processor_count)
+    """A scan kernel's layout of a launch, for the compare lines."""
+    lay = scan_layout(mod, spec, C)
     where = (f"shared memory, {lay.smem_bytes} B a block" if lay.in_shared
              else "device memory")
     return f"; {lay.chains_per_block} chains a block in {where}"
@@ -1203,31 +1214,40 @@ def scan_throughput(mod, label, spec, chains, bounds):
           + nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
 
 
-def scan_config_launch(bounds):
-    """The board scan kernel alone at config.yaml's launch shape (10 chains,
-    stride 1, 100000 steps: a tenth of a cell), N=12 and 18, from step 0
-    and from step 900000: microseconds per step."""
-    for N, beta_end in ((12, 3.0), (18, 5.0)):
-        spec = spec_of(N, 10 ** 6, 1, build_schedule(
-            "exponential_annealing", 10 ** 6, beta_start=1.0,
-            beta_end=beta_end), kernel="tables")
-        keys = rng.chain_keys_from_seeds(np.arange(10, dtype=np.uint32),
-                                         "cuda")
+def scan_config_launch(mod, bounds):
+    """A scan kernel alone at config.yaml's launch shape (10 chains, stride
+    1, 100000 steps: a tenth of a cell), from step 0 and from step 900000:
+    microseconds per step.  Board: compare_beta_end's N=12 and 18
+    (exponential 1->3, 1->5); full-3D: beta_start_end_pairs as full_3d
+    (N=12, Q=144, linear 0.5->3)."""
+    n, steps = 10 ** 6, 100_000
+    if mod is board_chain:
+        name, specs = "board_scan", [spec_of(N, n, 1, build_schedule(
+            "exponential_annealing", n, beta_start=1.0, beta_end=beta_end),
+            kernel="tables") for N, beta_end in ((12, 3.0), (18, 5.0))]
+    else:
+        name, specs = "full3d_scan", [spec_of(
+            12, n, 1, lin(n, 0.5, 3.0), kernel="tables",
+            mcmc_type="full_3d")]
+    keys = rng.chain_keys_from_seeds(np.arange(10, dtype=np.uint32), "cuda")
+    for spec in specs:
         for start in (0, 900_000):
-            st = board_chain.segment_state(board_chain.init_carry_batch(
-                keys, spec, device="cuda"))
-            beta = chunk_betas(spec.schedule, start, 100_000, "cuda")
-            ys = torch.empty((100_000, 10), dtype=torch.int32, device="cuda")
+            st = mod.segment_state(mod.init_carry_batch(keys, spec,
+                                                        device="cuda"))
+            beta = chunk_betas(spec.schedule, start, steps, "cuda")
+            ys = torch.empty((steps, 10), dtype=torch.int32, device="cuda")
             before = snapshot(st, False)
-            k_ms = cuda_ms(lambda: board_chain.segment_cuda(
-                st, ys, start, 100_000, spec, beta))
-            ln = launch_of(spec, before, snapshot(st, False), start,
-                           100_000, n_outer=100_000)
-            bound_ms, bound_by = bounds.of(*scan_work(board_chain, ln))
-            phase("throughput", f"board_scan config.yaml launch N={N} C=10 "
-                  f"100000 steps from step {start}: {k_ms:.3f} ms = "
-                  f"{k_ms * 1e3 / 100_000:.4f} us per step; bound "
-                  f"{bound_ms:.3f} ms ({bound_by})")
+            k_ms = cuda_ms(lambda: mod.segment_cuda(st, ys, start, steps,
+                                                    spec, beta))
+            ln = launch_of(spec, before, snapshot(st, False), start, steps,
+                           n_outer=steps)
+            bound_ms, bound_by = bounds.of(*scan_work(mod, ln))
+            phase("throughput", f"{name} config.yaml launch N={spec.N} "
+                  f"Q={spec.q_eff if mod is full3d_chain else '-'} C=10 "
+                  f"{steps} steps from step {start}: {k_ms:.3f} ms = "
+                  f"{k_ms * 1e3 / steps:.4f} us per step; bound "
+                  f"{bound_ms:.4f} ms ({bound_by}); {ln.accepted} accepted"
+                  f"{layout_note(mod, spec, 10)}")
 
 
 def throughput(mod, label, spec, chain_counts, bounds):
@@ -2270,6 +2290,43 @@ def main():
         ("full3d_scan N=6 Q=36 warm start", spec_of(
             6, 10 ** 6, 32, lin(10 ** 6, 0.5, 3.0), kernel="tables",
             mcmc_type="full_3d"), 1024, 3, 2, 9, True),
+        # The kernel draws 32 steps and two rejection attempts at a time
+        # from each segment's first step: stops inside a batch, segments of
+        # 1, 31 and 33 steps, a segment from start_outer > 0 with stride >
+        # 1, a C that is not a multiple of the chains per block, nearly full
+        # cubes over more than a batch (every accepted move frees the cell
+        # the next proposals may draw; N=3 Q=26 has one free cell, so
+        # nearly every step walks past its two attempts), and an N whose
+        # table stays in device memory (tables) beside the same N in shared
+        # memory (naive).
+        ("full3d_scan N=4 Q=16 patience 13 stops inside 32-step batches",
+         spec_of(4, 300, 50, const(300, 50.0), kernel="tables",
+                 mcmc_type="full_3d", Q=16, early_stop_patience=13), 1024,
+         0, 2, 5, False),
+        ("full3d_scan N=12 Q=144 C=10 one-step segment", spec_of(
+            12, 10 ** 6, 1, lin(10 ** 6, 0.5, 3.0), kernel="tables",
+            mcmc_type="full_3d"), 10, 77, 1, 42, False),
+        ("full3d_scan N=5 Q=13 31-step segment", spec_of(
+            5, 1000, 31, lin(1000, 0.5, 3.0), kernel="tables",
+            mcmc_type="full_3d", Q=13), 300, 0, 1, 1, False),
+        ("full3d_scan N=5 Q=13 33-step segment", spec_of(
+            5, 1000, 11, lin(1000, 0.5, 3.0), kernel="tables",
+            mcmc_type="full_3d", Q=13), 300, 0, 3, 2, False),
+        ("full3d_scan N=6 Q=36 start_outer 7 stride 13", spec_of(
+            6, 400, 13, lin(400, 0.5, 3.0), kernel="tables",
+            mcmc_type="full_3d", n_bins=7), 300, 7, 5, 4, False),
+        ("full3d_scan N=12 Q=144 C=4099 warm start", spec_of(
+            12, 10 ** 6, 32, lin(10 ** 6, 0.5, 3.0), kernel="tables",
+            mcmc_type="full_3d"), 4099, 0, 1, 6, True),
+        ("full3d_scan N=2 Q=7 stride 1 40 steps", spec_of(
+            2, 100, 1, lin(100, 0.5, 3.0), kernel="tables",
+            mcmc_type="full_3d", Q=7), 256, 0, 40, 0, False),
+        ("full3d_scan N=3 Q=26 stride 1 34 steps", spec_of(
+            3, 100, 1, lin(100, 0.5, 3.0), kernel="tables",
+            mcmc_type="full_3d", Q=26), 64, 0, 34, 0, False),
+        ("full3d_scan N=36 Q=1296 C=4 table in device memory", spec_of(
+            36, 10 ** 6, 20, lin(10 ** 6, 0.5, 3.0), kernel="tables",
+            mcmc_type="full_3d"), 4, 0, 2, 7, False),
     ]
     results, scan_results = {}, {}
     with timed("compare freeze mode"):
@@ -2298,13 +2355,16 @@ def main():
                         out["tables"]["st"].done.sum()):
                     raise AssertionError(f"{name}: no chain stopped")
                 if "device memory" in name:
-                    n_sm = torch.cuda.get_device_properties(
-                        0).multi_processor_count
-                    shared = {k: board_chain.scan_layout(
-                        spec.N, k, n_chains, n_sm).in_shared
+                    shared = {k: scan_layout(mod, dataclasses.replace(
+                        spec, kernel=k), n_chains).in_shared
                         for k in ("tables", "naive")}
                     if shared != {"tables": False, "naive": True}:
                         raise AssertionError(f"{name}: layouts {shared}")
+                if "C=4099" in name and all(
+                        n_chains % scan_layout(mod, res["spec"], n_chains)
+                        .chains_per_block == 0 for res in out.values()):
+                    raise AssertionError(f"{name}: C is a multiple of the "
+                                         f"chains per block")
                 if "inside 32-step" in name:
                     st = out["tables"]["st"]
                     t = st.stop_step[st.done != 0] - start_outer * \
@@ -2395,12 +2455,13 @@ def main():
                             mcmc_type="full_3d"),
                    (65536, 4096), bounds)
     with timed("throughput board_scan"):
-        scan_config_launch(bounds)
+        scan_config_launch(board_chain, bounds)
         horizon = 2 ** 24
         scan_throughput(board_chain, "board_scan N=16",
                         spec_of(16, horizon, 16384, lin(horizon, 1.0, 5.0),
                                 kernel="tables"), 4096, bounds)
     with timed("throughput full3d_scan"):
+        scan_config_launch(full3d_chain, bounds)
         horizon = 10 ** 6
         scan_throughput(full3d_chain, "full3d_scan N=12 Q=144",
                         spec_of(12, horizon, 16384, lin(horizon, 0.5, 3.0),

@@ -246,14 +246,20 @@ class ScanLayout:
 def scan_layout(N: int, kernel: str, C: int, n_sm: int) -> ScanLayout:
     """The CUDA kernel's layout for ``C`` chains of board size ``N`` on a
     card of ``n_sm`` SMs.  A chain's slot is ``2 N^2`` words, plus the
-    table's ``T(N)`` for ``tables``; the slots go to shared memory whenever
-    one fits a block (``tables`` up to N = 42).  Chains per block then
-    maximise the chains resident on an SM (ties to the larger block), and
-    are cut to ``ceil(C / n_sm)`` so that a launch of few chains spreads
-    them over the SMs, one warp an SM when C <= n_sm."""
+    table's ``T(N)`` for ``tables``; it goes to shared memory whenever it
+    fits a block (``tables`` up to N = 42): :func:`slot_layout`."""
     words = 2 * N * N + (tables_mod.table_size(N) if kernel == "tables"
                          else 0)
-    slot = 4 * words
+    return slot_layout(4 * words, C, n_sm)
+
+
+def slot_layout(slot: int, C: int, n_sm: int) -> ScanLayout:
+    """The layout of a warp-per-chain scan kernel whose chains need
+    ``slot`` bytes each: in shared memory whenever a slot fits a block.
+    Chains per block then maximise the chains resident on an SM (ties to
+    the larger block), and are cut to ``ceil(C / n_sm)`` so that a launch
+    of few chains spreads them over the SMs, one warp an SM when C <=
+    n_sm."""
     spread = max(1, -(-C // n_sm))
     if slot > _build.SMEM_PER_BLOCK:
         return ScanLayout(min(MAX_CHAINS_PER_BLOCK, spread), 0)
@@ -281,6 +287,25 @@ def segment_cuda(st: SegmentState, ys: torch.Tensor, start_outer: int,
     """The segment with the CUDA kernel (asynchronous on the current
     stream; one launch, counted)."""
     global KERNEL_LAUNCHES
+    dev = st.heights.device
+    if dev.type != "cuda":
+        raise ValueError(f"segment_cuda: state on {dev}, not a CUDA device")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        launch_segment(_build.load_library(), st, ys, start_outer, n_outer,
+                       spec, beta, n_sm, stream)
+    KERNEL_LAUNCHES += 1
+
+
+def launch_segment(lib, st: SegmentState, ys: torch.Tensor,
+                   start_outer: int, n_outer: int, spec: ChainSpec,
+                   beta: torch.Tensor, n_sm: int, stream: int = 0) -> None:
+    """Check a segment's arguments, lay it out for ``n_sm`` SMs
+    (:func:`scan_layout`) and call ``lib.mcq_board_scan_segment`` on
+    ``stream``; raises if it returns an error.  ``lib`` is the CUDA library
+    (:func:`segment_cuda`) or its host emulation
+    (:mod:`mcqueens_torch.kernels.host_emulation`, CPU tensors)."""
     N, C, nb = spec.N, st.energy.shape[0], spec.n_bins
     NN, stride = N * N, spec.history_stride
     i32 = torch.int32
@@ -304,25 +329,19 @@ def segment_cuda(st: SegmentState, ys: torch.Tensor, start_outer: int,
     if C == 0:
         raise ValueError("no chains")
     check_steps(start_outer, n_outer, stride)
-    lib = _build.load_library()
-    dev = st.heights.device
-    layout = scan_layout(N, spec.kernel, C, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+    layout = scan_layout(N, spec.kernel, C, n_sm)
     ptrs = [ctypes.c_void_p(None if t is None else t.data_ptr()) for t in (
         st.heights, st.best_heights, st.table, st.energy, st.best_energy,
         st.best_step, st.no_improve, st.done, st.stop_step, st.accept_bins,
         st.total_bins, st.step_base, beta, ys)]
     patience = spec.early_stop_patience
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mcq_board_scan_segment(
-            *ptrs, start_outer, n_outer, stride, N, C, spec.n_steps, nb,
-            -1 if patience is None else patience, layout.chains_per_block,
-            layout.smem_bytes, ctypes.c_void_p(stream))
+    err = lib.mcq_board_scan_segment(
+        *ptrs, start_outer, n_outer, stride, N, C, spec.n_steps, nb,
+        -1 if patience is None else patience, layout.chains_per_block,
+        layout.smem_bytes, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"board_scan CUDA kernel launch failed "
                            f"(cudaError {err})")
-    KERNEL_LAUNCHES += 1
 
 
 def segment_call(st: SegmentState, start_outer: int, n_outer: int,

@@ -13,9 +13,10 @@ Patience, best placements and bins follow the JAX step exactly.
 
 As in :mod:`mcqueens_torch.chain.board`: the carry (:class:`Full3DCarry`)
 is chains major; a segment runs through the hand-written CUDA kernel
-(``kernels/csrc/full3d_scan.cu``, one thread per chain, one launch per
-segment, :func:`segment_cuda`, counted in :data:`KERNEL_LAUNCHES`) or its
-plain-torch twin (:func:`segment_reference`), both over one chains-minor
+(``kernels/csrc/full3d_scan.cu``, a warp per chain, one launch per segment,
+its shared-memory layout from :func:`scan_layout`, :func:`segment_cuda`,
+counted in :data:`KERNEL_LAUNCHES`) or its plain-torch twin
+(:func:`segment_reference`), both over one chains-minor
 :class:`SegmentState`, chosen by the state's device.
 """
 
@@ -27,14 +28,14 @@ from typing import Optional
 
 import torch
 
-from mcqueens_torch.chain.board import check_steps
+from mcqueens_torch.chain.board import ScanLayout, check_steps, slot_layout
 from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.core import energy as energy_mod
 from mcqueens_torch.core import init as init_mod
 from mcqueens_torch.core import rng
 from mcqueens_torch.core import tables as tables_mod
 from mcqueens_torch.core.schedules import chunk_betas
-from mcqueens_torch.kernels import segment
+from mcqueens_torch.kernels import _build, segment
 
 # Launches of the CUDA kernel in this process (read and reset by callers
 # that check the main path really ran on the card).
@@ -241,13 +242,43 @@ def segment_reference(st: SegmentState, ys: torch.Tensor, start_outer: int,
         getattr(st, name).copy_(val)
 
 
+def scan_layout(N: int, Q: int, kernel: str, C: int,
+                n_sm: int) -> ScanLayout:
+    """The CUDA kernel's layout for ``C`` chains of ``Q`` queens in the N^3
+    cube on a card of ``n_sm`` SMs.  A chain's slot is its queens and best
+    queens (``3Q`` words each), its occupancy bytes rounded up to words and,
+    for ``tables``, the 13-family table; it goes to shared memory whenever
+    it fits a block (``tables`` at Q = N^2 up to N = 35):
+    :func:`~mcqueens_torch.chain.board.slot_layout`."""
+    words = 6 * Q + -(-N ** 3 // 4) + (
+        tables_mod.table_size(N, full3d=True) if kernel == "tables" else 0)
+    return slot_layout(4 * words, C, n_sm)
+
+
 def segment_cuda(st: SegmentState, ys: torch.Tensor, start_outer: int,
                  n_outer: int, spec: ChainSpec, beta: torch.Tensor) -> None:
     """The segment with the CUDA kernel (asynchronous on the current
     stream; one launch, counted)."""
     global KERNEL_LAUNCHES
-    from mcqueens_torch.kernels import _build
+    dev = st.queens.device
+    if dev.type != "cuda":
+        raise ValueError(f"segment_cuda: state on {dev}, not a CUDA device")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        launch_segment(_build.load_library(), st, ys, start_outer, n_outer,
+                       spec, beta, n_sm, stream)
+    KERNEL_LAUNCHES += 1
 
+
+def launch_segment(lib, st: SegmentState, ys: torch.Tensor,
+                   start_outer: int, n_outer: int, spec: ChainSpec,
+                   beta: torch.Tensor, n_sm: int, stream: int = 0) -> None:
+    """Check a segment's arguments, lay it out for ``n_sm`` SMs
+    (:func:`scan_layout`) and call ``lib.mcq_full3d_scan_segment`` on
+    ``stream``; raises if it returns an error.  ``lib`` is the CUDA library
+    (:func:`segment_cuda`) or its host emulation
+    (:mod:`mcqueens_torch.kernels.host_emulation`, CPU tensors)."""
     N, Q, C, nb = spec.N, spec.q_eff, st.energy.shape[0], spec.n_bins
     stride = spec.history_stride
     i32 = torch.int32
@@ -275,22 +306,19 @@ def segment_cuda(st: SegmentState, ys: torch.Tensor, start_outer: int,
     if not 1 <= Q < N ** 3:
         raise ValueError(f"Q={Q} must be in [1, N^3)")
     check_steps(start_outer, n_outer, stride)
-    lib = _build.load_library()
-    dev = st.queens.device
+    layout = scan_layout(N, Q, spec.kernel, C, n_sm)
     ptrs = [ctypes.c_void_p(None if t is None else t.data_ptr()) for t in (
         st.queens, st.best_queens, st.occ, st.table, st.energy,
         st.best_energy, st.best_step, st.no_improve, st.done, st.stop_step,
         st.accept_bins, st.total_bins, st.step_base, beta, ys)]
     patience = spec.early_stop_patience
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mcq_full3d_scan_segment(
-            *ptrs, start_outer, n_outer, stride, N, Q, C, spec.n_steps, nb,
-            -1 if patience is None else patience, ctypes.c_void_p(stream))
+    err = lib.mcq_full3d_scan_segment(
+        *ptrs, start_outer, n_outer, stride, N, Q, C, spec.n_steps, nb,
+        -1 if patience is None else patience, layout.chains_per_block,
+        layout.smem_bytes, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"full3d_scan CUDA kernel launch failed "
                            f"(cudaError {err})")
-    KERNEL_LAUNCHES += 1
 
 
 def segment_call(st: SegmentState, start_outer: int, n_outer: int,

@@ -300,7 +300,7 @@ __global__ void __launch_bounds__(32 * kMaxChainsPerBlock)
     }
     return;
   }
-  const int T = TABLES ? (int)mcq::board_table_words(a.N) : 0;
+  const int T = TABLES ? (int)mcq::table_words(a.N, false) : 0;
   const int W = 2 * NN + T;  // a chain's slot: heights, best, table
   copy_columns(smem, a.heights, NN, W, 0, c0, cpb, sC, a.C, true);
   copy_columns(smem, a.best_heights, NN, W, NN, c0, cpb, sC, a.C, true);
@@ -358,7 +358,7 @@ extern "C" int mcq_board_scan_segment(
   const int cpb = chains_per_block;
   const bool tables = table != nullptr;
   const long long words =
-      2LL * N * N + (tables ? mcq::board_table_words(N) : 0);
+      2LL * N * N + (tables ? mcq::table_words(N, false) : 0);
   if (cpb < 1 || cpb > kMaxChainsPerBlock ||
       (smem_bytes != 0 && smem_bytes != 4 * cpb * words)) {
     return (int)cudaErrorInvalidValue;

@@ -65,13 +65,24 @@ __device__ __forceinline__ uint32_t bits(Key k) {
   return b.k0 ^ b.k1;
 }
 
-// jax.random.randint(k, (), 0, span) for span >= 1.
-__device__ __forceinline__ uint32_t randint(Key k, uint32_t span) {
+// randint's multiplier for a span >= 1: 2^32 mod span, as (2^16 mod span)^2
+// mod span, so a kernel that draws from one span many times computes it once.
+__device__ __forceinline__ uint32_t randint_mult(uint32_t span) {
+  const uint32_t m = 65536u % span;
+  return (m * m) % span;
+}
+
+// jax.random.randint(k, (), 0, span) for span >= 1, with mult =
+// randint_mult(span).
+__device__ __forceinline__ uint32_t randint(Key k, uint32_t span,
+                                           uint32_t mult) {
   const uint32_t hi = bits(hash(k, 0u));
   const uint32_t lo = bits(hash(k, 1u));
-  uint32_t mult = 65536u % span;
-  mult = (mult * mult) % span;
   return ((hi % span) * mult + lo % span) % span;
+}
+
+__device__ __forceinline__ uint32_t randint(Key k, uint32_t span) {
+  return randint(k, span, randint_mult(span));
 }
 
 // jax.random.uniform(k) on [0, 1), float32.
@@ -109,10 +120,9 @@ __device__ __forceinline__ void line_indices(int i, int j, int k, int N,
   if (full3d) idx[12] = o8 + 4 * DD + i * N + j;
 }
 
-// Board line family f (0..11) of line_indices as a linear form: its index
-// at cell (i, j, k) is base + ci * i + cj * j + ck * k.  A warp that gives
-// family f to lane f computes both ends of a move from one base + ci * i +
-// cj * j.
+// Line family f (0..12; 12 is full3d's) of line_indices as a linear form:
+// its index at cell (i, j, k) is base + ci * i + cj * j + ck * k.  A warp
+// that gives family f to lane f computes a move's two indices with it.
 struct LineForm {
   int base, ci, cj, ck;
 };
@@ -133,14 +143,16 @@ __device__ __forceinline__ LineForm line_form(int f, int N) {
     case 8: return {o8 + (N - 1) * D + N - 1, -D - 1, D, 1};
     case 9: return {o8 + DD + (N - 1) * D, 1 - D, D, 1};
     case 10: return {o8 + 2 * DD + N - 1, D - 1, D, 1};
-    default: return {o8 + 3 * DD, D + 1, D, 1};  // 11
+    case 11: return {o8 + 3 * DD, D + 1, D, 1};
+    default: return {o8 + 4 * DD, N, 1, 0};  // 12
   }
 }
 
-// Words of the board count table (the 12 families).
-__host__ __device__ __forceinline__ long long board_table_words(int N) {
+// Words of the count table: the board's 12 families, or full3d's 13.
+__host__ __device__ __forceinline__ long long table_words(int N,
+                                                          bool full3d) {
   const long long D = 2 * N - 1;
-  return 2LL * N * N + 6 * N * D + 4 * D * D;
+  return 2LL * N * N + 6 * N * D + 4 * D * D + (full3d ? 1LL * N * N : 0);
 }
 
 // Bin of a step: min(step * n_bins / n_steps, n_bins - 1), in 64 bits.

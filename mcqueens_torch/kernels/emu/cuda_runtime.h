@@ -1,0 +1,261 @@
+// Host emulation of the CUDA runtime and warp intrinsics that the scan
+// kernels use (board_scan.cu, full3d_scan.cu), so that a kernel's logic can
+// be run and checked on a machine without a GPU or nvcc.  Built with g++
+// -std=c++20 -pthread by mcqueens_torch/kernels/host_emulation.py, which
+// puts this directory first on the include path (so the sources'
+// #include <cuda_runtime.h> finds this file) and rewrites two constructs
+// g++ cannot parse: a launch `kernel<<<grid, block, smem, stream>>>(args)`
+// becomes emu::launch(kernel, grid, block, smem, stream, args), and
+// `extern __shared__ T name[];` a pointer to the block's shared memory.
+//
+// One fiber (ucontext) per CUDA thread, all on the calling OS thread; the
+// blocks of a launch run one after another, the fibers of a block round
+// robin, each until it waits at a barrier.  A warp-wide intrinsic is "write
+// my slot, wait for the warp, read" (two slot banks used in turn, so no
+// second wait), __syncwarp a wait for the warp, __syncthreads for the
+// block.  As each lane runs as far as it can alone, a lane that reads what
+// another lane stored in the same step (a race on the card, hidden there by
+// lanes that run converged) sees it here; a round of the scheduler in which
+// no fiber arrives at a barrier or ends (lanes that reached different warp
+// intrinsics) aborts the process with a message rather than hang, and so
+// does a launch that runs over a minute (an endless loop).  Not
+// emulated: warp masks other than the full one, the device's expf rounding
+// (the host's expf is used).
+
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+
+#include <ucontext.h>
+
+#include <chrono>
+#include <condition_variable>
+#include <functional>
+#include <memory>
+#include <mutex>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
+};
+
+using cudaStream_t = void*;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+
+// The running fiber's thread and block (one OS thread runs them all).
+inline dim3 threadIdx, blockIdx, blockDim, gridDim;
+
+template <typename F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
+inline long long min(long long a, long long b) { return a < b ? a : b; }
+inline long long max(long long a, long long b) { return a > b ? a : b; }
+
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  memcpy(&f, &u, sizeof f);
+  return f;
+}
+
+namespace emu {
+
+constexpr size_t kStack = 256 * 1024;
+
+struct Fiber {
+  ucontext_t ctx;
+  std::unique_ptr<char[]> stack{new char[kStack]};
+  unsigned tid = 0;
+  bool done = false;
+};
+
+inline ucontext_t scheduler;
+inline Fiber* current = nullptr;
+inline long progress = 0;  // arrivals at barriers and fibers ended
+inline const std::function<void()>* body = nullptr;
+
+inline void yield() { swapcontext(&current->ctx, &scheduler); }
+
+class Barrier {
+ public:
+  explicit Barrier(int n) : n_(n) {}
+  void wait() {
+    ++progress;
+    const unsigned long gen = gen_;
+    if (++count_ == n_) {
+      count_ = 0;
+      ++gen_;
+      return;
+    }
+    while (gen_ == gen) yield();
+  }
+
+ private:
+  int n_, count_ = 0;
+  unsigned long gen_ = 0;
+};
+
+struct Warp {
+  Barrier bar{32};
+  uint64_t slot[2][32];
+  int bank[32] = {};  // each lane's next slot bank
+};
+
+struct Block {
+  Block(unsigned threads, size_t smem_bytes)
+      : bar(threads), smem(smem_bytes + 16, 0xA5) {
+    for (unsigned w = 0; w < threads / 32; ++w) {
+      warps.push_back(std::make_unique<Warp>());
+    }
+  }
+  Barrier bar;
+  std::vector<std::unique_ptr<Warp>> warps;
+  std::vector<uint8_t> smem;  // filled with 0xA5: never read unwritten
+};
+
+inline Block* block = nullptr;
+
+inline void* shared_memory() { return block->smem.data(); }
+
+inline Warp& my_warp() { return *block->warps[threadIdx.x / 32]; }
+
+// Publish this lane's word, wait for the warp; returns the bank to read.
+inline uint64_t* exchange(uint64_t bits) {
+  Warp& w = my_warp();
+  const int lane = threadIdx.x % 32, b = w.bank[lane];
+  w.bank[lane] = b ^ 1;
+  w.slot[b][lane] = bits;
+  w.bar.wait();
+  return w.slot[b];
+}
+
+template <typename T>
+T shfl(T v, int src) {
+  static_assert(sizeof(T) <= sizeof(uint64_t), "shfl of a wide type");
+  uint64_t bits = 0;
+  memcpy(&bits, &v, sizeof(T));
+  bits = exchange(bits)[src & 31];
+  T out;
+  memcpy(&out, &bits, sizeof(T));
+  return out;
+}
+
+inline int reduce_add(int v) {
+  const uint64_t* slot = exchange((uint64_t)(uint32_t)v);
+  uint32_t sum = 0;
+  for (int l = 0; l < 32; ++l) sum += (uint32_t)slot[l];
+  return (int)sum;
+}
+
+// Aborts the process unless destroyed within `seconds`.
+class Watchdog {
+ public:
+  explicit Watchdog(int seconds)
+      : thread_([this, seconds] {
+          std::unique_lock<std::mutex> lock(mu_);
+          if (!cv_.wait_for(lock, std::chrono::seconds(seconds),
+                            [this] { return done_; })) {
+            fprintf(stderr, "emu: a launch ran over %d s (an endless "
+                    "loop?)\n", seconds);
+            abort();
+          }
+        }) {}
+  ~Watchdog() {
+    {
+      std::lock_guard<std::mutex> lock(mu_);
+      done_ = true;
+    }
+    cv_.notify_all();
+    thread_.join();
+  }
+
+ private:
+  std::mutex mu_;
+  std::condition_variable cv_;
+  bool done_ = false;
+  std::thread thread_;
+};
+
+inline void trampoline() {
+  (*body)();
+  current->done = true;
+  ++progress;
+}  // returns to the scheduler through uc_link
+
+// kernel<<<grid, block, smem, stream>>>(args...), run to its end.
+template <typename... P, typename... A>
+void launch(void (*kernel)(P...), dim3 grid, dim3 threads, size_t smem,
+            cudaStream_t, A... args) {
+  if (threads.x % 32 || threads.y != 1 || threads.z != 1 || grid.y != 1 ||
+      grid.z != 1) {
+    fprintf(stderr, "emu: only 1-D launches of whole warps\n");
+    abort();
+  }
+  const Watchdog watchdog(60);
+  gridDim = grid;
+  blockDim = threads;
+  const std::function<void()> run = [&] { kernel(args...); };
+  body = &run;
+  std::vector<Fiber> fibers(threads.x);
+  for (unsigned b = 0; b < grid.x; ++b) {
+    Block blk(threads.x, smem);
+    block = &blk;
+    blockIdx = dim3(b);
+    for (unsigned t = 0; t < threads.x; ++t) {
+      Fiber& f = fibers[t];
+      f.tid = t;
+      f.done = false;
+      getcontext(&f.ctx);
+      f.ctx.uc_stack.ss_sp = f.stack.get();
+      f.ctx.uc_stack.ss_size = kStack;
+      f.ctx.uc_link = &scheduler;
+      makecontext(&f.ctx, trampoline, 0);
+    }
+    for (unsigned live = threads.x; live;) {
+      const long before = progress;
+      live = 0;
+      for (Fiber& f : fibers) {
+        if (f.done) continue;
+        current = &f;
+        threadIdx = dim3(f.tid);
+        swapcontext(&scheduler, &f.ctx);
+        live += !f.done;
+      }
+      if (live && progress == before) {
+        fprintf(stderr, "emu: block %u stuck with %u threads waiting (a "
+                "warp intrinsic reached on diverged paths?)\n", b, live);
+        abort();
+      }
+    }
+  }
+  block = nullptr;
+  current = nullptr;
+}
+
+}  // namespace emu
+
+template <typename T>
+T __shfl_sync(unsigned, T v, int src) {
+  return emu::shfl(v, src);
+}
+inline int __reduce_add_sync(unsigned, int v) { return emu::reduce_add(v); }
+inline void __syncthreads() { emu::block->bar.wait(); }
+inline void __syncwarp() { emu::my_warp().bar.wait(); }

@@ -1,0 +1,105 @@
+"""Build the port's warp-per-chain scan kernels as host C++, to check their
+logic without a GPU.
+
+:func:`load` compiles ``csrc/board_scan.cu`` and ``csrc/full3d_scan.cu``
+with ``g++ -std=c++20 -pthread`` against ``emu/cuda_runtime.h`` (one OS
+thread per CUDA thread, the warp intrinsics and ``__syncthreads`` over
+barriers) into one shared library with the same C entry points as the CUDA
+library, and loads it with ``ctypes``.  The chain modules'
+``launch_segment`` then runs a kernel on CPU tensors, through the same
+argument checks and layout rule as a launch on the card::
+
+    lib = host_emulation.load()
+    full3d.launch_segment(lib, st, ys, start_outer, n_outer, spec, beta,
+                          n_sm=2)
+
+The library goes to ``build/mcqueens_torch/host/``, named by a hash of the
+sources, the header and the flags.  A source is the ``.cu`` file with its
+kernel launches and ``extern __shared__`` arrays rewritten (the only CUDA
+syntax g++ cannot parse).  ``tests/test_torch_scan_emulation.py`` holds the
+emulated kernels bitwise against their plain-torch twins.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+
+from mcqueens_torch.kernels import _build
+
+EMU_DIR = _build._PKG / "emu"
+SOURCES = tuple(_build._PKG / "csrc" / f"{name}.cu"
+                for name in ("board_scan", "full3d_scan"))
+BUILD_DIR = _build.BUILD_DIR / "host"
+CXX_FLAGS = ("-std=c++20", "-O1", "-pthread", "-fPIC", "-shared",
+             "-ffp-contract=off", "-w")
+ENTRY_POINTS = ("mcq_board_scan_segment", "mcq_full3d_scan_segment")
+
+_LAUNCH = re.compile(r"(\w+)<<<([^>]*)>>>\(([^;]*)\);")
+_SHARED = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
+
+
+def compiler():
+    """The host C++ compiler, or None."""
+    return shutil.which("g++")
+
+
+def translate(text: str) -> str:
+    """A ``.cu`` source as host C++ for ``emu/cuda_runtime.h``."""
+    text = _LAUNCH.sub(r"emu::launch(\1, \2, \3);", text)
+    return _SHARED.sub(
+        r"\1* \2 = reinterpret_cast<\1*>(emu::shared_memory());", text)
+
+
+def library_path():
+    key = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for src in (*SOURCES, *_build.HEADERS, EMU_DIR / "cuda_runtime.h"):
+        key.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"mcqueens_host_{key.hexdigest()[:16]}.so"
+
+
+def build():
+    """Compile the emulated kernels unless already built; return the
+    library's path."""
+    out = library_path()
+    if out.exists():
+        return out
+    cxx = compiler()
+    if cxx is None:
+        raise RuntimeError("no g++: the host emulation needs a C++20 "
+                           "compiler")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    cpps = []
+    for src in SOURCES:
+        cpp = BUILD_DIR / f"{tag}.{src.stem}.cpp"
+        cpp.write_text(translate(src.read_text()))
+        cpps.append(cpp)
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    proc = subprocess.run(
+        [cxx, *CXX_FLAGS, f"-I{EMU_DIR}", f"-I{_build._PKG / 'csrc'}",
+         "-o", str(tmp), *map(str, cpps)], capture_output=True, text=True)
+    for cpp in cpps:
+        cpp.unlink()
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The emulated kernels' library, entry points declared as
+    :data:`mcqueens_torch.kernels._build.ENTRY_POINTS` declares them."""
+    lib = ctypes.CDLL(str(build()))
+    for name in ENTRY_POINTS:
+        fn = getattr(lib, name)
+        fn.argtypes = _build.ENTRY_POINTS[name]
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the board scan sampler and the slice copy of one checkout of the
-port on one CUDA GPU, so that two commits can be compared in one run:
+"""Time the scan samplers and the slice copy of one checkout of the port on
+one CUDA GPU, so that two commits can be compared in one run:
 
     python3 pair_scan_slice.py --root DIR [--label NAME] [--json PATH]
 
@@ -14,11 +14,15 @@ public functions that both sides have are called.  Phases:
     1M steps, stride 1, kernel tables) through
     ``drivers.run_from_config(plot=False)``: wall time, after one tiny run
     that loads the kernel;
-  * the board scan kernel alone at that configuration's launch shape (10
-    chains, stride 1, 100000 steps from step 0): microseconds per step;
-  * the board scan kernel alone at 4096 chains (N=16, linear 1->5 over
-    2^24 steps, one 16384-step chunk after a first one), tables and naive:
-    proposed moves/s;
+  * ``config.yaml``'s beta_start_end_pairs section (N=12, three linear
+    pairs, 10 runs, 1M steps, stride 1, kernel tables) as full_3d (Q=144)
+    through ``drivers.run_beta_start_end_pairs(plot=False)``: wall time;
+  * each scan kernel alone at those configurations' launch shape (10
+    chains, stride 1, 100000 steps from step 0; board N=12 and 18, full-3D
+    N=12, Q=144 with the first pair's schedule): microseconds per step;
+  * each scan kernel alone at 4096 chains, tables and naive, one 16384-step
+    chunk after a first one (board N=16, linear 1->5 over 2^24 steps;
+    full-3D N=12, Q=144, linear 0.5->3 over 1M steps): proposed moves/s;
   * the slice copy (``kernels/probes_mem.py``) at the slice tool's
     card-filling shape, (256, 67584) int32, 16 rows at row 240 (load) and
     48 (store), beside ``torch.narrow_copy`` and ``Tensor.index_fill``,
@@ -54,7 +58,7 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise SystemExit("pair_scan_slice: no CUDA GPU")
-    from mcqueens_torch.chain import board
+    from mcqueens_torch.chain import board, full3d
     from mcqueens_torch.chain.spec import ChainSpec
     from mcqueens_torch.core import rng
     from mcqueens_torch.core.schedules import build_schedule, chunk_betas
@@ -78,26 +82,26 @@ def main(argv=None):
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def spec_of(N, n_steps, stride, schedule, kernel):
+    def spec_of(N, n_steps, stride, schedule, kernel, **kw):
         return ChainSpec(N=N, n_steps=n_steps, schedule=schedule,
-                         kernel=kernel, history_stride=stride)
+                         kernel=kernel, history_stride=stride, **kw)
 
-    def scan_state(spec, chains, start_outer):
+    def scan_state(mod, spec, chains, start_outer):
         keys = rng.chain_keys_from_seeds(np.arange(chains, dtype=np.uint32),
                                          "cuda")
-        carry = board.init_carry_batch(keys, spec, device="cuda")
+        carry = mod.init_carry_batch(keys, spec, device="cuda")
         if start_outer:
-            carry, _ = board.run_segment(carry, 0, spec, start_outer)
-        return board.segment_state(carry)
+            carry, _ = mod.run_segment(carry, 0, spec, start_outer)
+        return mod.segment_state(carry)
 
-    def scan_ms(spec, chains, start_outer, n_outer):
-        st = scan_state(spec, chains, start_outer)
+    def scan_ms(mod, spec, chains, start_outer, n_outer):
+        st = scan_state(mod, spec, chains, start_outer)
         stride = spec.history_stride
         beta = chunk_betas(spec.schedule, start_outer * stride,
                            n_outer * stride, "cuda")
         ys = torch.empty((n_outer, chains), dtype=torch.int32, device="cuda")
-        return events_ms(lambda: board.segment_cuda(st, ys, start_outer,
-                                                    n_outer, spec, beta))
+        return events_ms(lambda: mod.segment_cuda(st, ys, start_outer,
+                                                  n_outer, spec, beta))
 
     out = {"label": args.label, "root": root,
            "card": subprocess.run(
@@ -108,7 +112,9 @@ def main(argv=None):
     # Load the kernel library and every kernel this run launches.
     flat = build_schedule("constant", 64, beta_const=1.0)
     for kern in ("tables", "naive"):
-        scan_ms(spec_of(4, 64, 1, flat, kern), 4, 0, 8)
+        scan_ms(board, spec_of(4, 64, 1, flat, kern), 4, 0, 8)
+        scan_ms(full3d, spec_of(3, 64, 1, flat, kern, mcmc_type="full_3d"),
+                4, 0, 8)
 
     cfg = load_config(os.path.join(root, "config.yaml"))
     t0 = time.perf_counter()
@@ -118,22 +124,48 @@ def main(argv=None):
     torch.cuda.synchronize()
     out["config_yaml_slice_s"] = time.perf_counter() - t0
 
+    pairs = cfg.section("beta_start_end_pairs")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        drivers.run_beta_start_end_pairs(
+            N=pairs["N"], n_steps=cfg.n_steps,
+            beta_start_ends=pairs["beta_start_ends"],
+            annealing_type=pairs["annealing_type"],
+            init_mode=cfg.init_mode, n_runs=cfg.n_runs,
+            base_seed=cfg.sched_cfg["base_seed"], verbose=cfg.verbose,
+            plot=False, mcmc_type="full_3d",
+            early_stop_patience=cfg.early_stop_patience, tpu=cfg.tpu,
+            device="cuda")
+    torch.cuda.synchronize()
+    out["beta_pairs_as_full3d_s"] = time.perf_counter() - t0
+
+    n, steps = 10 ** 6, 100_000
     out["board_scan_us_per_step_c10"] = {}
     for N, beta_end in ((12, 3.0), (18, 5.0)):
-        n = 10 ** 6
         spec = spec_of(N, n, 1, build_schedule(
             "exponential_annealing", n, beta_start=1.0, beta_end=beta_end),
             "tables")
-        ms = scan_ms(spec, 10, 0, 100_000)
-        out["board_scan_us_per_step_c10"][f"N={N}"] = ms * 1e3 / 100_000
+        ms = scan_ms(board, spec, 10, 0, steps)
+        out["board_scan_us_per_step_c10"][f"N={N}"] = ms * 1e3 / steps
+    spec = spec_of(12, n, 1, build_schedule(
+        "linear_annealing", n, beta_start=0.5, beta_end=3.0), "tables",
+        mcmc_type="full_3d")
+    out["full3d_scan_us_per_step_c10"] = {
+        "N=12": scan_ms(full3d, spec, 10, 0, steps) * 1e3 / steps}
 
-    out["board_scan_4096_moves_per_s"] = {}
-    horizon, stride, chains = 2 ** 24, 16384, 4096
-    for kern in ("tables", "naive"):
-        spec = spec_of(16, horizon, stride, build_schedule(
-            "linear_annealing", horizon, beta_start=1.0, beta_end=5.0), kern)
-        ms = scan_ms(spec, chains, 1, 1)
-        out["board_scan_4096_moves_per_s"][kern] = stride * chains / ms * 1e3
+    stride, chains = 16384, 4096
+    for mod, key, N, horizon, b0, b1, kw in (
+            (board, "board_scan_4096_moves_per_s", 16, 2 ** 24, 1.0, 5.0,
+             {}),
+            (full3d, "full3d_scan_4096_moves_per_s", 12, 10 ** 6, 0.5, 3.0,
+             dict(mcmc_type="full_3d"))):
+        out[key] = {}
+        for kern in ("tables", "naive"):
+            spec = spec_of(N, horizon, stride, build_schedule(
+                "linear_annealing", horizon, beta_start=b0, beta_end=b1),
+                kern, **kw)
+            ms = scan_ms(mod, spec, chains, 1, 1)
+            out[key][kern] = stride * chains / ms * 1e3
 
     S, C, width = 256, 67584, 16
     x = torch.arange(S * C, dtype=torch.int32, device="cuda").reshape(S, C)

@@ -28,6 +28,7 @@ from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.core import rng, schedules
 from mcqueens_torch.dist import runner
 from tests import _oracle
+from tests.test_torch_foundations import release_jax_executables  # noqa: F401
 
 LIN = dict(sched_type="linear_annealing", beta_start=0.5, beta_end=3.0)
 COLD = dict(sched_type="constant", beta_const=50.0)
@@ -35,9 +36,10 @@ EXP = dict(sched_type="exponential_annealing", beta_start=1.0, beta_end=3.0)
 
 # name -> (ChainSpec kwargs, schedule kwargs, warm start[, the n_outer of
 # each run_segment call in turn, the whole run in one call if absent]).  The
-# CUDA kernel draws 32 steps at a time from each segment's first step, so
-# the cases below "n5_warm_klarner" reach its batches' edges: a stop inside
-# a batch, segments of 31 and 33 steps, a segment from start_outer > 0.
+# CUDA kernels draw 32 steps at a time from each segment's first step, so
+# the cases below "n5_warm_klarner" here and below "n6_warm_latin" in
+# FULL3D_CASES reach their batches' edges: a stop inside a batch, segments
+# of 31 and 33 steps, a segment from start_outer > 0.
 BOARD_CASES = {
     # stride 7 over 100 steps: the 15th chunk runs 5 steps past n_steps
     "n2_tail": (dict(N=2, n_steps=100, history_stride=7), LIN, False),
@@ -67,6 +69,17 @@ FULL3D_CASES = {
                              early_stop_patience=30), COLD, False),
     "n6_warm_latin": (dict(N=6, n_steps=100, history_stride=50,
                            init_mode="latin"), LIN, True),
+    "n4_q16_patience_in_batch": (dict(N=4, Q=16, n_steps=300,
+                                      history_stride=64,
+                                      early_stop_patience=13), COLD, False),
+    "n3_q13_segments_31_33": (dict(N=3, Q=13, n_steps=64, history_stride=1),
+                              LIN, False, (31, 33)),
+    "n5_q13_start_outer_stride7": (dict(N=5, Q=13, n_steps=150,
+                                        history_stride=7, n_bins=9), LIN,
+                                   False, (5, 17)),
+    # every accepted move frees the cell the next proposals may draw
+    "n2_q7_stride1": (dict(N=2, Q=7, n_steps=70, history_stride=1), LIN,
+                      False),
 }
 SEEDS = 3 + np.arange(6, dtype=np.uint32)
 RESULT_FIELDS = ("energy_history", "history_steps", "history_len",
@@ -86,9 +99,9 @@ def _specs(case_kw, sched, **over):
     )
 
 
-def _warm(spec, seed):
+def _warm(spec, seed, C=len(SEEDS)):
     rs = np.random.default_rng(seed)
-    C, N = len(SEEDS), spec.N
+    N = spec.N
     if spec.mcmc_type == "board":
         return rs.integers(0, N, size=(C, N, N)).astype(np.int32)
     cells = np.stack([rs.permutation(N ** 3)[:spec.q_eff] for _ in range(C)])
@@ -150,10 +163,10 @@ def test_board_scan_parity(case, kernel):
 @pytest.mark.parametrize("kernel", ["tables", "naive"])
 @pytest.mark.parametrize("case", sorted(FULL3D_CASES))
 def test_full3d_scan_parity(case, kernel):
-    case_kw, sched, warm = FULL3D_CASES[case]
+    case_kw, sched, warm, *segments = FULL3D_CASES[case]
     jspec, spec = _specs(case_kw, sched, kernel=kernel, mcmc_type="full_3d")
     starts = _warm(spec, 2) if warm else None
-    end = _scan_parity(jfull3d, full3d, jspec, spec, starts)
+    end = _scan_parity(jfull3d, full3d, jspec, spec, starts, *segments)
     for c in range(len(SEEDS)):
         assert int(end.best_energy[c]) == _oracle.full3d_energy(
             end.best_queens[c].numpy())
@@ -162,6 +175,10 @@ def test_full3d_scan_parity(case, kernel):
         assert bool(end.occ[c, cells].all())
     if "patience" in case:
         assert bool(end.done.any())
+        assert torch.equal(end.done, end.stop_step < spec.n_steps)
+    if "in_batch" in case:
+        # a stop at a step other than the last of a 32-step batch
+        assert bool((end.stop_step[end.done] % 32 != 31).any())
 
 
 # (N, kernel, chains) -> (chains per block, shared-memory bytes a block) of
@@ -188,6 +205,36 @@ def test_scan_layout(case):
     device-memory variant, its chains per block and its shared memory."""
     (N, kernel, C), (cpb, smem) = LAYOUTS[case]
     layout = board.scan_layout(N, kernel, C, 132)
+    assert (layout.chains_per_block, layout.smem_bytes) == (cpb, smem)
+    assert layout.in_shared == (smem > 0)
+    assert 1 <= cpb <= min(board.MAX_CHAINS_PER_BLOCK, -(-C // 132))
+    assert layout.smem_bytes <= 232448
+
+
+# (N, Q, kernel, chains) -> (chains per block, shared-memory bytes a block)
+# of the CUDA full-3D scan on a 132-SM card.  A chain's slot is 6Q words of
+# queens and best queens, ceil(N^3 / 4) words of occupancy bytes and, for
+# "tables", T13(N) words (4204, 9652, 37209, 39388 at N = 12, 18, 35, 36):
+# 22000 B at N=12, 221112 B at N=35, 235312 B at N=36, over the 232448 B a
+# block may have, so 0 bytes: device memory.
+FULL3D_LAYOUTS = {
+    "n12_tables_config_yaml": ((12, 144, "tables", 10), (1, 22000)),
+    "n12_tables_4096": ((12, 144, "tables", 4096), (5, 5 * 22000)),
+    "n12_naive_4096": ((12, 144, "naive", 4096), (7, 7 * 4 * 1296)),
+    "n18_tables_config_yaml": ((18, 324, "tables", 10), (1, 52216)),
+    "n35_tables_shared": ((35, 1225, "tables", 64), (1, 221112)),
+    "n36_tables_device": ((36, 1296, "tables", 8), (1, 0)),
+    "n36_naive_shared": ((36, 1296, "naive", 8), (1, 77760)),
+    "n4_q63_tables_4096": ((4, 63, "tables", 4096), (8, 8 * 4 * 806)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FULL3D_LAYOUTS))
+def test_full3d_scan_layout(case):
+    """The rule that picks the CUDA full-3D scan's shared-memory or
+    device-memory variant, its chains per block and its shared memory."""
+    (N, Q, kernel, C), (cpb, smem) = FULL3D_LAYOUTS[case]
+    layout = full3d.scan_layout(N, Q, kernel, C, 132)
     assert (layout.chains_per_block, layout.smem_bytes) == (cpb, smem)
     assert layout.in_shared == (smem > 0)
     assert 1 <= cpb <= min(board.MAX_CHAINS_PER_BLOCK, -(-C // 132))

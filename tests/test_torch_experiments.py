@@ -30,6 +30,7 @@ from mcqueens_torch.cli import experiments as cli
 from mcqueens_torch.core import schedules
 from mcqueens_torch.dist import runner
 from mcqueens_torch.experiments import config, drivers
+from tests.test_torch_foundations import release_jax_executables  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

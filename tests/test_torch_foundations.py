@@ -11,6 +11,7 @@ import math
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +30,21 @@ from mcqueens_torch.core.init import _klarner_core_m
 from mcqueens_torch.kernels import prng, sizing
 from mcqueens_torch.kernels.board_shared import block_size, padded_chains
 from tests import _oracle
+
+
+@pytest.fixture(scope="module", autouse=True)
+def release_jax_executables():
+    """Drop the process's compiled JAX executables before and after each
+    port test module that uses JAX (the others import this fixture).  Every
+    live XLA:CPU executable keeps memory maps: a module such as
+    test_torch_chain.py adds ~13000 to its process, and an xdist worker
+    that runs several such modules can reach the kernel's vm.max_map_count
+    (65530), where XLA:CPU segfaults and the worker's test fails.  The
+    persistent compile cache (tests/conftest.py) keeps the recompiles
+    cheap; tests/test_tempering.py clears the same way."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
 
 I32_MIN, I32_MAX = -2 ** 31, 2 ** 31 - 1
 

@@ -31,6 +31,7 @@ from mcqueens_torch.kernels import full3d_pallas
 from mcqueens_torch.kernels.carry import (FULL3D_FIELDS, carry_from_numpy,
                                           carry_to_numpy)
 from tests import _oracle
+from tests.test_torch_foundations import release_jax_executables  # noqa: F401
 
 RESULT_FIELDS = ("energy_history", "history_steps", "history_len",
                  "final_energy", "final_state", "best_energy", "best_state",

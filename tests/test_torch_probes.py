@@ -22,6 +22,7 @@ from mcqueens_torch.tools import (probe_full3d_alternatives,
                                   probe_full3d_cap, probe_swar_sweep,
                                   roofline)
 from tests._oracle import pair_attacks
+from tests.test_torch_foundations import release_jax_executables  # noqa: F401
 
 
 @pytest.fixture

@@ -27,6 +27,7 @@ from jax.experimental.pallas import tpu as pltpu
 from mcqueens_torch import tools
 from mcqueens_torch.kernels import probes, probes_mem
 from mcqueens_torch.tools import probe_gather, probe_slice
+from tests.test_torch_foundations import release_jax_executables  # noqa: F401
 
 
 class _RecordingNumpy:

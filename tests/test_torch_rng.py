@@ -19,6 +19,7 @@ from mcqueens.core import init as jinit
 from mcqueens.core import rng as jrng
 from mcqueens.core import tables as jtables
 from mcqueens_torch.core import energy, init, rng, tables
+from tests.test_torch_foundations import release_jax_executables  # noqa: F401
 
 SEEDS = np.array([0, 1, 42, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1, 123456789],
                  dtype=np.uint32)

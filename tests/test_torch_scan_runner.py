@@ -30,6 +30,7 @@ from mcqueens_torch.core import schedules
 from mcqueens_torch.dist import runner
 from tests.test_torch_chain import (EXP, LIN, RESULT_FIELDS, SEEDS, _specs,
                                     _warm)
+from tests.test_torch_foundations import release_jax_executables  # noqa: F401
 
 @pytest.mark.parametrize("mcmc_type,kernel", [
     ("board", "tables"), ("board", "naive"), ("full_3d", "tables"),

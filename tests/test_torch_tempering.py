@@ -33,6 +33,7 @@ from mcqueens_torch.kernels import board_shared, full3d_shared
 from mcqueens_torch.kernels.carry import carry_to_numpy
 from mcqueens_torch.search import tempering
 from tests import _oracle
+from tests.test_torch_foundations import release_jax_executables  # noqa: F401
 
 LADDER = tempering.geometric_ladder(0.5, 3.0, 4)
 SEEDS = np.arange(8, dtype=np.uint32) + 11
