@@ -60,6 +60,18 @@ and the script exits non-zero without printing a result:
    Board freeze mode (track_best off, a per-chain step horizon), against the
    twin: horizons inside the chunk (N=16, 32768 chains), all at 0, past
    n_steps on the tail chunk, with patience, and 1000 chains padded to 1024.
+   The board kernel's layouts (kernels/board_shared.py:layout; every board
+   compare line prints its lanes a chain, chains a CTA and shared or device
+   memory): each team size forced at N=16, 4096 chains, 48 steps from step
+   0; the device-memory instance forced there and picked by the rule at
+   N=128 (256 chains, 16 steps); tempered with 1000 chains padded to 1024;
+   horizons at 0 for half of 32768 chains; patience stops at different
+   steps inside one warp and inside a batch of draws (N=5, 4096 chains);
+   and a Klarner warm start at the least energy (N=11, beta 0.5), where no
+   chain may improve and no best board may be written.  Every instance is
+   loaded before the first timed launch, each kernel is timed behind a spin
+   kernel (so a launch never waits for the host), and each board instance's
+   registers must stay within the 64 its layout rule reckons with.
    Scan samplers (kernels/csrc/board_scan.cu, full3d_scan.cu), each shape
    in both modes (tables and naive) against the twin over a whole segment
    of several chunks, and tables == naive on the card: config.yaml's cells
@@ -97,8 +109,10 @@ and the script exits non-zero without printing a result:
    pallas (N=12, 4096 runs, 2^17 steps).  Then the freeze-mode path: the
    board CLI configuration (N=16, 32768 chains, 50000 steps, linear 1->3,
    stride 48) through ``board_shared.run_segment`` with track_best on and
-   off, and ``recover_best_heights`` on the untracked run, whose boards must
-   equal the tracked ones bitwise and score their best energies; and the
+   off, and ``recover_best_heights`` on the untracked run (one launch of the
+   replayed steps; first, every schedule kind's betas over a run must equal
+   its chunks' betas on the card), whose boards must equal the tracked ones
+   bitwise and score their best energies; and the
    scan samplers' paths: ``config.yaml`` as committed (compare_beta_end, N
    12 and 18, 10 runs, 1M steps, exponential, stride 1, kernel tables)
    through ``drivers.run_from_config``, and its beta_start_end_pairs
@@ -157,7 +171,7 @@ from mcqueens_torch.chain import board as board_chain  # noqa: E402
 from mcqueens_torch.chain import full3d as full3d_chain  # noqa: E402
 from mcqueens_torch.chain.spec import ChainSpec  # noqa: E402
 from mcqueens_torch.cli import competition  # noqa: E402
-from mcqueens_torch.core import rng, tables  # noqa: E402
+from mcqueens_torch.core import fastinit, rng, tables  # noqa: E402
 from mcqueens_torch.core.energy import board_energy, full3d_energy  # noqa: E402
 from mcqueens_torch.core.schedules import (build_schedule,  # noqa: E402
                                            chunk_betas)
@@ -468,15 +482,34 @@ WORK = {board_shared: board_work, full3d_shared: full3d_work,
         full3d_pallas: full3d_pallas_work}
 
 
+def shared_layout(spec, C, track_best, forced=None):
+    """The board kernel's layout of a launch of C chains on this card
+    (kernels/board_shared.py:layout), or the forced one."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return forced or board_shared.layout(spec.N, C, n_sm, track_best)
+
+
+def shared_note(lay):
+    """A board kernel's layout, for the compare lines."""
+    where = (f"shared memory, {lay.smem_bytes} B a CTA" if lay.in_shared
+             else "device memory")
+    return (f"; L={lay.lanes} lanes a chain, {lay.chains_per_cta} chains a "
+            f"CTA in {where}")
+
+
 def compare_case(mod, name, spec, n_chains, start_outer=0, seed0=0,
-                 ladder=None, freeze=None):
+                 ladder=None, freeze=None, forced=None, warm=None):
     """One launch through the kernel and through the twin, on the card, from
     one ``init_carry_batch`` state and one beta tensor; returns a dict with
     max_abs_err, both times, the kernel's state and the launch's work.
     ``freeze`` (board_shared only) maps the padded chain count to the
-    chains' step horizons and runs the freeze mode with track_best off."""
+    chains' step horizons and runs the freeze mode with track_best off;
+    ``forced`` (board_shared only) is a layout to launch with instead of
+    the rule's; ``warm`` maps the chain count to warm-start boards.  The
+    kernel is timed on the card alone (behind a spin kernel)."""
     seeds = seed0 + np.arange(n_chains, dtype=np.uint32)
-    carry = mod.init_carry_batch(seeds, spec, device="cuda")
+    kw = {} if warm is None else {"initial_states": warm(n_chains)}
+    carry = mod.init_carry_batch(seeds, spec, device="cuda", **kw)
     C = int(carry.energy.shape[0])
     step0, n_inner = start_outer * spec.history_stride, spec.history_stride
     beta = chunk_betas(spec.schedule, step0, n_inner, carry.device)
@@ -490,10 +523,11 @@ def compare_case(mod, name, spec, n_chains, start_outer=0, seed0=0,
         mode = dict(freeze=torch.as_tensor(
             freeze(C), dtype=torch.int32, device=carry.device),
             track_best=False)
+    kmode = dict(mode) if forced is None else dict(mode, forced=forced)
     k_st, t_st = mod.segment_state(carry), mod.segment_state(carry)
     launches = mod.KERNEL_LAUNCHES
-    kernel_ms = cuda_ms(lambda: mod.segment_cuda(
-        k_st, step0, n_inner, spec, beta, *extra, **mode))
+    kernel_ms = device_ms(lambda: mod.segment_cuda(
+        k_st, step0, n_inner, spec, beta, *extra, **kmode), reps=1)
     # Comparison launches are not the main path's: take this one back.
     mod.KERNEL_LAUNCHES = launches
     twin_ms = cuda_ms(lambda: mod.segment_reference(
@@ -513,12 +547,55 @@ def compare_case(mod, name, spec, n_chains, start_outer=0, seed0=0,
                    snapshot(k_st, mod in PER_CHAIN), step0, n_inner,
                    track_best=freeze is None, freeze=freeze is not None)
     work = WORK[mod](ln)
+    lay, note = None, ""
+    if mod is board_shared:
+        lay = shared_layout(spec, C, freeze is None, forced)
+        note = shared_note(lay)
     phase("compare", f"{name}: kernel == twin on all {len(vars(k_st))} "
           f"state fields; {ln.proposals} proposals, {ln.accepted} "
           f"accepted, {ln.improved} chains improved; kernel "
-          f"{kernel_ms:.3f} ms, twin {twin_ms:.1f} ms")
+          f"{kernel_ms:.3f} ms, twin {twin_ms:.1f} ms{note}")
     return dict(err=err, kernel_ms=kernel_ms, twin_ms=twin_ms, st=k_st,
-                spec=spec, work=work, n_chains=n_chains)
+                spec=spec, work=work, n_chains=n_chains, layout=lay,
+                init=carry)
+
+
+def check_layout_case(name, res, kw):
+    """What each of the board kernel's layout cases is there to show."""
+    st, lay, spec = res["st"], res["layout"], res["spec"]
+    C = int(st.energy.shape[0])
+    if "forced" in kw and lay != kw["forced"]:
+        raise AssertionError(f"{name}: launched as {lay}")
+    if "device memory" in name and lay.in_shared:
+        raise AssertionError(f"{name}: boards in shared memory")
+    if "padding" in name and C != 1024:
+        raise AssertionError(f"{name}: not padded to 1024")
+    if "frozen" in name or "at 0 for half" in name:
+        if int(st.total_bins[:, ::2].sum()):
+            raise AssertionError(f"{name}: a chain frozen at 0 moved")
+    if "patience" in name:
+        stops = st.stop_step.cpu().numpy()
+        teams = 32 // lay.lanes  # chains a warp
+        stopped = stops < spec.n_steps
+        warps = {}
+        for c in np.flatnonzero(stopped):
+            warps.setdefault(c // teams, set()).add(int(stops[c]))
+        mixed = sum(len(v) > 1 for v in warps.values())
+        inside = int(((stops[stopped] % lay.lanes) != lay.lanes - 1).sum())
+        if not mixed or not inside:
+            raise AssertionError(f"{name}: {mixed} warps with stops at "
+                                 f"different steps, {inside} inside a batch")
+        phase("compare", f"{name}: {int(stopped.sum())} chains stopped, "
+              f"{mixed} warps with stops at different steps, {inside} "
+              f"stops inside a batch of {lay.lanes} draws")
+    if "least energy" in name:
+        init = res["init"]
+        if int(st.best_step.max()) or not torch.equal(
+                st.best_heights, init.best_heights.t()):
+            raise AssertionError(f"{name}: a chain improved or a best "
+                                 f"board was written")
+        if not int(st.accept_bins.sum()):
+            raise AssertionError(f"{name}: no move was accepted")
 
 
 def run_cli(argv):
@@ -566,6 +643,18 @@ def warm_up():
             else seeds
         mod.run_segment(mod.init_carry_batch(init, spec, device="cuda"), 0,
                         spec, 1)
+    # The board kernel has an instance for each team size, in shared and in
+    # device memory: load each one.
+    spec = spec_of(4, 8, 8, const(8, 1.0))
+    st = board_shared.segment_state(board_shared.init_carry_batch(
+        np.arange(4, dtype=np.uint32), spec, device="cuda"))
+    beta = chunk_betas(spec.schedule, 0, 8, "cuda")
+    for lanes in board_shared.LANES:
+        cpb = 32 // lanes
+        for smem in (board_shared.cta_smem_bytes(4, cpb, True), 0):
+            board_shared.segment_cuda(st, 0, 8, spec, beta,
+                                      forced=board_shared.Layout(lanes, cpb,
+                                                                 smem))
     torch.cuda.synchronize()
     zero_launches()
     phase("build", f"one warm-up launch of every kernel: "
@@ -1052,10 +1141,10 @@ def recover_slice():
     t_rec = time.perf_counter() - t0
     replay = min(n_outer, max(1, -(-int(untracked.best_step.max())
                                    // stride)))
-    got = check_launches("recover slice", {board_shared: n_outer + replay})
-    if board_shared.FREEZE_LAUNCHES != replay:
+    got = check_launches("recover slice", {board_shared: n_outer + 1})
+    if board_shared.FREEZE_LAUNCHES != 1:
         raise AssertionError(f"recover slice: {board_shared.FREEZE_LAUNCHES}"
-                             f" freeze-mode launches, expected {replay}")
+                             f" freeze-mode launches, expected 1")
     for field in ("energy", "best_energy", "best_step", "no_improve",
                   "stop_step", "heights", "accept_bins", "total_bins"):
         if not torch.equal(getattr(tracked, field), getattr(untracked,
@@ -1080,8 +1169,33 @@ def recover_slice():
           f"{int(untracked.best_step.max())}); all {C} recovered boards == "
           f"tracked boards, oracle re-score == best energy (min "
           f"{int(best.min())}); {got[board_shared]} kernel launches, "
-          f"{replay} in freeze mode")
-    return dict(launches=replay, t_on=t_on, t_off=t_off, t_rec=t_rec)
+          f"1 in freeze mode")
+    return dict(launches=1, t_on=t_on, t_off=t_off, t_rec=t_rec)
+
+
+def check_chunk_betas():
+    """The recover replay evaluates a run's betas in one call: each step's
+    beta must not depend on the chunk it was evaluated in, for every
+    schedule kind on the card."""
+    for kind, kw in (("linear_annealing", dict(beta_start=1.0, beta_end=3.0)),
+                     ("exponential_annealing",
+                      dict(beta_start=0.5, beta_end=5.0)),
+                     ("logarithmic_annealing",
+                      dict(beta_start=0.5, beta_end=5.0)),
+                     ("sinusoidal_annealing",
+                      dict(beta_start=0.5, beta_end=5.0)),
+                     ("constant", dict(beta_const=2.0))):
+        for n, stride in ((50000, 48), (2 ** 24, 32768), (1000003, 977)):
+            sched = build_schedule(kind, n, **kw)
+            n_outer = min(-(-n // stride), 1042)
+            whole = chunk_betas(sched, 0, n_outer * stride, "cuda")
+            parts = torch.cat([chunk_betas(sched, o * stride, stride, "cuda")
+                               for o in range(n_outer)])
+            if not torch.equal(whole, parts):
+                raise AssertionError(f"{kind} n={n} stride={stride}: betas "
+                                     f"depend on the chunk")
+    phase("slice", "chunk_betas over a run == chunk by chunk, every "
+          "schedule kind")
 
 
 def check_scan_runs(path, runs, energy_fn, n_steps):
@@ -2082,11 +2196,17 @@ def main():
               f"{len(_build.SOURCES)} sources in {build_s:.2f} s")
         log = _build.library_path().with_suffix(".log")
         names = [k["name"] for k in KERNELS.values()] + PROBE_FUNCS
-        kernel = None
+        kernel, shared_instances = None, []
         regs, spills = collections.defaultdict(list), collections.Counter()
         for ln in (log.read_text().splitlines() if log.exists() else []):
             if "Compiling entry function" in ln:
                 kernel = next(n for n in names if mangled(n) in ln)
+                inst = re.search(r"board_shared_kernelILi(\d+)ELb([01])E", ln)
+                if inst:
+                    kernel = (f"board_shared_kernel<L={inst[1]}, "
+                              f"{'shared' if inst[2] == '1' else 'device'}"
+                              f" memory>")
+                    shared_instances.append(kernel)
             elif kernel in PROBE_FUNCS:
                 # one line per template instance: summarised below
                 regs[kernel] += map(int, re.findall(r"Used (\d+) reg", ln))
@@ -2094,6 +2214,16 @@ def main():
                     r"(\d+) bytes spill", ln)))
             elif kernel and ("registers" in ln or "spill" in ln):
                 phase("build", f"{kernel}: {ln.strip()}")
+                used = re.search(r"Used (\d+) reg", ln)
+                if (kernel in shared_instances and used
+                        and int(used[1]) > board_shared.REGISTERS):
+                    raise AssertionError(
+                        f"{kernel} uses {used[1]} registers; its layout "
+                        f"rule reckons with {board_shared.REGISTERS}")
+        if log.exists() and len(shared_instances) != 2 * len(
+                board_shared.LANES):
+            raise AssertionError(f"board_shared instances built: "
+                                 f"{shared_instances}")
         for kernel, vals in regs.items():
             phase("build", f"{kernel}: {len(vals)} template instances, "
                   f"{min(vals)}-{max(vals)} registers, {spills[kernel]} "
@@ -2223,6 +2353,36 @@ def main():
             12, 100_000, 128, lin(100_000, 1.0, 3.0)), 1000, 0, 7,
          lambda C: rs.integers(0, 160, C)),
     ]
+    # The board kernel's layouts and edges (kernels/board_shared.py:layout):
+    # each team size and the device-memory instance forced, the rule's
+    # device-memory instance, padding chains in the tempered mode, half the
+    # chains frozen at 0, patience stops that differ inside a warp, and a
+    # warm start at the least energy (no chain may improve, so no best board
+    # may be written).  (name, spec, chains, start_outer, seed0, keywords)
+    main_spec = spec_of(16, 50000, 48, lin(50000, 1.0, 3.0))
+    layout_cases = [
+        *[(f"board L={L} forced N=16 C=4096 48 steps", main_spec, 4096, 0,
+           42, dict(forced=board_shared.Layout(
+               L, 32, board_shared.cta_smem_bytes(16, 32, True))))
+          for L in sorted(board_shared.LANES)],
+        ("board device memory forced N=16 C=4096 48 steps", main_spec, 4096,
+         0, 42, dict(forced=board_shared.Layout(8, 32, 0))),
+        ("board device memory N=128 C=256 16 steps", spec_of(
+            128, 1 << 20, 16, lin(1 << 20, 1.0, 3.0)), 256, 0, 5, {}),
+        ("board tempered 1000 chains (padding) N=16 ladder 16", spec_of(
+            16, 50000, 48, const(50000, 1.0)), 1000, 0, 42,
+         dict(ladder=geometric_ladder(1.0, 3.0, 16))),
+        ("board freeze at 0 for half the chains N=16 C=32768 48 steps",
+         main_spec, 32768, 10, 42, dict(freeze=lambda C: np.where(
+             np.arange(C) % 2, rs.integers(480, 528, C), 0))),
+        ("board patience stops inside a warp N=5 C=4096", spec_of(
+            5, 600, 64, const(600, 50.0), early_stop_patience=13), 4096, 0,
+         3, {}),
+        ("board warm start at the least energy N=11 klarner beta=0.5",
+         spec_of(11, 256, 256, const(256, 0.5)), 256, 0, 0,
+         dict(warm=lambda C: fastinit.board_init_batch(
+             torch.zeros(C, dtype=torch.int32), 11, "klarner").numpy())),
+    ]
     # (name, spec, chains, start_outer, n_outer, seed0, warm start)
     scan_board_cases = [
         ("board_scan config.yaml cell N=12 C=10 stride 1",
@@ -2342,6 +2502,13 @@ def main():
                 raise AssertionError(f"{name}: a frozen chain moved")
             if "padding" in name and st.energy.shape[0] != 1024:
                 raise AssertionError(f"{name}: not padded to 1024")
+    with timed("compare board layouts"):
+        for name, spec, n_chains, start_outer, seed0, kw in layout_cases:
+            res = compare_case(board_shared, name, spec, n_chains,
+                               start_outer, seed0, **kw)
+            results[name] = dict(
+                res, mod="freeze" if "freeze" in kw else board_shared)
+            check_layout_case(name, res, kw)
     with timed("compare scan samplers"):
         for mod, cases in ((board_chain, scan_board_cases),
                            (full3d_chain, scan_full3d_cases)):
@@ -2424,6 +2591,7 @@ def main():
     with timed("slice full3d pairs"):
         full3d_pallas_launches = full3d_pairs_slice()
     with timed("slice recover"):
+        check_chunk_betas()
         recovered = recover_slice()
     with timed("slice config.yaml"):
         board_scan_launches = config_yaml_slice()

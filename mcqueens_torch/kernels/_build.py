@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Entry point -> argument types (pointers, then ints, then the stream).
 ENTRY_POINTS = {
-    "mcq_board_shared_segment": [_P] * 14 + [_I] * 9 + [_P],
+    "mcq_board_shared_segment": [_P] * 14 + [_I] * 12 + [_P],
     "mcq_board_scan_segment": [_P] * 14 + [_I] * 10 + [_P],
     "mcq_full3d_scan_segment": [_P] * 15 + [_I] * 11 + [_P],
     "mcq_full3d_shared_segment": [_P] * 17 + [_I] * 9 + [_P],

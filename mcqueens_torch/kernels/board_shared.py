@@ -21,8 +21,9 @@ One chunk of ``n_inner`` steps has two implementations over the same
 chains-minor state (:class:`SegmentState`), both updating it in place:
 
   * :func:`segment_cuda` launches the hand-written CUDA kernel
-    (``csrc/board_shared.cu``) and counts the launch in
-    :data:`KERNEL_LAUNCHES`;
+    (``csrc/board_shared.cu``: a team of lanes a chain, boards in shared
+    memory) through :func:`launch_segment`, laid out by :func:`layout`, and
+    counts the launch in :data:`KERNEL_LAUNCHES`;
   * :func:`segment_reference` is its plain-torch twin (vectorised over
     chains, a Python loop over steps).
 
@@ -47,6 +48,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import math
 
 import numpy as np
 import torch
@@ -55,7 +58,7 @@ from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.core import fastinit
 from mcqueens_torch.core import tables as tables_mod
 from mcqueens_torch.core.schedules import chunk_betas
-from mcqueens_torch.kernels import prng, segment, sizing
+from mcqueens_torch.kernels import _build, prng, segment, sizing
 from mcqueens_torch.kernels.carry import BoardCarry
 
 DEFAULT_BLOCK = 2048
@@ -94,7 +97,8 @@ def init_carry_batch(seeds, spec: ChainSpec, block: int | None = None,
     blocks.
 
     Padding chains get seeds ``seeds[-1] + 1 + arange`` (uint32) and, with
-    ``initial_states``, repeat the last warm start.  Block ``b`` seeds its
+    ``initial_states``, repeat the last warm start; a warm-start height
+    outside [0, N) raises ``ValueError`` (:func:`check_heights`).  Block ``b`` seeds its
     site stream with ``int32(seeds[0]) + 7919 * b``.
     """
     seeds = np.asarray(seeds).astype(np.uint32)
@@ -111,6 +115,7 @@ def init_carry_batch(seeds, spec: ChainSpec, block: int | None = None,
     if initial_states is not None:
         h2d = torch.as_tensor(np.asarray(initial_states, np.int32),
                               device=device)
+        check_heights(h2d, N)
         if C > h2d.shape[0]:
             h2d = torch.cat([h2d, h2d[-1:].expand(C - h2d.shape[0], N, N)])
     else:
@@ -143,9 +148,9 @@ def init_carry_batch(seeds, spec: ChainSpec, block: int | None = None,
 class SegmentState:
     """One segment's working state, chains minor (contiguous int32).
 
-    A warp of CUDA threads (one chain each) then reads one cell index of 32
-    neighbouring chains per load.  The chunk implementations update these
-    tensors in place.
+    A CTA of the CUDA kernel then reads one cell index of its neighbouring
+    chains per load when it copies their boards into shared memory.  The
+    chunk implementations update these tensors in place.
     """
 
     heights: torch.Tensor       # (N*N, C)
@@ -167,9 +172,12 @@ _PLANES = ("heights", "best_heights", "accept_bins", "total_bins")
 
 
 def segment_state(carry: BoardCarry) -> SegmentState:
-    """Transpose a carry into a fresh chains-minor :class:`SegmentState`."""
-    return SegmentState(**segment.chains_minor(
+    """Transpose a carry into a fresh chains-minor :class:`SegmentState`;
+    ``ValueError`` if a height lies outside [0, N) (:func:`check_heights`)."""
+    st = SegmentState(**segment.chains_minor(
         carry, _PLANES, _ROWS + ("block_seeds",)))
+    check_heights(st.heights, math.isqrt(st.heights.shape[0]))
+    return st
 
 
 def carry_of(st: SegmentState) -> BoardCarry:
@@ -249,11 +257,131 @@ def segment_reference(st: SegmentState, step0: int, n_inner: int,
         getattr(st, name).copy_(val)
 
 
-def _check_cuda_state(st: SegmentState, spec: ChainSpec, n_inner: int,
-                      beta: torch.Tensor, beta_scale, freeze) -> None:
-    from mcqueens_torch.kernels import _build
+# Lanes a chain, chains a CTA and registers a thread of the CUDA kernel
+# (csrc/board_shared.cu: __launch_bounds__(1024, 1) holds every instance to
+# 64 registers), and the largest N whose heights a shared-memory byte holds.
+LANES = (8, 4, 2, 1)
+MAX_CHAINS_PER_CTA = 128
+MAX_THREADS_PER_CTA = 1024
+REGISTERS = 64
+MAX_SHARED_N = 127
+# An SM's limits on Hopper: resident threads, CTAs and 32-bit registers.
+_SM_THREADS, _SM_CTAS, _SM_REGISTERS = 2048, 32, 65536
 
-    NN, C = spec.N * spec.N, st.energy.shape[0]
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """How the CUDA kernel lays out a launch: ``lanes`` lanes a chain,
+    ``chains_per_cta`` chains a CTA, and ``smem_bytes`` of shared memory a
+    CTA holding its chains' boards (and best boards), or 0 when the kernel
+    walks them in device memory."""
+
+    lanes: int
+    chains_per_cta: int
+    smem_bytes: int
+
+    @property
+    def in_shared(self) -> bool:
+        return self.smem_bytes > 0
+
+
+def row_pitch(N: int) -> int:
+    """Bytes of a board row in shared memory: N rounded up to an odd number
+    of words, so that a team's column reads fall in different banks."""
+    return 4 * (-(-N // 4) | 1)
+
+
+def slot_bytes(N: int, track_best: bool) -> int:
+    """Shared-memory bytes of one chain: its board and, with
+    ``track_best``, its best board, an odd number of words."""
+    return 4 * ((1 + bool(track_best)) * N * row_pitch(N) // 4 | 1)
+
+
+def cta_smem_bytes(N: int, chains_per_cta: int, track_best: bool) -> int:
+    """Shared memory of a CTA: a flag word and a slot per chain."""
+    return chains_per_cta * (4 + slot_bytes(N, track_best))
+
+
+def _resident(lanes: int, cpb: int, smem: int) -> int:
+    """Chains an SM holds at once: its threads, CTAs, registers and (for
+    the shared-memory instance) shared memory."""
+    threads = lanes * cpb
+    ctas = min(_SM_CTAS, _SM_THREADS // threads,
+               _SM_REGISTERS // (REGISTERS * threads))
+    if smem:
+        ctas = min(ctas, _build.SMEM_PER_SM // (
+            smem + _build.SMEM_RESERVED_PER_BLOCK))
+    return cpb * ctas
+
+
+@functools.cache
+def layout(N: int, C: int, n_sm: int, track_best: bool) -> Layout:
+    """The CUDA kernel's layout for ``C`` chains of board size ``N`` on a
+    card of ``n_sm`` SMs.
+
+    Boards go to shared memory, one byte a cell, whenever N <= 127 and a CTA
+    of them fits; otherwise the device-memory instance walks them in place.
+    The lanes a chain are the most (8, 4, 2, 1) that keep all ``C`` chains
+    resident in one wave, ``ceil(C / n_sm)`` an SM (few chains take large
+    teams, many chains small ones; if no team size holds them all, the one
+    that holds the most, ties to fewer lanes).  Chains a CTA are a power of
+    two, at most 128 and at most the wave's chains an SM, so that a launch
+    of few chains spreads over the SMs."""
+    spread = max(1, -(-C // n_sm))
+    shared = N <= MAX_SHARED_N
+
+    def options(lanes):
+        cpbs = [1 << k for k in range(MAX_CHAINS_PER_CTA.bit_length())
+                if 32 <= lanes << k <= MAX_THREADS_PER_CTA]
+        if shared:
+            cpbs = [c for c in cpbs if cta_smem_bytes(N, c, track_best)
+                    <= _build.SMEM_PER_BLOCK]
+        return cpbs
+
+    if shared and not any(options(lanes) for lanes in LANES):
+        shared = False
+
+    def smem(cpb):
+        return cta_smem_bytes(N, cpb, track_best) if shared else 0
+
+    def most(lanes):  # (resident chains an SM, chains a CTA) at its best
+        return max((_resident(lanes, c, smem(c)), c) for c in options(lanes))
+
+    fits = [lanes for lanes in LANES if options(lanes)
+            and most(lanes)[0] >= spread]
+    lanes = fits[0] if fits else max(
+        (lanes for lanes in LANES if options(lanes)),
+        key=lambda lanes: (most(lanes)[0], -lanes))
+    opts = options(lanes)
+    cap = 1 << (spread.bit_length() - 1)  # the largest power of two <= spread
+    cpb = min(most(lanes)[1], max(opts[0], cap))
+    return Layout(lanes, cpb, smem(cpb))
+
+
+def check_heights(heights: torch.Tensor, N: int) -> None:
+    """Raise ``ValueError`` unless every height lies in [0, N): the CUDA
+    kernel keeps a board as bytes and wraps a moved height by one
+    subtraction."""
+    if not heights.numel():
+        return
+    lo, hi = torch.stack(torch.aminmax(heights)).tolist()
+    if lo < 0 or hi >= N:
+        raise ValueError(f"heights must lie in [0, {N}), got [{lo}, {hi}]")
+
+
+def launch_segment(lib, st: SegmentState, step0: int, n_inner: int,
+                   spec: ChainSpec, beta: torch.Tensor,
+                   beta_scale: torch.Tensor | None = None, *,
+                   freeze: torch.Tensor | None = None,
+                   track_best: bool = True, n_sm: int, stream: int = 0,
+                   forced: Layout | None = None) -> Layout:
+    """Check a chunk's arguments, lay it out for ``n_sm`` SMs
+    (:func:`layout`, or ``forced``) and call
+    ``lib.mcq_board_shared_segment`` on ``stream``; raises if it returns an
+    error.  ``lib`` is the CUDA library (:func:`segment_cuda`) or its host
+    emulation (:mod:`mcqueens_torch.kernels.host_emulation`, CPU tensors).
+    Returns the layout."""
+    N, NN, C = spec.N, spec.N * spec.N, st.energy.shape[0]
     n_blocks = st.block_seeds.shape[0]
     i32, f32 = torch.int32, torch.float32
     want = {
@@ -272,41 +400,46 @@ def _check_cuda_state(st: SegmentState, spec: ChainSpec, n_inner: int,
     _build.check_args(st.heights.device, want)
     if C == 0 or n_blocks == 0 or C % n_blocks:
         raise ValueError(f"{C} chains do not split into {n_blocks} blocks")
-
-
-def segment_cuda(st: SegmentState, step0: int, n_inner: int,
-                 spec: ChainSpec, beta: torch.Tensor,
-                 beta_scale: torch.Tensor | None = None, *,
-                 freeze: torch.Tensor | None = None,
-                 track_best: bool = True) -> None:
-    """Advance every chain by ``n_inner`` steps with the CUDA kernel
-    (asynchronous on the current stream; counts the launch)."""
-    global KERNEL_LAUNCHES, FREEZE_LAUNCHES
-    from mcqueens_torch.kernels import _build
-
-    _check_cuda_state(st, spec, n_inner, beta, beta_scale, freeze)
     if not 0 <= step0 <= 2 ** 31 - 1 - n_inner:
         raise ValueError(f"step0={step0} + n_inner={n_inner} overflows int32")
-    lib = _build.load_library()
-    dev = st.heights.device
+    lay = forced or layout(N, C, n_sm, track_best)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (
         st.heights, st.best_heights, st.energy, st.best_energy,
         st.best_step, st.no_improve, st.stop_step, st.accept_bins,
         st.total_bins, st.chain_seeds, st.block_seeds, beta)]
     ptrs += [ctypes.c_void_p(None if t is None else t.data_ptr())
              for t in (beta_scale, freeze)]
-    C = st.energy.shape[0]
     patience = spec.early_stop_patience
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mcq_board_shared_segment(
-            *ptrs, step0, n_inner, spec.N, C,
-            C // st.block_seeds.shape[0], spec.n_steps, spec.n_bins,
-            -1 if patience is None else patience, int(track_best),
-            ctypes.c_void_p(stream))
+    err = lib.mcq_board_shared_segment(
+        *ptrs, step0, n_inner, N, C, C // n_blocks, spec.n_steps,
+        spec.n_bins, -1 if patience is None else patience, int(track_best),
+        lay.lanes, lay.chains_per_cta, lay.smem_bytes,
+        ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"board_shared CUDA kernel launch failed "
                            f"(cudaError {err})")
+    return lay
+
+
+def segment_cuda(st: SegmentState, step0: int, n_inner: int,
+                 spec: ChainSpec, beta: torch.Tensor,
+                 beta_scale: torch.Tensor | None = None, *,
+                 freeze: torch.Tensor | None = None,
+                 track_best: bool = True,
+                 forced: Layout | None = None) -> None:
+    """Advance every chain by ``n_inner`` steps with the CUDA kernel
+    (asynchronous on the current stream; counts the launch), laid out by
+    :func:`layout` unless ``forced`` is given."""
+    global KERNEL_LAUNCHES, FREEZE_LAUNCHES
+    dev = st.heights.device
+    if dev.type != "cuda":
+        raise ValueError(f"segment_cuda: state on {dev}, not a CUDA device")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        launch_segment(_build.load_library(), st, step0, n_inner, spec, beta,
+                       beta_scale, freeze=freeze, track_best=track_best,
+                       n_sm=n_sm, stream=stream, forced=forced)
     KERNEL_LAUNCHES += 1
     FREEZE_LAUNCHES += freeze is not None
 
@@ -364,11 +497,16 @@ def run_segment_tempered(carry: BoardCarry, beta_scale, start_outer: int,
 def _run_segment_frozen(carry: BoardCarry, freeze_row, start_outer: int,
                         spec: ChainSpec, n_outer: int) -> BoardCarry:
     """:func:`run_segment` with per-chain replay horizons, no best
-    tracking."""
+    tracking, as one chunk of ``n_outer * history_stride`` steps: it keeps
+    no history, every draw is keyed by its step, and the betas are the
+    schedule's step by step, so the chunks' boundaries change nothing."""
     freeze = torch.as_tensor(freeze_row, dtype=torch.int32,
                              device=carry.device).reshape(-1).contiguous()
-    return _run(carry, None, start_outer, spec, n_outer, freeze=freeze,
-                track_best=False)[0]
+    st = segment_state(carry)
+    stride = spec.history_stride
+    segment_call(st, int(start_outer) * stride, n_outer * stride, spec,
+                 freeze=freeze, track_best=False)
+    return carry_of(st)
 
 
 def recover_best_heights(carry: BoardCarry, spec: ChainSpec,
@@ -380,7 +518,8 @@ def recover_best_heights(carry: BoardCarry, spec: ChainSpec,
     seeds and block size, advanced with each chain frozen at its own
     ``best_step``, holds each chain's board as of its best step, bitwise
     the board a ``track_best=True`` run would have copied.  The replay runs
-    ``min(n_outer, ceil(max(best_step) / stride))`` chunks from step 0.
+    ``min(n_outer, ceil(max(best_step) / stride))`` chunks from step 0, in
+    one launch.
 
     Args:
         carry: the final carry of a :func:`run_segment` run (any

@@ -1,5 +1,6 @@
-// Host emulation of the CUDA runtime and warp intrinsics that the scan
-// kernels use (board_scan.cu, full3d_scan.cu), so that a kernel's logic can
+// Host emulation of the CUDA runtime and warp intrinsics that the warp
+// kernels use (board_scan.cu, full3d_scan.cu, board_shared.cu), so that a
+// kernel's logic can
 // be run and checked on a machine without a GPU or nvcc.  Built with g++
 // -std=c++20 -pthread by mcqueens_torch/kernels/host_emulation.py, which
 // puts this directory first on the include path (so the sources'
@@ -9,13 +10,17 @@
 // `extern __shared__ T name[];` a pointer to the block's shared memory.
 //
 // One fiber (ucontext) per CUDA thread, all on the calling OS thread; the
-// blocks of a launch run one after another, the fibers of a block round
-// robin, each until it waits at a barrier.  A warp-wide intrinsic is "write
+// blocks of a launch run one after another, the fibers of an even block
+// round robin, each until it waits at a barrier, those of an odd block a
+// warp at a time (each warp until it waits at __syncthreads or ends).  A warp-wide intrinsic is "write
 // my slot, wait for the warp, read" (two slot banks used in turn, so no
 // second wait), __syncwarp a wait for the warp, __syncthreads for the
 // block.  As each lane runs as far as it can alone, a lane that reads what
 // another lane stored in the same step (a race on the card, hidden there by
-// lanes that run converged) sees it here; a round of the scheduler in which
+// lanes that run converged) sees it here, and so, in an odd block, does a
+// warp that reads shared memory other warps have not yet written (a missing
+// __syncthreads; the block's memory starts filled with 0xA5); a round of
+// the scheduler in which
 // no fiber arrives at a barrier or ends (lanes that reached different warp
 // intrinsics) aborts the process with a message rather than hang, and so
 // does a launch that runs over a minute (an endless loop).  Not
@@ -165,6 +170,21 @@ inline int reduce_add(int v) {
   return (int)sum;
 }
 
+inline int reduce_max(int v) {
+  const uint64_t* slot = exchange((uint64_t)(uint32_t)v);
+  int m = (int)(uint32_t)slot[0];
+  for (int l = 1; l < 32; ++l) m = max(m, (int)(uint32_t)slot[l]);
+  return m;
+}
+
+inline bool any(bool p) {
+  const uint64_t* slot = exchange(p ? 1 : 0);
+  for (int l = 0; l < 32; ++l) {
+    if (slot[l]) return true;
+  }
+  return false;
+}
+
 // Aborts the process unless destroyed within `seconds`.
 class Watchdog {
  public:
@@ -229,16 +249,27 @@ void launch(void (*kernel)(P...), dim3 grid, dim3 threads, size_t smem,
       f.ctx.uc_link = &scheduler;
       makecontext(&f.ctx, trampoline, 0);
     }
+    // Even blocks run their fibers round robin; odd blocks run one warp at
+    // a time until it waits at __syncthreads or ends, so that a warp reads
+    // shared memory before the other warps have written it.
+    const unsigned span = b % 2 ? 32 : threads.x;
     for (unsigned live = threads.x; live;) {
       const long before = progress;
       live = 0;
-      for (Fiber& f : fibers) {
-        if (f.done) continue;
-        current = &f;
-        threadIdx = dim3(f.tid);
-        swapcontext(&scheduler, &f.ctx);
-        live += !f.done;
+      for (unsigned w0 = 0; w0 < threads.x; w0 += span) {
+        for (long moved = -1; moved != progress;) {
+          moved = progress;
+          for (unsigned t = w0; t < w0 + span; ++t) {
+            Fiber& f = fibers[t];
+            if (f.done) continue;
+            current = &f;
+            threadIdx = dim3(f.tid);
+            swapcontext(&scheduler, &f.ctx);
+          }
+          if (span == threads.x) break;
+        }
       }
+      for (const Fiber& f : fibers) live += !f.done;
       if (live && progress == before) {
         fprintf(stderr, "emu: block %u stuck with %u threads waiting (a "
                 "warp intrinsic reached on diverged paths?)\n", b, live);
@@ -256,6 +287,12 @@ template <typename T>
 T __shfl_sync(unsigned, T v, int src) {
   return emu::shfl(v, src);
 }
+template <typename T>
+T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  return emu::shfl(v, (int)(threadIdx.x % 32) ^ lane_mask);
+}
 inline int __reduce_add_sync(unsigned, int v) { return emu::reduce_add(v); }
+inline int __reduce_max_sync(unsigned, int v) { return emu::reduce_max(v); }
+inline int __any_sync(unsigned, int p) { return emu::any(p != 0); }
 inline void __syncthreads() { emu::block->bar.wait(); }
 inline void __syncwarp() { emu::my_warp().bar.wait(); }

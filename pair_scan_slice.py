@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the scan samplers and the slice copy of one checkout of the port on
-one CUDA GPU, so that two commits can be compared in one run:
+"""Time the scan samplers, the shared-site board sampler and the slice copy
+of one checkout of the port on one CUDA GPU, so that two commits can be
+compared in one run:
 
     python3 pair_scan_slice.py --root DIR [--label NAME] [--json PATH]
 
@@ -23,6 +24,26 @@ public functions that both sides have are called.  Phases:
   * each scan kernel alone at 4096 chains, tables and naive, one 16384-step
     chunk after a first one (board N=16, linear 1->5 over 2^24 steps;
     full-3D N=12, Q=144, linear 0.5->3 over 1M steps): proposed moves/s;
+  * the shared-site board kernel (``kernels/board_shared.py``) alone, each
+    launch on a fresh state behind a spin kernel, three times, after one
+    untimed launch of the same shape: the main-path chunk (N=16, 32768
+    chains, 48 steps from step 0, linear 1->3 over 50000 steps), the
+    tempered chunk (the same at beta 1 with a 16-rung ladder 1->3) and the
+    freeze chunk (horizons inside chunk 10, track_best off): ms;
+  * the same kernel at ``bench.py``'s configuration (N=16, linear 1->5
+    over 2^24 steps, the second 32768-step chunk) at 32768 and 4096 chains:
+    ms and proposed moves/s;
+  * the board competition CLI (N=16, 32768 runs, 50000 steps, kernel
+    pallas_shared), plain and with a 16-level ladder (``--tempering 16``),
+    and the recover slice at that configuration (``run_segment`` with
+    track_best on, off, then ``recover_best_heights``): wall time, and the
+    moves/s each CLI reports;
+  * the tempered search's round at the tempered CLI's size (N=16, 32768
+    chains, 48-step rounds, a 16-rung ladder 1->3): ``run_tempered`` over
+    200 rounds (init included) per round, and each piece of a round timed
+    alone, synchronised, 50 times: ``segment_state``, the kernel's launch,
+    ``carry_of``, ``chunk_betas``, the exchange and the energies' copy to
+    the host: ms;
   * the slice copy (``kernels/probes_mem.py``) at the slice tool's
     card-filling shape, (256, 67584) int32, 16 rows at row 240 (load) and
     48 (store), beside ``torch.narrow_copy`` and ``Tensor.index_fill``,
@@ -37,6 +58,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -64,7 +86,9 @@ def main(argv=None):
     from mcqueens_torch.core.schedules import build_schedule, chunk_betas
     from mcqueens_torch.experiments import drivers
     from mcqueens_torch.experiments.config import load_config
-    from mcqueens_torch.kernels import probes_mem
+    from mcqueens_torch.cli import competition
+    from mcqueens_torch.kernels import board_shared, probes_mem
+    from mcqueens_torch.search.tempering import geometric_ladder
 
     if not board.__file__.startswith(root):
         raise SystemExit(f"imported {board.__file__}, not from {root}")
@@ -166,6 +190,135 @@ def main(argv=None):
                 kern, **kw)
             ms = scan_ms(mod, spec, chains, 1, 1)
             out[key][kern] = stride * chains / ms * 1e3
+
+    # The shared-site board kernel.
+    def shared_state(spec, chains, seed0):
+        carry = board_shared.init_carry_batch(
+            seed0 + np.arange(chains, dtype=np.uint32), spec, device="cuda")
+        return carry, board_shared.segment_state(carry)
+
+    def shared_chunk_ms(spec, chains, seed0, start_outer=0, ladder=None,
+                        freeze=None):
+        stride = spec.history_stride
+        beta = chunk_betas(spec.schedule, start_outer * stride, stride,
+                           "cuda")
+        times = []
+        for rep in range(4):  # the first loads the kernel: not kept
+            carry, st = shared_state(spec, chains, seed0)
+            C = st.energy.shape[0]
+            args, mode = (), {}
+            if ladder is not None:
+                args = (torch.from_numpy(np.tile(ladder, -(-C // 16))[:C]
+                                         .copy()).cuda(),)
+            if freeze is not None:
+                mode = dict(freeze=torch.as_tensor(
+                    freeze(C), dtype=torch.int32, device="cuda"),
+                    track_best=False)
+            ms = events_ms(lambda: board_shared.segment_cuda(
+                st, start_outer * stride, stride, spec, beta, *args, **mode),
+                spin=True)
+            if rep:
+                times.append(ms)
+        return times
+
+    lin = lambda n, b0, b1: build_schedule(  # noqa: E731
+        "linear_annealing", n, beta_start=b0, beta_end=b1)
+    main_spec = spec_of(16, 50000, 48, lin(50000, 1.0, 3.0),
+                        "pallas_shared")
+    rs = np.random.default_rng(7)
+    out["board_shared_chunk_ms"] = {
+        "main_path": shared_chunk_ms(main_spec, 32768, 42),
+        "tempered": shared_chunk_ms(
+            spec_of(16, 50000, 48, build_schedule(
+                "constant", 50000, beta_const=1.0), "pallas_shared"),
+            32768, 42, ladder=geometric_ladder(1.0, 3.0, 16)),
+        "freeze": shared_chunk_ms(main_spec, 32768, 42, start_outer=10,
+                                  freeze=lambda C: rs.integers(480, 528, C)),
+    }
+    bench = spec_of(16, 2 ** 24, 32768, lin(2 ** 24, 1.0, 5.0),
+                    "pallas_shared")
+    out["board_shared_bench_chunk"] = {}
+    for chains in (32768, 4096):
+        carry, _ = shared_state(bench, chains, 0)
+        carry, _ = board_shared.run_segment(carry, 0, bench, 1)
+        st = board_shared.segment_state(carry)
+        beta = chunk_betas(bench.schedule, 32768, 32768, "cuda")
+        ms = events_ms(lambda: board_shared.segment_cuda(
+            st, 32768, 32768, bench, beta), spin=True)
+        out["board_shared_bench_chunk"][f"C={chains}"] = {
+            "ms": ms, "moves_per_s": 32768 * chains / ms * 1e3}
+
+    def cli_s(extra):
+        with tempfile.TemporaryDirectory() as d:
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                competition.main(["--n", "16", "--n-runs", "32768",
+                                  "--n-steps", "50000", "--kernel",
+                                  "pallas_shared", "--device", "cuda",
+                                  "--outdir", d] + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rate = re.search(r"= ([0-9.e+]+) moves/s", buf.getvalue())
+        return {"wall_s": wall,
+                "moves_per_s_reported": float(rate.group(1))}
+
+    out["board_cli"] = cli_s([])
+    out["board_tempered_cli"] = cli_s(["--tempering", "16"])
+    seeds = 42 + np.arange(32768, dtype=np.uint32)
+    recover = {}
+    for track in (True, False):
+        carry = board_shared.init_carry_batch(seeds, main_spec,
+                                              device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, _ = board_shared.run_segment(carry, 0, main_spec,
+                                            main_spec.n_outer,
+                                            track_best=track)
+        torch.cuda.synchronize()
+        recover["track_best_on_s" if track else "track_best_off_s"] = (
+            time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    board_shared.recover_best_heights(carry, main_spec)
+    torch.cuda.synchronize()
+    recover["replay_s"] = time.perf_counter() - t0
+    out["board_recover"] = recover
+
+    from mcqueens_torch.search import tempering
+
+    def sync_ms(fn, reps=50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    rounds, ladder = 200, geometric_ladder(1.0, 3.0, 16)
+    tspec = spec_of(16, 48 * rounds, 48, lin(48 * rounds, 1.0, 3.0),
+                    "pallas_shared")
+    tempering.run_tempered(seeds[:4096], tspec, ladder, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tempering.run_tempered(seeds, tspec, ladder, device="cuda")
+    torch.cuda.synchronize()
+    split = {"run_tempered_per_round": (time.perf_counter() - t0) / rounds
+             * 1e3}
+    carry, st = shared_state(tspec, 32768, 42)
+    scale = torch.from_numpy(np.tile(ladder, 2048)).cuda()
+    beta = chunk_betas(tspec.schedule, 480, 48, "cuda")
+    energies = carry.energy.reshape(-1)
+    split["segment_state"] = sync_ms(lambda: board_shared.segment_state(carry))
+    split["kernel_launch"] = sync_ms(lambda: board_shared.segment_cuda(
+        st, 480, 48, tspec, beta, scale))
+    split["carry_of"] = sync_ms(lambda: board_shared.carry_of(st))
+    split["chunk_betas"] = sync_ms(lambda: chunk_betas(
+        tspec.schedule, 480, 48, "cuda"))
+    split["exchange"] = sync_ms(lambda: tempering.exchange(
+        scale, energies, tempering.round_key(0, 3), 16, 1))
+    split["energies_to_host"] = sync_ms(lambda: energies.cpu().numpy())
+    out["tempered_round_ms"] = split
 
     S, C, width = 256, 67584, 16
     x = torch.arange(S * C, dtype=torch.int32, device="cuda").reshape(S, C)

@@ -352,3 +352,50 @@ def test_recover_best_heights_warm_start_and_verify():
     # verify=False skips the check and returns the (wrong) replay
     assert board_shared.recover_best_heights(
         tracked, spec, verify=False).shape == rec.shape
+
+
+# -- the CUDA kernel's layout rule (kernels/board_shared.py:layout) --------
+
+
+@pytest.mark.parametrize("track_best", [True, False])
+@pytest.mark.parametrize("C, lanes, cpb", [(256, 8, 4), (4096, 8, 32),
+                                           (32768, 4, 128)])
+def test_layout_rule_n16(C, lanes, cpb, track_best):
+    """N=16 on 132 SMs: large teams when chains are few, small ones when
+    they are many, every chain resident in one wave, boards in a CTA's
+    shared memory, and CTAs that never straddle a semantic block."""
+    from mcqueens_torch.kernels import _build
+
+    lay = board_shared.layout(16, C, 132, track_best)
+    assert (lay.lanes, lay.chains_per_cta) == (lanes, cpb)
+    assert lay.in_shared
+    assert lay.smem_bytes == board_shared.cta_smem_bytes(16, cpb, track_best)
+    assert lay.smem_bytes <= _build.SMEM_PER_BLOCK
+    assert 132 * board_shared._resident(lanes, cpb, lay.smem_bytes) >= C
+    assert (lanes * cpb) % 32 == 0 and lanes * cpb <= 1024
+    _, spec = _specs("n16")
+    assert board_shared.block_size(C, spec) % cpb == 0
+
+
+def test_layout_slot_bytes():
+    """A row is N rounded up to an odd number of words, a slot an odd
+    number of words (bank spread); freeze-mode slots hold no best board."""
+    assert board_shared.row_pitch(16) == 20
+    assert board_shared.row_pitch(5) == 12
+    assert board_shared.slot_bytes(16, True) == 4 * 161
+    assert board_shared.slot_bytes(16, False) == 4 * 81
+    for N in (2, 5, 11, 16, 33, 127):
+        for track in (True, False):
+            assert board_shared.slot_bytes(N, track) // 4 % 2 == 1
+
+
+@pytest.mark.parametrize("C", [16, 256, 4096, 32768])
+def test_layout_device_instance_above_n127(C):
+    """N=128 does not fit a byte: the device-memory instance, no shared
+    memory; N=127 still keeps its boards in shared memory."""
+    for track in (True, False):
+        lay = board_shared.layout(128, C, 132, track)
+        assert not lay.in_shared and lay.smem_bytes == 0
+        assert 132 * board_shared._resident(lay.lanes, lay.chains_per_cta,
+                                            0) >= min(C, 132 * 128)
+        assert board_shared.layout(127, C, 132, track).in_shared
