@@ -72,6 +72,20 @@ and the script exits non-zero without printing a result:
    loaded before the first timed launch, each kernel is timed behind a spin
    kernel (so a launch never waits for the host), and each board instance's
    registers must stay within the 64 its layout rule reckons with.
+   The full-3D shared kernel's layouts (kernels/full3d_shared.py:layout;
+   every full-3D compare line prints its layout too): each team size (1 to
+   32 lanes) forced at the floors launch's width (N=15, Q=225, 4096 chains,
+   44 steps from step 0, 16-level ladder); the device-memory instance
+   forced there and picked by the rule at N=31, Q=29100 (no CTA's slot fits
+   shared memory; 128 chains, 16 steps); tempered with 1000 chains padded to
+   1024; patience stops at different steps inside one warp and inside a
+   chunk (N=5, Q=13, 4096 chains); best planes far behind the live ones
+   (N=6, Q=36, 4096 chains, 2048 steps at beta 0.3 from a cold start); a
+   Klarner warm start at the least energy (N=11, beta 0.5), where no chain
+   may improve and no best plane may be written; and the campaign chunk's
+   shape (N=15, Q=225, 65536 chains, one 62500-step launch from step 6.25M),
+   held against the twin on a sample of 128 chains.  Each instance's
+   registers must stay within the 128 its layout rule reckons with.
    Scan samplers (kernels/csrc/board_scan.cu, full3d_scan.cu), each shape
    in both modes (tables and naive) against the twin over a whole segment
    of several chunks, and tables == naive on the card: config.yaml's cells
@@ -489,8 +503,17 @@ def shared_layout(spec, C, track_best, forced=None):
     return forced or board_shared.layout(spec.N, C, n_sm, track_best)
 
 
+def full3d_layout(st, spec, forced=None):
+    """The full-3D shared kernel's layout of a launch on ``st`` on this card
+    (kernels/full3d_shared.py:layout), or the forced one."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    C = int(st.energy.shape[0])
+    return forced or full3d_shared.layout(
+        spec.N, spec.q_eff, C, C // int(st.block_seeds.shape[0]), n_sm)
+
+
 def shared_note(lay):
-    """A board kernel's layout, for the compare lines."""
+    """A shared-site kernel's layout, for the compare lines."""
     where = (f"shared memory, {lay.smem_bytes} B a CTA" if lay.in_shared
              else "device memory")
     return (f"; L={lay.lanes} lanes a chain, {lay.chains_per_cta} chains a "
@@ -504,8 +527,8 @@ def compare_case(mod, name, spec, n_chains, start_outer=0, seed0=0,
     max_abs_err, both times, the kernel's state and the launch's work.
     ``freeze`` (board_shared only) maps the padded chain count to the
     chains' step horizons and runs the freeze mode with track_best off;
-    ``forced`` (board_shared only) is a layout to launch with instead of
-    the rule's; ``warm`` maps the chain count to warm-start boards.  The
+    ``forced`` (the shared-site kernels) is a layout to launch with instead
+    of the rule's; ``warm`` maps the chain count to warm-start states.  The
     kernel is timed on the card alone (behind a spin kernel)."""
     seeds = seed0 + np.arange(n_chains, dtype=np.uint32)
     kw = {} if warm is None else {"initial_states": warm(n_chains)}
@@ -550,6 +573,9 @@ def compare_case(mod, name, spec, n_chains, start_outer=0, seed0=0,
     lay, note = None, ""
     if mod is board_shared:
         lay = shared_layout(spec, C, freeze is None, forced)
+        note = shared_note(lay)
+    elif mod is full3d_shared:
+        lay = full3d_layout(k_st, spec, forced)
         note = shared_note(lay)
     phase("compare", f"{name}: kernel == twin on all {len(vars(k_st))} "
           f"state fields; {ln.proposals} proposals, {ln.accepted} "
@@ -596,6 +622,105 @@ def check_layout_case(name, res, kw):
                                  f"board was written")
         if not int(st.accept_bins.sum()):
             raise AssertionError(f"{name}: no move was accepted")
+
+
+def check_full3d_case(name, res, kw):
+    """What each of the full-3D shared kernel's layout cases is there to
+    show."""
+    st, lay, spec = res["st"], res["layout"], res["spec"]
+    C = int(st.energy.shape[0])
+    if "forced" in kw and lay != kw["forced"]:
+        raise AssertionError(f"{name}: launched as {lay}")
+    if "device memory" in name and lay.in_shared:
+        raise AssertionError(f"{name}: queens in shared memory")
+    if "padding" in name and C != 1024:
+        raise AssertionError(f"{name}: not padded to 1024")
+    if "patience" in name:
+        stops = st.stop_step.cpu().numpy()
+        teams = 32 // lay.lanes  # chains a warp
+        stopped = stops < spec.n_steps
+        warps = {}
+        for c in np.flatnonzero(stopped):
+            warps.setdefault(c // teams, set()).add(int(stops[c]))
+        mixed = sum(len(v) > 1 for v in warps.values())
+        inside = int(((stops[stopped] % 8) != 7).sum())
+        if not mixed or not inside:
+            raise AssertionError(f"{name}: {mixed} warps with stops at "
+                                 f"different steps, {inside} inside a chunk")
+        phase("compare", f"{name}: {int(stopped.sum())} chains stopped, "
+              f"{mixed} warps with stops at different steps, {inside} "
+              f"stops inside an 8-step chunk")
+    if "far behind" in name:
+        n = spec.history_stride
+        early = int(((st.best_step > 0) & (st.best_step <= n // 2)).sum())
+        last = int((st.best_step == n).sum())
+        behind = int((st.best_qi != st.qi).any(0).sum())
+        if not early or not behind:
+            raise AssertionError(f"{name}: {early} chains with their best in "
+                                 f"the first half, {behind} behind")
+        phase("compare", f"{name}: {early} chains with their best in the "
+              f"first half of the launch, {behind} with best planes behind "
+              f"the live ones, {last} improved on its last step")
+    if "least energy" in name:
+        init = res["init"]
+        if int(st.best_step.max()) or not torch.equal(
+                st.best_qi, init.best_qi.t()):
+            raise AssertionError(f"{name}: a chain improved or a best "
+                                 f"plane was written")
+        if not int(st.accept_bins.sum()):
+            raise AssertionError(f"{name}: no move was accepted")
+
+
+def campaign_chunk_case(bounds):
+    """The campaign chunk's shape (N=15, Q=225, 65536 chains, linear 0.8->7
+    over 8M steps) at one full 62500-step launch from step 6.25M, the kernel
+    alone; its state is checked against the twin on a sample of 128 chains,
+    the first 64 of blocks 0 and 31 (the twin of all 65536 chains would take
+    hours on the card).  Returns the kernel's ms and the launch's bound."""
+    stride, start_outer = 62500, 100
+    spec = spec_of(15, 8_000_000, stride, lin(8_000_000, 0.8, 7.0),
+                   mcmc_type="full_3d")
+    carry = full3d_shared.init_carry_batch(
+        np.arange(65536, dtype=np.uint32), spec, device="cuda")
+    st = full3d_shared.segment_state(carry)
+    step0 = start_outer * stride
+    beta = chunk_betas(spec.schedule, step0, stride, "cuda")
+    blk = 65536 // int(st.block_seeds.shape[0])
+    cols = torch.cat([torch.arange(64), 31 * blk + torch.arange(64)]).cuda()
+    sample = full3d_shared.SegmentState(**{
+        name: (t.index_select(-1, cols) if name != "block_seeds"
+               else t[[0, 31]].clone())
+        for name, t in vars(st).items()})
+    before = snapshot(st, False)
+    launches = full3d_shared.KERNEL_LAUNCHES
+    k_ms = device_ms(lambda: full3d_shared.segment_cuda(
+        st, step0, stride, spec, beta), reps=1)
+    full3d_shared.KERNEL_LAUNCHES = launches
+    t0 = time.perf_counter()
+    full3d_shared.segment_reference(sample, step0, stride, spec, beta)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    name = "full3d campaign chunk N=15 Q=225 C=65536 62500 steps from 6.25M"
+    err = 0
+    for field, want in vars(sample).items():
+        got = getattr(st, field)
+        got = got.index_select(-1, cols) if field != "block_seeds" else \
+            got[[0, 31]]
+        if not torch.equal(got, want):
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            phase("compare", f"{name}: field {field} differs on the sample")
+    if err:
+        raise AssertionError(f"kernel != twin on {name}: max abs err {err}")
+    ln = launch_of(spec, before, snapshot(st, False), step0, stride)
+    bound_ms, bound_by = bounds.of(*full3d_work(ln))
+    phase("compare", f"{name}: kernel == twin on all {len(vars(st))} state "
+          f"fields of 128 sampled chains (twin {twin_s:.1f} s); "
+          f"{ln.proposals} proposals, {ln.accepted} accepted, {ln.improved} "
+          f"chains improved; kernel {k_ms:.1f} ms = "
+          f"{stride * 65536 / k_ms * 1e3:.4e} moves/s; bound {bound_ms:.1f} "
+          f"ms ({bound_by}) = {bound_ms / k_ms:.3f} of the kernel's time"
+          f"{shared_note(full3d_layout(st, spec))}")
+    return dict(err=err, kernel_ms=k_ms, bound_ms=bound_ms)
 
 
 def run_cli(argv):
@@ -655,6 +780,16 @@ def warm_up():
             board_shared.segment_cuda(st, 0, 8, spec, beta,
                                       forced=board_shared.Layout(lanes, cpb,
                                                                  smem))
+    # So has the full-3D shared kernel, with six team sizes.
+    spec = spec_of(4, 8, 8, const(8, 1.0), mcmc_type="full_3d")
+    st = full3d_shared.segment_state(full3d_shared.init_carry_batch(
+        np.arange(4, dtype=np.uint32), spec, device="cuda"))
+    for lanes in full3d_shared.LANES:
+        cpb = max(1, 32 // lanes)
+        for smem in (full3d_shared.cta_smem_bytes(spec.q_eff, lanes, cpb), 0):
+            full3d_shared.segment_cuda(
+                st, 0, 8, spec, beta,
+                forced=full3d_shared.Layout(lanes, cpb, smem))
     torch.cuda.synchronize()
     zero_launches()
     phase("build", f"one warm-up launch of every kernel: "
@@ -2201,10 +2336,11 @@ def main():
         for ln in (log.read_text().splitlines() if log.exists() else []):
             if "Compiling entry function" in ln:
                 kernel = next(n for n in names if mangled(n) in ln)
-                inst = re.search(r"board_shared_kernelILi(\d+)ELb([01])E", ln)
+                inst = re.search(r"(board|full3d)_shared_kernelILi(\d+)"
+                                 r"ELb([01])E", ln)
                 if inst:
-                    kernel = (f"board_shared_kernel<L={inst[1]}, "
-                              f"{'shared' if inst[2] == '1' else 'device'}"
+                    kernel = (f"{inst[1]}_shared_kernel<L={inst[2]}, "
+                              f"{'shared' if inst[3] == '1' else 'device'}"
                               f" memory>")
                     shared_instances.append(kernel)
             elif kernel in PROBE_FUNCS:
@@ -2215,14 +2351,18 @@ def main():
             elif kernel and ("registers" in ln or "spill" in ln):
                 phase("build", f"{kernel}: {ln.strip()}")
                 used = re.search(r"Used (\d+) reg", ln)
+                mod = (full3d_shared if kernel.startswith("full3d")
+                       else board_shared)
                 if (kernel in shared_instances and used
-                        and int(used[1]) > board_shared.REGISTERS):
+                        and int(used[1]) > mod.REGISTERS):
                     raise AssertionError(
                         f"{kernel} uses {used[1]} registers; its layout "
-                        f"rule reckons with {board_shared.REGISTERS}")
-        if log.exists() and len(shared_instances) != 2 * len(
-                board_shared.LANES):
-            raise AssertionError(f"board_shared instances built: "
+                        f"rule reckons with {mod.REGISTERS}")
+        built = collections.Counter(k.split("_")[0] for k in shared_instances)
+        want = {"board": 2 * len(board_shared.LANES),
+                "full3d": 2 * len(full3d_shared.LANES)}
+        if log.exists() and built != want:
+            raise AssertionError(f"shared-site kernel instances built: "
                                  f"{shared_instances}")
         for kernel, vals in regs.items():
             phase("build", f"{kernel}: {len(vals)} template instances, "
@@ -2383,6 +2523,46 @@ def main():
          dict(warm=lambda C: fastinit.board_init_batch(
              torch.zeros(C, dtype=torch.int32), 11, "klarner").numpy())),
     ]
+    # The full-3D shared kernel's layouts and edges
+    # (kernels/full3d_shared.py:layout): each team size forced at the floors
+    # launch's width, the device-memory instance forced and picked by the
+    # rule (a slot of 2Q words fits no CTA past Q = 29055), padding chains in
+    # the tempered mode, patience stops that differ inside a warp, chains
+    # whose best planes fall far behind their live ones in one long launch,
+    # and a warm start at the least energy (no chain may improve, so no best
+    # plane may be written).  (name, spec, chains, start_outer, seed0,
+    # keywords)
+    f3_spec = spec_of(15, 125000, 44, const(125000, 1.0),
+                      mcmc_type="full_3d")
+
+    def f3_forced(L, smem=True):
+        cpb = min(32, 512 // L)
+        return full3d_shared.Layout(
+            L, cpb, full3d_shared.cta_smem_bytes(225, L, cpb) if smem else 0)
+
+    full3d_layout_cases = [
+        *[(f"full3d L={L} forced N=15 Q=225 C=4096 44 steps ladder 16",
+           f3_spec, 4096, 0, 31337, dict(ladder=ladder, forced=f3_forced(L)))
+          for L in full3d_shared.LANES],
+        ("full3d device memory forced N=15 Q=225 C=4096 44 steps ladder 16",
+         f3_spec, 4096, 0, 31337, dict(ladder=ladder,
+                                       forced=f3_forced(8, False))),
+        ("full3d device memory by the rule N=31 Q=29100 C=128 16 steps",
+         spec_of(31, 1 << 20, 16, lin(1 << 20, 0.5, 3.0), mcmc_type="full_3d",
+                 Q=29100), 128, 0, 5, {}),
+        ("full3d tempered 1000 chains (padding) N=15 ladder 16", f3_spec,
+         1000, 0, 42, dict(ladder=ladder)),
+        ("full3d patience stops inside a warp N=5 Q=13 C=4096", spec_of(
+            5, 600, 64, const(600, 50.0), mcmc_type="full_3d", Q=13,
+            early_stop_patience=13), 4096, 0, 3, {}),
+        ("full3d best planes far behind N=6 Q=36 C=4096 2048 steps beta 0.3",
+         spec_of(6, 2048, 2048, const(2048, 0.3), mcmc_type="full_3d", Q=36),
+         4096, 0, 5, {}),
+        ("full3d warm start at the least energy N=11 klarner beta=0.5",
+         spec_of(11, 256, 256, const(256, 0.5), mcmc_type="full_3d"), 256, 0,
+         0, dict(warm=lambda C: fastinit.full3d_init_batch(
+             torch.zeros(C, dtype=torch.int32), 11, "klarner").numpy())),
+    ]
     # (name, spec, chains, start_outer, n_outer, seed0, warm start)
     scan_board_cases = [
         ("board_scan config.yaml cell N=12 C=10 stride 1",
@@ -2509,6 +2689,15 @@ def main():
             results[name] = dict(
                 res, mod="freeze" if "freeze" in kw else board_shared)
             check_layout_case(name, res, kw)
+    with timed("compare full3d layouts"):
+        for name, spec, n_chains, start_outer, seed0, kw in \
+                full3d_layout_cases:
+            res = compare_case(full3d_shared, name, spec, n_chains,
+                               start_outer, seed0, **kw)
+            results[name] = dict(res, mod=full3d_shared)
+            check_full3d_case(name, res, kw)
+        campaign = campaign_chunk_case(bounds)
+        results["full3d campaign chunk"] = dict(campaign, mod=full3d_shared)
     with timed("compare scan samplers"):
         for mod, cases in ((board_chain, scan_board_cases),
                            (full3d_chain, scan_full3d_cases)):

@@ -265,24 +265,7 @@ MAX_CHAINS_PER_CTA = 128
 MAX_THREADS_PER_CTA = 1024
 REGISTERS = 64
 MAX_SHARED_N = 127
-# An SM's limits on Hopper: resident threads, CTAs and 32-bit registers.
-_SM_THREADS, _SM_CTAS, _SM_REGISTERS = 2048, 32, 65536
-
-
-@dataclasses.dataclass(frozen=True)
-class Layout:
-    """How the CUDA kernel lays out a launch: ``lanes`` lanes a chain,
-    ``chains_per_cta`` chains a CTA, and ``smem_bytes`` of shared memory a
-    CTA holding its chains' boards (and best boards), or 0 when the kernel
-    walks them in device memory."""
-
-    lanes: int
-    chains_per_cta: int
-    smem_bytes: int
-
-    @property
-    def in_shared(self) -> bool:
-        return self.smem_bytes > 0
+Layout = segment.Layout
 
 
 def row_pitch(N: int) -> int:
@@ -303,15 +286,8 @@ def cta_smem_bytes(N: int, chains_per_cta: int, track_best: bool) -> int:
 
 
 def _resident(lanes: int, cpb: int, smem: int) -> int:
-    """Chains an SM holds at once: its threads, CTAs, registers and (for
-    the shared-memory instance) shared memory."""
-    threads = lanes * cpb
-    ctas = min(_SM_CTAS, _SM_THREADS // threads,
-               _SM_REGISTERS // (REGISTERS * threads))
-    if smem:
-        ctas = min(ctas, _build.SMEM_PER_SM // (
-            smem + _build.SMEM_RESERVED_PER_BLOCK))
-    return cpb * ctas
+    """Chains an SM holds at once (:func:`segment.resident_ctas`)."""
+    return cpb * segment.resident_ctas(Layout(lanes, cpb, smem), REGISTERS)
 
 
 @functools.cache

@@ -49,6 +49,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 
 struct dim3 {

@@ -27,8 +27,9 @@ One launch of ``n_inner`` steps has two implementations over the same
 chains-minor state (:class:`SegmentState`), both updating it in place:
 
   * :func:`segment_cuda` launches the hand-written CUDA kernel
-    (``csrc/full3d_shared.cu``) and counts the launch in
-    :data:`KERNEL_LAUNCHES`;
+    (``csrc/full3d_shared.cu``: a team of lanes a chain, queens and best
+    queens in shared memory) through :func:`launch_segment`, laid out by
+    :func:`layout`, and counts the launch in :data:`KERNEL_LAUNCHES`;
   * :func:`segment_reference` is its plain-torch twin (vectorised over
     chains, a Python loop over steps).
 
@@ -41,13 +42,15 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.core.schedules import chunk_betas
-from mcqueens_torch.kernels import full3d_pallas, prng, segment, sizing
+from mcqueens_torch.kernels import (_build, full3d_pallas, prng, segment,
+                                    sizing)
 from mcqueens_torch.kernels.carry import Full3DCarry
 
 DEFAULT_BLOCK = 2048
@@ -113,9 +116,9 @@ def init_carry_batch(seeds, spec: ChainSpec, block: int | None = None,
 class SegmentState:
     """One segment's working state, chains minor (contiguous int32).
 
-    A warp of CUDA threads (one chain each) then reads one queen row of 32
-    neighbouring chains per load.  The implementations update these tensors
-    in place.
+    The CUDA kernel's CTAs then copy a queen row of neighbouring chains per
+    load into shared memory.  The implementations update these tensors in
+    place.
     """
 
     qi: torch.Tensor            # (Q, C)
@@ -238,11 +241,108 @@ def segment_reference(st: SegmentState, step0: int, n_inner: int,
         getattr(st, name).copy_(val)
 
 
-def _check_cuda_state(st: SegmentState, spec: ChainSpec, n_inner: int,
-                      beta: torch.Tensor, beta_scale) -> None:
-    from mcqueens_torch.kernels import _build
+LANES = (1, 2, 4, 8, 16, 32)
+MAX_CHAINS_PER_CTA = 128
+MAX_THREADS_PER_CTA = 512
+# Two 16-bit counts share a word in the team's reduce.
+MAX_Q = 65536
+# What __launch_bounds__(512, 1) lets ptxas use (chip_smoke.py checks the
+# build's count against it).
+REGISTERS = 128
+Layout = segment.Layout
+# The rule's cost model: int32 instructions a lane issues a chunk, ~170 a
+# queen of its share (nine attack tests and the occupancy tests, as ptxas
+# compiles them) and ~600 for the chunk's hashes, draws, reduce and walk; a
+# warp alone issues at most one every _ISSUE_GAP cycles.  The constants are
+# set so that the rule picks, at the floors, Q_max and campaign shapes, the
+# team size that ran fastest when each was timed on the card (PERF.md,
+# section 6).
+_PER_QUEEN, _PER_CHUNK, _ISSUE_GAP = 170, 600, 2.2
 
-    Q, C = spec.q_eff, st.energy.shape[0]
+
+def slot_words(Q: int, lanes: int) -> int:
+    """Shared-memory words of one chain: its live and best planes, 2Q words
+    rounded up to ``lanes`` (mod 2 * lanes), or to an odd count at 32 lanes,
+    so that a warp's reads of its teams' queens fall in 32 banks."""
+    m, want = (2 * lanes, lanes) if lanes < 32 else (2, 1)
+    return 2 * Q + (want - 2 * Q % m) % m
+
+
+def cta_smem_bytes(Q: int, lanes: int, chains_per_cta: int) -> int:
+    """Shared memory of a CTA: a flag word and a slot per chain."""
+    return 4 * chains_per_cta * (1 + slot_words(Q, lanes))
+
+
+def waves(lay: Layout, C: int, n_sm: int) -> float:
+    """Waves a launch of ``C`` chains takes: the chains over what ``n_sm``
+    SMs hold at once."""
+    per_sm = lay.chains_per_cta * segment.resident_ctas(lay, REGISTERS)
+    return C / (n_sm * per_sm)
+
+
+def _cost(lay: Layout, Q: int, C: int, n_sm: int) -> float:
+    """The rule's estimate of a chunk's cycles on the busiest SM: its CTAs
+    run in waves of what it holds; a wave issues its warps' instructions
+    four a cycle, or as fast as one warp can."""
+    lanes, cpb = lay.lanes, lay.chains_per_cta
+    ctas = segment.resident_ctas(lay, REGISTERS)
+    per_sm = -(-(C // cpb) // n_sm)
+    lane = -(-Q // lanes) * _PER_QUEEN + _PER_CHUNK
+
+    def wave(k):
+        per_scheduler = k * cpb * lanes / 32 / 4
+        return lane * max(per_scheduler, _ISSUE_GAP)
+
+    full, rest = divmod(per_sm, ctas)
+    return full * wave(ctas) + (wave(rest) if rest else 0)
+
+
+@functools.cache
+def layout(N: int, Q: int, C: int, c_blk: int, n_sm: int) -> Layout:
+    """The CUDA kernel's layout for ``C`` chains of ``Q`` queens in blocks
+    of ``c_blk`` chains on a card of ``n_sm`` SMs.
+
+    Queens go to shared memory whenever a CTA of them fits; otherwise the
+    device-memory instance walks them in place.  Among the team sizes and
+    chains a CTA (a power of two, at most 128, dividing ``c_blk``, so that a
+    CTA holds one semantic block's chains) the rule takes the least
+    :func:`_cost`: few chains take large teams (more warps an SM), many
+    chains small ones (less of each chunk's walk repeated in every lane),
+    and a layout whose last wave is nearly empty pays for a whole wave.
+    Ties go to more chains a CTA, then fewer lanes."""
+    check_n(N)
+    if not 1 <= Q <= MAX_Q:
+        raise ValueError(f"full3d_shared's CUDA kernel sums two counts a "
+                         f"word: Q must lie in [1, {MAX_Q}], got {Q}")
+    options = [(lanes, 1 << k) for lanes in LANES
+               for k in range(MAX_CHAINS_PER_CTA.bit_length())
+               if 32 <= lanes << k <= MAX_THREADS_PER_CTA
+               and c_blk % (1 << k) == 0 and C % (1 << k) == 0]
+    shared = [Layout(lanes, cpb, cta_smem_bytes(Q, lanes, cpb))
+              for lanes, cpb in options
+              if cta_smem_bytes(Q, lanes, cpb) <= _build.SMEM_PER_BLOCK]
+    lays = shared or [Layout(lanes, cpb, 0) for lanes, cpb in options]
+    return min(lays, key=lambda lay: (_cost(lay, Q, C, n_sm),
+                                      -lay.chains_per_cta, lay.lanes))
+
+
+def launch_segment(lib, st: SegmentState, step0: int, n_inner: int,
+                   spec: ChainSpec, beta: torch.Tensor,
+                   beta_scale: torch.Tensor | None = None, *, n_sm: int,
+                   stream: int = 0, forced: Layout | None = None) -> Layout:
+    """Check a launch's arguments, lay it out for ``n_sm`` SMs
+    (:func:`layout`, or ``forced``) and call
+    ``lib.mcq_full3d_shared_segment`` on ``stream``; raises if it returns an
+    error.  ``lib`` is the CUDA library (:func:`segment_cuda`) or its host
+    emulation (:mod:`mcqueens_torch.kernels.host_emulation`, CPU tensors).
+    Returns the layout."""
+    check_n(spec.N)
+    Q = spec.q_eff
+    if Q > MAX_Q:
+        raise ValueError(f"full3d_shared's CUDA kernel sums two counts a "
+                         f"word: Q must be at most {MAX_Q}, got {Q}; the "
+                         f"twin (CPU) has no such limit")
+    C = st.energy.shape[0]
     n_blocks = st.block_seeds.shape[0]
     i32, f32 = torch.int32, torch.float32
     want = {
@@ -258,39 +358,43 @@ def _check_cuda_state(st: SegmentState, spec: ChainSpec, n_inner: int,
     _build.check_args(st.qi.device, want)
     if C == 0 or n_blocks == 0 or C % n_blocks:
         raise ValueError(f"{C} chains do not split into {n_blocks} blocks")
-
-
-def segment_cuda(st: SegmentState, step0: int, n_inner: int,
-                 spec: ChainSpec, beta: torch.Tensor,
-                 beta_scale: torch.Tensor | None = None) -> None:
-    """Advance every chain by ``n_inner`` steps with the CUDA kernel
-    (asynchronous on the current stream; counts the launch)."""
-    global KERNEL_LAUNCHES
-    from mcqueens_torch.kernels import _build
-
-    check_n(spec.N)
-    _check_cuda_state(st, spec, n_inner, beta, beta_scale)
     if not 0 <= step0 <= 2 ** 31 - 1 - n_inner:
         raise ValueError(f"step0={step0} + n_inner={n_inner} overflows int32")
-    lib = _build.load_library()
-    dev = st.qi.device
+    c_blk = C // n_blocks
+    lay = forced or layout(spec.N, Q, C, c_blk, n_sm)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (
         st.qi, st.qj, st.qk, st.best_qi, st.best_qj, st.best_qk, st.energy,
         st.best_energy, st.best_step, st.no_improve, st.stop_step,
         st.accept_bins, st.total_bins, st.chain_seeds, st.block_seeds, beta)]
     ptrs.append(ctypes.c_void_p(
         None if beta_scale is None else beta_scale.data_ptr()))
-    C = st.energy.shape[0]
     patience = spec.early_stop_patience
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mcq_full3d_shared_segment(
-            *ptrs, step0, n_inner, spec.N, spec.q_eff, C,
-            C // st.block_seeds.shape[0], spec.n_steps, spec.n_bins,
-            -1 if patience is None else patience, ctypes.c_void_p(stream))
+    err = lib.mcq_full3d_shared_segment(
+        *ptrs, step0, n_inner, spec.N, Q, C, c_blk, spec.n_steps,
+        spec.n_bins, -1 if patience is None else patience, lay.lanes,
+        lay.chains_per_cta, lay.smem_bytes, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"full3d_shared CUDA kernel launch failed "
-                           f"(cudaError {err})")
+                           f"(cudaError {err}, {lay})")
+    return lay
+
+
+def segment_cuda(st: SegmentState, step0: int, n_inner: int,
+                 spec: ChainSpec, beta: torch.Tensor,
+                 beta_scale: torch.Tensor | None = None, *,
+                 forced: Layout | None = None) -> None:
+    """Advance every chain by ``n_inner`` steps with the CUDA kernel
+    (asynchronous on the current stream; counts the launch), laid out by
+    :func:`layout` unless ``forced`` is given."""
+    global KERNEL_LAUNCHES
+    dev = st.qi.device
+    if dev.type != "cuda":
+        raise ValueError(f"segment_cuda: state on {dev}, not a CUDA device")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        launch_segment(_build.load_library(), st, step0, n_inner, spec, beta,
+                       beta_scale, n_sm=n_sm, stream=stream, forced=forced)
     KERNEL_LAUNCHES += 1
 
 

@@ -4,13 +4,50 @@ Every sampler keeps its chains in a chains-major carry between segments and
 runs a launch on a working state that its CUDA kernel and the kernel's
 plain-torch twin both update in place.  This module holds the parts that do
 not depend on the sampler: the transposes between a carry and a
-chains-minor working state, and the choice of the twin for CPU tensors and
-the kernel for CUDA tensors, with no fallback between them.
+chains-minor working state, the choice of the twin for CPU tensors and the
+kernel for CUDA tensors, with no fallback between them, and the launch
+layout of the shared-site kernels (a team of lanes a chain) with what an SM
+holds of it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
+
+from mcqueens_torch.kernels import _build
+
+# An SM's limits on Hopper: resident threads, CTAs and 32-bit registers.
+SM_THREADS, SM_CTAS, SM_REGISTERS = 2048, 32, 65536
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """How a shared-site CUDA kernel lays out a launch: ``lanes`` lanes a
+    chain, ``chains_per_cta`` chains a CTA, and ``smem_bytes`` of shared
+    memory a CTA holding its chains' state, or 0 when the kernel walks it in
+    device memory."""
+
+    lanes: int
+    chains_per_cta: int
+    smem_bytes: int
+
+    @property
+    def in_shared(self) -> bool:
+        return self.smem_bytes > 0
+
+
+def resident_ctas(lay: Layout, registers: int) -> int:
+    """CTAs of ``lay`` an SM holds at once: its threads, CTAs, registers
+    (``registers`` a thread) and, for a shared-memory layout, shared
+    memory."""
+    threads = lay.lanes * lay.chains_per_cta
+    ctas = min(SM_CTAS, SM_THREADS // threads,
+               SM_REGISTERS // (registers * threads))
+    if lay.smem_bytes:
+        ctas = min(ctas, _build.SMEM_PER_SM // (
+            lay.smem_bytes + _build.SMEM_RESERVED_PER_BLOCK))
+    return ctas
 
 
 def chains_minor(carry, planes, rows) -> dict:

@@ -47,10 +47,22 @@ public functions that both sides have are called.  Phases:
   * the slice copy (``kernels/probes_mem.py``) at the slice tool's
     card-filling shape, (256, 67584) int32, 16 rows at row 240 (load) and
     48 (store), beside ``torch.narrow_copy`` and ``Tensor.index_fill``,
-    each timed behind a spin kernel so that no launch waits for the host.
+    each timed behind a spin kernel so that no launch waits for the host;
+  * the shared-site full-3D kernel (``kernels/full3d_shared.py``) alone,
+    each launch on a fresh state behind a spin kernel, three times after
+    one untimed launch: the floors launch (N=15, Q=225, 65536 chains, 44
+    steps from step 0 at beta 1 with a 16-rung ladder 0.8->7) and the Q_max
+    launch (N=8, Q=48, 4096 chains, 4096 steps from step 0, linear 0.5->5
+    over 2^18 steps): ms; and the campaign chunk (N=15, Q=225, linear
+    0.8->7 over 8M steps, the second 62500-step chunk) at 65536 and 4096
+    chains: ms and proposed moves/s;
+  * the full-3D floors search (the competition CLI: N=15, 65536 runs,
+    125000 steps, stride 62500, a 16-level ladder 0.8->7, seed 31337) and
+    the Q_max search (``runner.run_chains``: N=8, Q=48, 4096 chains, 2^18
+    steps, stride 4096): wall time.
 
-Prints one JSON line with the card's name and power limit; exits non-zero
-without a CUDA GPU.
+``--only full3d`` runs the last two items alone.  Prints one JSON line with
+the card's name and power limit; exits non-zero without a CUDA GPU.
 """
 
 import argparse
@@ -65,12 +77,107 @@ import tempfile
 import time
 
 
+def full3d_phases():
+    """The shared-site full-3D kernel's phases (module docstring)."""
+    import numpy as np
+    import torch
+
+    from mcqueens_torch.chain.spec import ChainSpec
+    from mcqueens_torch.cli import competition
+    from mcqueens_torch.core.schedules import build_schedule, chunk_betas
+    from mcqueens_torch.dist import runner
+    from mcqueens_torch.kernels import full3d_shared
+    from mcqueens_torch.search.tempering import geometric_ladder
+
+    def spec_of(N, n_steps, stride, schedule, **kw):
+        return ChainSpec(N=N, n_steps=n_steps, schedule=schedule,
+                         kernel="pallas_shared", history_stride=stride,
+                         mcmc_type="full_3d", **kw)
+
+    def events_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(5_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    def state(spec, chains, seed0, ladder=None, chunks=0):
+        carry = full3d_shared.init_carry_batch(
+            seed0 + np.arange(chains, dtype=np.uint32), spec, device="cuda")
+        if chunks:
+            carry, _ = full3d_shared.run_segment(carry, 0, spec, chunks)
+        st = full3d_shared.segment_state(carry)
+        scale = ()
+        if ladder is not None:
+            C = st.energy.shape[0]
+            scale = (torch.from_numpy(np.tile(ladder, -(-C // 16))[:C]
+                                      .copy()).cuda(),)
+        return st, scale
+
+    def launch_ms(spec, chains, seed0, ladder=None, reps=3, chunks=0):
+        step0, n = chunks * spec.history_stride, spec.history_stride
+        beta = chunk_betas(spec.schedule, step0, n, "cuda")
+        times = []
+        for rep in range(reps + 1):  # the first loads the kernel: not kept
+            st, scale = state(spec, chains, seed0, ladder, chunks)
+            ms = events_ms(lambda: full3d_shared.segment_cuda(
+                st, step0, n, spec, beta, *scale))
+            if rep:
+                times.append(ms)
+        return times
+
+    const = build_schedule("constant", 125000, beta_const=1.0)
+    lin = lambda n, b0, b1: build_schedule(  # noqa: E731
+        "linear_annealing", n, beta_start=b0, beta_end=b1)
+    ladder = geometric_ladder(0.8, 7.0, 16)
+    out = {"full3d_shared_launch_ms": {
+        "floors": launch_ms(spec_of(15, 125000, 44, const), 65536, 31337,
+                            ladder),
+        "qmax": launch_ms(spec_of(8, 1 << 18, 4096, lin(1 << 18, 0.5, 5.0),
+                                  Q=48), 4096, 0),
+    }}
+    camp = spec_of(15, 8_000_000, 62500, lin(8_000_000, 0.8, 7.0))
+    out["full3d_shared_campaign_chunk"] = {}
+    for chains in (65536, 4096):
+        (ms,) = launch_ms(camp, chains, 0, reps=1, chunks=1)
+        out["full3d_shared_campaign_chunk"][f"C={chains}"] = {
+            "ms": ms, "moves_per_s": 62500 * chains / ms * 1e3}
+
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            competition.main([
+                "--n", "15", "--mcmc-type", "full_3d", "--n-runs", "65536",
+                "--kernel", "pallas_shared", "--tempering", "16",
+                "--history-stride", "62500", "--n-steps", "125000",
+                "--beta-start", "0.8", "--beta-end", "7", "--seed", "31337",
+                "--device", "cuda", "--outdir", d])
+        torch.cuda.synchronize()
+        out["full3d_floors_search_s"] = time.perf_counter() - t0
+    qspec = spec_of(8, 1 << 18, 4096, lin(1 << 18, 0.5, 5.0), Q=48)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = runner.run_chains(np.arange(4096, dtype=np.uint32), qspec,
+                            device="cuda")
+    torch.cuda.synchronize()
+    out["qmax_search_s"] = time.perf_counter() - t0
+    out["qmax_best_energy"] = int(np.min(res.best_energy))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True,
                     help="root of the checkout whose port is timed")
     ap.add_argument("--label", default=None)
     ap.add_argument("--json", default=None, help="also write the line here")
+    ap.add_argument("--only", choices=["full3d"], default=None,
+                    help="time only the full-3D shared kernel's phases")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -140,207 +247,216 @@ def main(argv=None):
         scan_ms(full3d, spec_of(3, 64, 1, flat, kern, mcmc_type="full_3d"),
                 4, 0, 8)
 
-    cfg = load_config(os.path.join(root, "config.yaml"))
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as d, \
-            contextlib.redirect_stdout(io.StringIO()):
-        drivers.run_from_config(cfg, outdir=d, device="cuda", plot=False)
-    torch.cuda.synchronize()
-    out["config_yaml_slice_s"] = time.perf_counter() - t0
+    if args.only is None:
+        cfg = load_config(os.path.join(root, "config.yaml"))
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d, \
+                contextlib.redirect_stdout(io.StringIO()):
+            drivers.run_from_config(cfg, outdir=d, device="cuda", plot=False)
+        torch.cuda.synchronize()
+        out["config_yaml_slice_s"] = time.perf_counter() - t0
 
-    pairs = cfg.section("beta_start_end_pairs")
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        drivers.run_beta_start_end_pairs(
-            N=pairs["N"], n_steps=cfg.n_steps,
-            beta_start_ends=pairs["beta_start_ends"],
-            annealing_type=pairs["annealing_type"],
-            init_mode=cfg.init_mode, n_runs=cfg.n_runs,
-            base_seed=cfg.sched_cfg["base_seed"], verbose=cfg.verbose,
-            plot=False, mcmc_type="full_3d",
-            early_stop_patience=cfg.early_stop_patience, tpu=cfg.tpu,
-            device="cuda")
-    torch.cuda.synchronize()
-    out["beta_pairs_as_full3d_s"] = time.perf_counter() - t0
+        pairs = cfg.section("beta_start_end_pairs")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            drivers.run_beta_start_end_pairs(
+                N=pairs["N"], n_steps=cfg.n_steps,
+                beta_start_ends=pairs["beta_start_ends"],
+                annealing_type=pairs["annealing_type"],
+                init_mode=cfg.init_mode, n_runs=cfg.n_runs,
+                base_seed=cfg.sched_cfg["base_seed"], verbose=cfg.verbose,
+                plot=False, mcmc_type="full_3d",
+                early_stop_patience=cfg.early_stop_patience, tpu=cfg.tpu,
+                device="cuda")
+        torch.cuda.synchronize()
+        out["beta_pairs_as_full3d_s"] = time.perf_counter() - t0
 
-    n, steps = 10 ** 6, 100_000
-    out["board_scan_us_per_step_c10"] = {}
-    for N, beta_end in ((12, 3.0), (18, 5.0)):
-        spec = spec_of(N, n, 1, build_schedule(
-            "exponential_annealing", n, beta_start=1.0, beta_end=beta_end),
-            "tables")
-        ms = scan_ms(board, spec, 10, 0, steps)
-        out["board_scan_us_per_step_c10"][f"N={N}"] = ms * 1e3 / steps
-    spec = spec_of(12, n, 1, build_schedule(
-        "linear_annealing", n, beta_start=0.5, beta_end=3.0), "tables",
-        mcmc_type="full_3d")
-    out["full3d_scan_us_per_step_c10"] = {
-        "N=12": scan_ms(full3d, spec, 10, 0, steps) * 1e3 / steps}
+        n, steps = 10 ** 6, 100_000
+        out["board_scan_us_per_step_c10"] = {}
+        for N, beta_end in ((12, 3.0), (18, 5.0)):
+            spec = spec_of(N, n, 1, build_schedule(
+                "exponential_annealing", n, beta_start=1.0, beta_end=beta_end),
+                "tables")
+            ms = scan_ms(board, spec, 10, 0, steps)
+            out["board_scan_us_per_step_c10"][f"N={N}"] = ms * 1e3 / steps
+        spec = spec_of(12, n, 1, build_schedule(
+            "linear_annealing", n, beta_start=0.5, beta_end=3.0), "tables",
+            mcmc_type="full_3d")
+        out["full3d_scan_us_per_step_c10"] = {
+            "N=12": scan_ms(full3d, spec, 10, 0, steps) * 1e3 / steps}
 
-    stride, chains = 16384, 4096
-    for mod, key, N, horizon, b0, b1, kw in (
-            (board, "board_scan_4096_moves_per_s", 16, 2 ** 24, 1.0, 5.0,
-             {}),
-            (full3d, "full3d_scan_4096_moves_per_s", 12, 10 ** 6, 0.5, 3.0,
-             dict(mcmc_type="full_3d"))):
-        out[key] = {}
-        for kern in ("tables", "naive"):
-            spec = spec_of(N, horizon, stride, build_schedule(
-                "linear_annealing", horizon, beta_start=b0, beta_end=b1),
-                kern, **kw)
-            ms = scan_ms(mod, spec, chains, 1, 1)
-            out[key][kern] = stride * chains / ms * 1e3
+        stride, chains = 16384, 4096
+        for mod, key, N, horizon, b0, b1, kw in (
+                (board, "board_scan_4096_moves_per_s", 16, 2 ** 24, 1.0, 5.0,
+                 {}),
+                (full3d, "full3d_scan_4096_moves_per_s", 12, 10 ** 6, 0.5, 3.0,
+                 dict(mcmc_type="full_3d"))):
+            out[key] = {}
+            for kern in ("tables", "naive"):
+                spec = spec_of(N, horizon, stride, build_schedule(
+                    "linear_annealing", horizon, beta_start=b0, beta_end=b1),
+                    kern, **kw)
+                ms = scan_ms(mod, spec, chains, 1, 1)
+                out[key][kern] = stride * chains / ms * 1e3
 
-    # The shared-site board kernel.
-    def shared_state(spec, chains, seed0):
-        carry = board_shared.init_carry_batch(
-            seed0 + np.arange(chains, dtype=np.uint32), spec, device="cuda")
-        return carry, board_shared.segment_state(carry)
+        # The shared-site board kernel.
+        def shared_state(spec, chains, seed0):
+            carry = board_shared.init_carry_batch(
+                seed0 + np.arange(chains, dtype=np.uint32), spec,
+                device="cuda")
+            return carry, board_shared.segment_state(carry)
 
-    def shared_chunk_ms(spec, chains, seed0, start_outer=0, ladder=None,
-                        freeze=None):
-        stride = spec.history_stride
-        beta = chunk_betas(spec.schedule, start_outer * stride, stride,
-                           "cuda")
-        times = []
-        for rep in range(4):  # the first loads the kernel: not kept
-            carry, st = shared_state(spec, chains, seed0)
-            C = st.energy.shape[0]
-            args, mode = (), {}
-            if ladder is not None:
-                args = (torch.from_numpy(np.tile(ladder, -(-C // 16))[:C]
-                                         .copy()).cuda(),)
-            if freeze is not None:
-                mode = dict(freeze=torch.as_tensor(
-                    freeze(C), dtype=torch.int32, device="cuda"),
-                    track_best=False)
-            ms = events_ms(lambda: board_shared.segment_cuda(
-                st, start_outer * stride, stride, spec, beta, *args, **mode),
-                spin=True)
-            if rep:
-                times.append(ms)
-        return times
+        def shared_chunk_ms(spec, chains, seed0, start_outer=0, ladder=None,
+                            freeze=None):
+            stride = spec.history_stride
+            beta = chunk_betas(spec.schedule, start_outer * stride, stride,
+                               "cuda")
+            times = []
+            for rep in range(4):  # the first loads the kernel: not kept
+                carry, st = shared_state(spec, chains, seed0)
+                C = st.energy.shape[0]
+                args, mode = (), {}
+                if ladder is not None:
+                    args = (torch.from_numpy(np.tile(ladder, -(-C // 16))[:C]
+                                             .copy()).cuda(),)
+                if freeze is not None:
+                    mode = dict(freeze=torch.as_tensor(
+                        freeze(C), dtype=torch.int32, device="cuda"),
+                        track_best=False)
+                ms = events_ms(lambda: board_shared.segment_cuda(
+                    st, start_outer * stride, stride, spec, beta, *args,
+                    **mode),
+                    spin=True)
+                if rep:
+                    times.append(ms)
+            return times
 
-    lin = lambda n, b0, b1: build_schedule(  # noqa: E731
-        "linear_annealing", n, beta_start=b0, beta_end=b1)
-    main_spec = spec_of(16, 50000, 48, lin(50000, 1.0, 3.0),
+        lin = lambda n, b0, b1: build_schedule(  # noqa: E731
+            "linear_annealing", n, beta_start=b0, beta_end=b1)
+        main_spec = spec_of(16, 50000, 48, lin(50000, 1.0, 3.0),
+                            "pallas_shared")
+        rs = np.random.default_rng(7)
+        out["board_shared_chunk_ms"] = {
+            "main_path": shared_chunk_ms(main_spec, 32768, 42),
+            "tempered": shared_chunk_ms(
+                spec_of(16, 50000, 48, build_schedule(
+                    "constant", 50000, beta_const=1.0), "pallas_shared"),
+                32768, 42, ladder=geometric_ladder(1.0, 3.0, 16)),
+            "freeze": shared_chunk_ms(main_spec, 32768, 42, start_outer=10,
+                                      freeze=lambda C: rs.integers(
+                                          480, 528, C)),
+        }
+        bench = spec_of(16, 2 ** 24, 32768, lin(2 ** 24, 1.0, 5.0),
                         "pallas_shared")
-    rs = np.random.default_rng(7)
-    out["board_shared_chunk_ms"] = {
-        "main_path": shared_chunk_ms(main_spec, 32768, 42),
-        "tempered": shared_chunk_ms(
-            spec_of(16, 50000, 48, build_schedule(
-                "constant", 50000, beta_const=1.0), "pallas_shared"),
-            32768, 42, ladder=geometric_ladder(1.0, 3.0, 16)),
-        "freeze": shared_chunk_ms(main_spec, 32768, 42, start_outer=10,
-                                  freeze=lambda C: rs.integers(480, 528, C)),
-    }
-    bench = spec_of(16, 2 ** 24, 32768, lin(2 ** 24, 1.0, 5.0),
-                    "pallas_shared")
-    out["board_shared_bench_chunk"] = {}
-    for chains in (32768, 4096):
-        carry, _ = shared_state(bench, chains, 0)
-        carry, _ = board_shared.run_segment(carry, 0, bench, 1)
-        st = board_shared.segment_state(carry)
-        beta = chunk_betas(bench.schedule, 32768, 32768, "cuda")
-        ms = events_ms(lambda: board_shared.segment_cuda(
-            st, 32768, 32768, bench, beta), spin=True)
-        out["board_shared_bench_chunk"][f"C={chains}"] = {
-            "ms": ms, "moves_per_s": 32768 * chains / ms * 1e3}
+        out["board_shared_bench_chunk"] = {}
+        for chains in (32768, 4096):
+            carry, _ = shared_state(bench, chains, 0)
+            carry, _ = board_shared.run_segment(carry, 0, bench, 1)
+            st = board_shared.segment_state(carry)
+            beta = chunk_betas(bench.schedule, 32768, 32768, "cuda")
+            ms = events_ms(lambda: board_shared.segment_cuda(
+                st, 32768, 32768, bench, beta), spin=True)
+            out["board_shared_bench_chunk"][f"C={chains}"] = {
+                "ms": ms, "moves_per_s": 32768 * chains / ms * 1e3}
 
-    def cli_s(extra):
-        with tempfile.TemporaryDirectory() as d:
-            buf = io.StringIO()
+        def cli_s(extra):
+            with tempfile.TemporaryDirectory() as d:
+                buf = io.StringIO()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    competition.main(["--n", "16", "--n-runs", "32768",
+                                      "--n-steps", "50000", "--kernel",
+                                      "pallas_shared", "--device", "cuda",
+                                      "--outdir", d] + extra)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            rate = re.search(r"= ([0-9.e+]+) moves/s", buf.getvalue())
+            return {"wall_s": wall,
+                    "moves_per_s_reported": float(rate.group(1))}
+
+        out["board_cli"] = cli_s([])
+        out["board_tempered_cli"] = cli_s(["--tempering", "16"])
+        seeds = 42 + np.arange(32768, dtype=np.uint32)
+        recover = {}
+        for track in (True, False):
+            carry = board_shared.init_carry_batch(seeds, main_spec,
+                                                  device="cuda")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                competition.main(["--n", "16", "--n-runs", "32768",
-                                  "--n-steps", "50000", "--kernel",
-                                  "pallas_shared", "--device", "cuda",
-                                  "--outdir", d] + extra)
+            carry, _ = board_shared.run_segment(carry, 0, main_spec,
+                                                main_spec.n_outer,
+                                                track_best=track)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rate = re.search(r"= ([0-9.e+]+) moves/s", buf.getvalue())
-        return {"wall_s": wall,
-                "moves_per_s_reported": float(rate.group(1))}
+            recover["track_best_on_s" if track else "track_best_off_s"] = (
+                time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        board_shared.recover_best_heights(carry, main_spec)
+        torch.cuda.synchronize()
+        recover["replay_s"] = time.perf_counter() - t0
+        out["board_recover"] = recover
 
-    out["board_cli"] = cli_s([])
-    out["board_tempered_cli"] = cli_s(["--tempering", "16"])
-    seeds = 42 + np.arange(32768, dtype=np.uint32)
-    recover = {}
-    for track in (True, False):
-        carry = board_shared.init_carry_batch(seeds, main_spec,
-                                              device="cuda")
+        from mcqueens_torch.search import tempering
+
+        def sync_ms(fn, reps=50):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / reps * 1e3
+
+        rounds, ladder = 200, geometric_ladder(1.0, 3.0, 16)
+        tspec = spec_of(16, 48 * rounds, 48, lin(48 * rounds, 1.0, 3.0),
+                        "pallas_shared")
+        tempering.run_tempered(seeds[:4096], tspec, ladder, device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        carry, _ = board_shared.run_segment(carry, 0, main_spec,
-                                            main_spec.n_outer,
-                                            track_best=track)
+        tempering.run_tempered(seeds, tspec, ladder, device="cuda")
         torch.cuda.synchronize()
-        recover["track_best_on_s" if track else "track_best_off_s"] = (
-            time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    board_shared.recover_best_heights(carry, main_spec)
-    torch.cuda.synchronize()
-    recover["replay_s"] = time.perf_counter() - t0
-    out["board_recover"] = recover
+        split = {"run_tempered_per_round": (time.perf_counter() - t0) / rounds
+                 * 1e3}
+        carry, st = shared_state(tspec, 32768, 42)
+        scale = torch.from_numpy(np.tile(ladder, 2048)).cuda()
+        beta = chunk_betas(tspec.schedule, 480, 48, "cuda")
+        energies = carry.energy.reshape(-1)
+        split["segment_state"] = sync_ms(
+            lambda: board_shared.segment_state(carry))
+        split["kernel_launch"] = sync_ms(lambda: board_shared.segment_cuda(
+            st, 480, 48, tspec, beta, scale))
+        split["carry_of"] = sync_ms(lambda: board_shared.carry_of(st))
+        split["chunk_betas"] = sync_ms(lambda: chunk_betas(
+            tspec.schedule, 480, 48, "cuda"))
+        split["exchange"] = sync_ms(lambda: tempering.exchange(
+            scale, energies, tempering.round_key(0, 3), 16, 1))
+        split["energies_to_host"] = sync_ms(lambda: energies.cpu().numpy())
+        out["tempered_round_ms"] = split
 
-    from mcqueens_torch.search import tempering
-
-    def sync_ms(fn, reps=50):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / reps * 1e3
-
-    rounds, ladder = 200, geometric_ladder(1.0, 3.0, 16)
-    tspec = spec_of(16, 48 * rounds, 48, lin(48 * rounds, 1.0, 3.0),
-                    "pallas_shared")
-    tempering.run_tempered(seeds[:4096], tspec, ladder, device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tempering.run_tempered(seeds, tspec, ladder, device="cuda")
-    torch.cuda.synchronize()
-    split = {"run_tempered_per_round": (time.perf_counter() - t0) / rounds
-             * 1e3}
-    carry, st = shared_state(tspec, 32768, 42)
-    scale = torch.from_numpy(np.tile(ladder, 2048)).cuda()
-    beta = chunk_betas(tspec.schedule, 480, 48, "cuda")
-    energies = carry.energy.reshape(-1)
-    split["segment_state"] = sync_ms(lambda: board_shared.segment_state(carry))
-    split["kernel_launch"] = sync_ms(lambda: board_shared.segment_cuda(
-        st, 480, 48, tspec, beta, scale))
-    split["carry_of"] = sync_ms(lambda: board_shared.carry_of(st))
-    split["chunk_betas"] = sync_ms(lambda: chunk_betas(
-        tspec.schedule, 480, 48, "cuda"))
-    split["exchange"] = sync_ms(lambda: tempering.exchange(
-        scale, energies, tempering.round_key(0, 3), 16, 1))
-    split["energies_to_host"] = sync_ms(lambda: energies.cpu().numpy())
-    out["tempered_round_ms"] = split
-
-    S, C, width = 256, 67584, 16
-    x = torch.arange(S * C, dtype=torch.int32, device="cuda").reshape(S, C)
-    out["slice_copy_ms"] = {}
-    for mode, row in (("load", 240), ("store", 48)):
-        off = torch.tensor([row], dtype=torch.int32, device="cuda")
-        if mode == "load":
-            kernel = lambda: probes_mem.slice_load_cuda(x, off, width)
-            want = probes_mem.slice_load_reference(x, off, width)
-            library = lambda: torch.narrow_copy(x, 0, row, width)
-            name = "narrow_copy"
-        else:
-            rows = torch.arange(row, row + width, device="cuda")
-            kernel = lambda: probes_mem.slice_store_cuda(x, off, width)
-            want = probes_mem.slice_store_reference(x, off, width)
-            library = lambda: x.index_fill(0, rows, 7)
-            name = "index_fill"
-        if not (torch.equal(kernel(), want) and torch.equal(library(), want)):
-            raise AssertionError(f"slice {mode}: kernel or {name} is wrong")
-        out["slice_copy_ms"][mode] = {
-            "kernel": events_ms(kernel, 10, spin=True),
-            name: events_ms(library, 10, spin=True)}
+        S, C, width = 256, 67584, 16
+        x = torch.arange(S * C, dtype=torch.int32, device="cuda").reshape(S, C)
+        out["slice_copy_ms"] = {}
+        for mode, row in (("load", 240), ("store", 48)):
+            off = torch.tensor([row], dtype=torch.int32, device="cuda")
+            if mode == "load":
+                kernel = lambda: probes_mem.slice_load_cuda(x, off, width)
+                want = probes_mem.slice_load_reference(x, off, width)
+                library = lambda: torch.narrow_copy(x, 0, row, width)
+                name = "narrow_copy"
+            else:
+                rows = torch.arange(row, row + width, device="cuda")
+                kernel = lambda: probes_mem.slice_store_cuda(x, off, width)
+                want = probes_mem.slice_store_reference(x, off, width)
+                library = lambda: x.index_fill(0, rows, 7)
+                name = "index_fill"
+            if not (torch.equal(kernel(), want)
+                    and torch.equal(library(), want)):
+                raise AssertionError(
+                    f"slice {mode}: kernel or {name} is wrong")
+            out["slice_copy_ms"][mode] = {
+                "kernel": events_ms(kernel, 10, spin=True),
+                name: events_ms(library, 10, spin=True)}
+    if args.only in (None, "full3d"):
+        out.update(full3d_phases())
     line = json.dumps(out)
     print(line)
     if args.json:

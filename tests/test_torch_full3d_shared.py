@@ -33,7 +33,7 @@ from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.cli import competition
 from mcqueens_torch.core import energy, fastinit, schedules, tables
 from mcqueens_torch.dist import runner
-from mcqueens_torch.kernels import full3d_pallas, full3d_shared
+from mcqueens_torch.kernels import _build, full3d_pallas, full3d_shared
 from mcqueens_torch.kernels.carry import (FULL3D_FIELDS, carry_from_numpy,
                                           carry_to_numpy)
 from tests import _oracle
@@ -380,3 +380,87 @@ def test_cli_q_guards(flags):
     with pytest.raises(SystemExit) as exc:
         competition.main(["--n", "4", "--device", "cpu"] + flags)
     assert exc.value.code == 2
+
+
+# -- the CUDA kernel's layout rule (no card needed) --------------------------
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("N,Q,C,want", [
+    # the floors campaign's launch and chunk: four lanes, 128 chains a CTA
+    # in 231936 B, 3.88 waves of 128 chains an SM
+    (15, 225, 65536, (4, 128, True)),
+    # the campaign at 4096 chains: 8 lanes, one wave on 128 SMs
+    (15, 225, 4096, (8, 32, True)),
+    # tools/qmax.py's first budget: 8 lanes, one wave on 128 SMs
+    (8, 48, 4096, (8, 32, True)),
+])
+def test_layout_picks(N, Q, C, want):
+    c_blk = full3d_shared.block_size(C)
+    lay = full3d_shared.layout(N, Q, C, c_blk, H100_SMS)
+    assert (lay.lanes, lay.chains_per_cta, lay.in_shared) == want
+    assert lay.smem_bytes == full3d_shared.cta_smem_bytes(
+        Q, lay.lanes, lay.chains_per_cta)
+
+
+@pytest.mark.parametrize("N,Q,C", [
+    (15, 225, 65536), (15, 225, 4096), (8, 48, 4096), (16, 32, 32768),
+    (16, 128, 32768), (16, 256, 32768), (16, 384, 32768), (16, 384, 16384),
+    (5, 13, 1024), (3, 26, 256), (12, 144, 4096), (93, 8649, 128)])
+def test_layout_invariants(N, Q, C):
+    """Shared bytes within a block's limit, threads and chains a CTA within
+    the kernel's, chains a CTA dividing the block (a CTA holds one semantic
+    block), and a launch of more than one wave has its last wave at least
+    half full."""
+    c_blk = full3d_shared.block_size(C)
+    lay = full3d_shared.layout(N, Q, C, c_blk, H100_SMS)
+    assert lay.in_shared
+    assert lay.smem_bytes <= _build.SMEM_PER_BLOCK
+    assert lay.lanes in full3d_shared.LANES
+    assert 32 <= lay.lanes * lay.chains_per_cta <= 512
+    assert (lay.lanes * lay.chains_per_cta) % 32 == 0
+    assert c_blk % lay.chains_per_cta == 0 and C % lay.chains_per_cta == 0
+    slot = full3d_shared.slot_words(Q, lay.lanes)
+    assert slot >= 2 * Q
+    if lay.lanes < 32:  # a warp's reads of its teams' words: 32 banks
+        teams = 32 // lay.lanes
+        banks = {(t * slot + r) % 32 for t in range(teams)
+                 for r in range(lay.lanes)}
+        assert len(banks) == 32
+    else:
+        assert slot % 2
+    waves = full3d_shared.waves(lay, C, H100_SMS)
+    assert waves <= 1 or waves % 1 == 0 or waves % 1 >= 0.5, waves
+
+
+def test_layout_device_memory_where_no_cta_fits():
+    """A CTA of one chain at 32 lanes holds 2Q + 1 words of slot: past Q =
+    29055 no CTA fits, and the rule walks the device planes."""
+    assert full3d_shared.layout(31, 29055, 128, 128, H100_SMS).in_shared
+    lay = full3d_shared.layout(31, 29056, 128, 128, H100_SMS)
+    assert not lay.in_shared and lay.smem_bytes == 0
+    assert 128 % lay.chains_per_cta == 0
+
+
+def test_layout_blocks_of_odd_sizes():
+    """Blocks of 100 chains allow CTAs of at most 4 chains (8 lanes or
+    more); a block of one chain takes CTAs of one chain at 32 lanes."""
+    lay = full3d_shared.layout(6, 36, 300, 100, H100_SMS)
+    assert lay.chains_per_cta <= 4 and 100 % lay.chains_per_cta == 0
+    lay = full3d_shared.layout(6, 36, 7, 1, H100_SMS)
+    assert (lay.lanes, lay.chains_per_cta) == (32, 1)
+
+
+def test_q_past_the_packed_reduce_is_refused():
+    """The team's reduce packs two 16-bit counts a word, so the CUDA kernel
+    (and its host emulation) refuses Q > 65536 with ValueError before it
+    touches any tensor; the twin has no such limit."""
+    assert full3d_shared.MAX_Q == 65536
+    full3d_shared.layout(41, 65536, 128, 128, H100_SMS)
+    _, spec = _specs("n5", N=41, Q=65537)
+    with pytest.raises(ValueError, match="Q must"):
+        full3d_shared.layout(41, 65537, 128, 128, H100_SMS)
+    with pytest.raises(ValueError, match="Q must be at most 65536"):
+        full3d_shared.launch_segment(None, None, 0, 44, spec, None,
+                                     n_sm=H100_SMS)

@@ -337,13 +337,31 @@ def test_prng_threefry_matches_jax_random(monkeypatch, shape, n_iter):
 
 # -- refusals, counts, tools --------------------------------------------------
 
+def _drop_failed_tokens():
+    """Wait for the process's ordered-effect tokens and drop them.  JAX
+    threads interpret-mode callbacks through one such token a thread, and a
+    kernel whose callback raised leaves it failed: every later interpret-mode
+    kernel in the process (an xdist worker's next test files) would then
+    fail with that kernel's IndexError."""
+    from jax._src import dispatch
+
+    try:
+        jax.effects_barrier()
+    except jax.errors.JaxRuntimeError:
+        pass  # the refusal the caller has already asserted
+    dispatch.runtime_tokens.clear()
+
+
 def test_out_of_range_slices_are_refused_by_both(jax_output):
     # JAX: an out-of-range pl.ds raises in interpret mode (no clamping).
     js = _js()
-    with pytest.raises(Exception, match="Out-of-bounds"):
-        jax_output(js, js.dyn_sublane_load, 256, 128, 16, 250)
-    with pytest.raises(Exception, match="Out-of-bounds"):
-        jax_output(js, js.dyn_slice_loop_cost, 64, 128, 24, n_iter=7)
+    try:
+        with pytest.raises(Exception, match="Out-of-bounds"):
+            jax_output(js, js.dyn_sublane_load, 256, 128, 16, 250)
+        with pytest.raises(Exception, match="Out-of-bounds"):
+            jax_output(js, js.dyn_slice_loop_cost, 64, 128, 24, n_iter=7)
+    finally:
+        _drop_failed_tokens()
     x = _t(_arange(256, 128))
     for o in (250, -1):
         off = torch.tensor([o], dtype=torch.int32)
