@@ -54,7 +54,19 @@ and the script exits non-zero without printing a result:
    chains, 256 steps), the bench shape (N=16, 32768 chains, 48 steps), N=32
    (128 chains, 512 steps), N=5 with patience, N=11 klarner at beta=100,
    N=2, 1000 chains (padded to 1024) and a launch past step 2^24 with 50
-   bins.  Per-chain full-3D shapes: N=12/Q=144 and N=15/Q=225 at 4096
+   bins; and the redesigned kernel's edges (kernels/metropolis_pallas.py:
+   layout, printed on each compare line; a team of L lanes a chain drawing
+   a batch of L steps ahead): each team size forced at the pod-scale width,
+   stops and bin edges inside a batch (a whole warp forced, and by the
+   rule, where teams of one warp stop at different steps), segments of 1,
+   31 and 33 steps (a whole warp forced, and by the rule), N=170 (the
+   largest N it takes), C=4099 (not whole blocks) by the rule and with a
+   ragged last CTA of 3 chains, and the pod-scale launch (the second
+   16384-step chunk, 4096 chains) and the beyond-reference launch at its
+   largest N (62500 steps from step 0, 128 chains, N=32) in full, held
+   against the twin on a sample of 64 and 16 chains (the twin's time is
+   ~1.2-1.6 ms a step whatever the chains).  Each of its instances' registers
+   must stay within the 64 its layout rule reckons with.  Per-chain full-3D shapes: N=12/Q=144 and N=15/Q=225 at 4096
    chains, N=3/Q=26 (attempt runs past 32), N=2/Q=7, N=5/Q=13 with
    patience, N=11 klarner at beta=100 and a launch past step 2^24.
    Board freeze mode (track_best off, a per-chain step horizon), against the
@@ -138,7 +150,10 @@ and the script exits non-zero without printing a result:
    of the full-3D kernel at the campaign's (N=15, Q=225, linear 0.8->7 over
    8M steps, 62500-step chunks), each at two chain counts; then the
    per-chain kernels at the same board configuration and at N=15, Q=225
-   with 8192-step chunks; then each scan kernel alone at config.yaml's
+   with 8192-step chunks, the per-chain board kernel first alone at the
+   main paths' launches (the pod-scale launch and the beyond-reference
+   launches at N=16 and N=32, three times each on a fresh state behind a
+   spin kernel), each with its share of the bound; then each scan kernel alone at config.yaml's
    launch shape (10 chains, stride 1, 100000 steps, from step 0 and
    900000: microseconds per step; board N=12 and 18, full-3D the beta
    pairs' N=12/Q=144); then both scan kernels, in both
@@ -512,6 +527,21 @@ def full3d_layout(st, spec, forced=None):
         spec.N, spec.q_eff, C, C // int(st.block_seeds.shape[0]), n_sm)
 
 
+def metropolis_layout(spec, C, forced=None):
+    """The per-chain board kernel's layout of a launch of C chains on this
+    card (kernels/metropolis_pallas.py:layout), or the forced one."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return forced or metropolis_pallas.layout(spec.N, C, n_sm)
+
+
+def metropolis_forced(N, lanes, cpb=None):
+    """A forced layout of the per-chain board kernel: ``lanes`` lanes a
+    chain, ``cpb`` chains a CTA (by default a warp's chains)."""
+    cpb = cpb or max(1, 32 // lanes)
+    return metropolis_pallas.Layout(
+        lanes, cpb, metropolis_pallas.cta_smem_bytes(N, cpb))
+
+
 def shared_note(lay):
     """A shared-site kernel's layout, for the compare lines."""
     where = (f"shared memory, {lay.smem_bytes} B a CTA" if lay.in_shared
@@ -576,6 +606,9 @@ def compare_case(mod, name, spec, n_chains, start_outer=0, seed0=0,
         note = shared_note(lay)
     elif mod is full3d_shared:
         lay = full3d_layout(k_st, spec, forced)
+        note = shared_note(lay)
+    elif mod is metropolis_pallas:
+        lay = metropolis_layout(spec, C, forced)
         note = shared_note(lay)
     phase("compare", f"{name}: kernel == twin on all {len(vars(k_st))} "
           f"state fields; {ln.proposals} proposals, {ln.accepted} "
@@ -723,6 +756,96 @@ def campaign_chunk_case(bounds):
     return dict(err=err, kernel_ms=k_ms, bound_ms=bound_ms)
 
 
+def metropolis_case(name, spec, n_chains, step0=0, seed0=0, forced=None,
+                    prior=0, sample=None):
+    """One launch of the per-chain board kernel over ``history_stride``
+    steps from ``step0``, against the twin on the card from one state: the
+    first ``n_chains`` chains of an ``init_carry_batch`` carry (so C need
+    not be whole blocks), first advanced by the kernel over ``prior`` steps
+    from step 0 when given.  ``sample`` evenly spaced chains are held
+    against the twin instead of all (the twin's time is per step, not per
+    chain).  The kernel is timed on the card alone (behind a spin kernel);
+    returns a dict like :func:`compare_case`'s, with the sample's states."""
+    seeds = seed0 + np.arange(n_chains, dtype=np.uint32)
+    carry = metropolis_pallas.init_carry_batch(seeds, spec, device="cuda")
+    st = metropolis_pallas.SegmentState(**{
+        k: v[:n_chains].contiguous()
+        for k, v in vars(metropolis_pallas.segment_state(carry)).items()})
+    launches = metropolis_pallas.KERNEL_LAUNCHES
+    if prior:
+        metropolis_pallas.segment_cuda(
+            st, 0, prior, spec, chunk_betas(spec.schedule, 0, prior, "cuda"))
+    n = spec.history_stride
+    beta = chunk_betas(spec.schedule, step0, n, "cuda")
+    idx = torch.arange(n_chains, device="cuda")
+    if sample is not None:
+        idx = torch.linspace(0, n_chains - 1, sample, device="cuda").long()
+    twin = metropolis_pallas.SegmentState(**{
+        k: v.index_select(0, idx).contiguous() for k, v in vars(st).items()})
+    init = metropolis_pallas.SegmentState(**{
+        k: v.clone() for k, v in vars(twin).items()})
+    before = snapshot(st, True)
+    kernel_ms = device_ms(lambda: metropolis_pallas.segment_cuda(
+        st, step0, n, spec, beta, forced=forced), reps=1)
+    # Comparison launches are not the main path's: take them back.
+    metropolis_pallas.KERNEL_LAUNCHES = launches
+    t0 = time.perf_counter()
+    metropolis_pallas.segment_reference(twin, step0, n, spec, beta)
+    torch.cuda.synchronize()
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    got = metropolis_pallas.SegmentState(**{
+        k: v.index_select(0, idx) for k, v in vars(st).items()})
+    err = 0
+    for field, want in vars(twin).items():
+        a = getattr(got, field)
+        if not torch.equal(a, want):
+            err = max(err, int((a.long() - want.long()).abs().max()))
+            phase("compare", f"{name}: field {field} differs "
+                  f"({int((a != want).sum())} entries)")
+    if err:
+        raise AssertionError(f"kernel != twin on {name}: max abs err {err}")
+    ln = launch_of(spec, before, snapshot(st, True), step0, n)
+    lay = metropolis_layout(spec, n_chains, forced)
+    held = "all" if sample is None else f"{sample} sampled"
+    phase("compare", f"{name}: kernel == twin on all {len(vars(st))} state "
+          f"fields of {held} chains; {ln.proposals} proposals, "
+          f"{ln.accepted} accepted, {ln.improved} chains improved; kernel "
+          f"{kernel_ms:.3f} ms, twin {twin_ms:.1f} ms{shared_note(lay)}")
+    return dict(err=err, kernel_ms=kernel_ms, twin_ms=twin_ms, st=got,
+                spec=spec, work=metropolis_work(ln), n_chains=n_chains,
+                layout=lay, init=init, step0=step0)
+
+
+def check_metropolis_case(name, res, kw):
+    """What each of the per-chain board kernel's design cases is there to
+    show."""
+    st, lay, spec = res["st"], res["layout"], res["spec"]
+    if "forced" in kw and lay != kw["forced"]:
+        raise AssertionError(f"{name}: launched as {lay}")
+    if "C=4099" in name and (
+            4099 % lay.chains_per_cta == 0 or st.energy.shape[0] != 4099):
+        raise AssertionError(f"{name}: no ragged CTA")
+    if "inside a batch" in name:
+        t = (st.stop_step - res["step0"]).cpu().numpy()
+        stopped = st.stop_step.cpu().numpy() < spec.n_steps
+        teams = 32 // lay.lanes
+        warps = {}
+        for c in np.flatnonzero(stopped):
+            warps.setdefault(c // teams, set()).add(int(t[c]))
+        mixed = sum(len(v) > 1 for v in warps.values())
+        inside = int(((t[stopped] % lay.lanes) != lay.lanes - 1).sum())
+        bins = int(((st.total_bins - res["init"].total_bins) > 0).sum(1)
+                   .max())
+        if not inside or (teams > 1 and not mixed) or bins < 2:
+            raise AssertionError(f"{name}: {inside} stops inside a batch, "
+                                 f"{mixed} mixed warps, {bins} bins")
+        phase("compare", f"{name}: {int(stopped.sum())} chains stopped, "
+              f"{inside} inside a batch of {lay.lanes} draws, {mixed} warps "
+              f"with stops at different steps; up to {bins} bins a chain")
+    if "170" in name and spec.N != 170:
+        raise AssertionError(f"{name}: N={spec.N}")
+
+
 def run_cli(argv):
     """``competition.main(argv)`` into a fresh directory; returns (stdout,
     the exported i,j,k rows)."""
@@ -780,6 +903,13 @@ def warm_up():
             board_shared.segment_cuda(st, 0, 8, spec, beta,
                                       forced=board_shared.Layout(lanes, cpb,
                                                                  smem))
+    # So has the per-chain board kernel, one a team size.
+    spec = pspec_of(4, 8, 8, const(8, 1.0))
+    st = metropolis_pallas.segment_state(metropolis_pallas.init_carry_batch(
+        np.arange(4, dtype=np.uint32), spec, device="cuda"))
+    for lanes in metropolis_pallas.LANES:
+        metropolis_pallas.segment_cuda(st, 0, 8, spec, beta,
+                                       forced=metropolis_forced(4, lanes))
     # So has the full-3D shared kernel, with six team sizes.
     spec = spec_of(4, 8, 8, const(8, 1.0), mcmc_type="full_3d")
     st = full3d_shared.segment_state(full3d_shared.init_carry_batch(
@@ -1540,6 +1670,45 @@ def throughput(mod, label, spec, chain_counts, bounds):
               f"the kernel's time")
     phase("throughput", "nvidia-smi clocks.sm,power.draw,temperature.gpu: "
           + nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
+
+
+def metropolis_table(bounds):
+    """The per-chain board kernel alone at the main paths' launches, each on
+    a fresh state behind a spin kernel, three times after one untimed
+    launch: the pod-scale launch (N=20, 4096 chains, the second 16384-step
+    chunk of linear 1->5 over 5M) and the beyond-reference launch (128
+    chains, 62500 steps from step 0, linear 1->5.5 over 8M) at N=16 and
+    N=32; each with its layout and its share of the bound."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, N, horizon, b1, stride, chains, prior, seed0 in (
+            ("pod-scale launch", 20, 5_000_000, 5.0, 16384, 4096, 16384, 42),
+            ("beyond-reference launch", 16, 8_000_000, 5.5, 62500, 128, 0,
+             4242),
+            ("beyond-reference launch", 32, 8_000_000, 5.5, 62500, 128, 0,
+             4242)):
+        spec = pspec_of(N, horizon, stride, lin(horizon, 1.0, b1))
+        carry = metropolis_pallas.init_carry_batch(
+            seed0 + np.arange(chains, dtype=np.uint32), spec, device="cuda")
+        if prior:
+            carry, _ = metropolis_pallas.run_segment(carry, 0, spec, 1)
+        beta = chunk_betas(spec.schedule, prior, stride, "cuda")
+        times = []
+        for rep in range(4):
+            st = metropolis_pallas.segment_state(carry)
+            before = snapshot(st, True)
+            ms = device_ms(lambda: metropolis_pallas.segment_cuda(
+                st, prior, stride, spec, beta), reps=1)
+            if rep:
+                times.append(ms)
+        ln = launch_of(spec, before, snapshot(st, True), prior, stride)
+        bound_ms, bound_by = bounds.of(*metropolis_work(ln))
+        lay = metropolis_pallas.layout(N, chains, n_sm)
+        phase("throughput", f"metropolis {label} N={N} C={chains} {stride} "
+              f"steps from {prior}: kernel alone "
+              f"{', '.join(f'{t:.3f}' for t in times)} ms = "
+              f"{min(times) / stride * 1e3:.4f} us a step; bound "
+              f"{bound_ms:.3f} ms ({bound_by}) = {bound_ms / min(times):.3f} "
+              f"of the kernel's time{shared_note(lay)}")
 
 
 def sass_loops():
@@ -2343,6 +2512,10 @@ def main():
                               f"{'shared' if inst[3] == '1' else 'device'}"
                               f" memory>")
                     shared_instances.append(kernel)
+                inst = re.search(r"metropolis_kernelILi(\d+)EE", ln)
+                if inst:
+                    kernel = f"metropolis_kernel<L={inst[1]}>"
+                    shared_instances.append(kernel)
             elif kernel in PROBE_FUNCS:
                 # one line per template instance: summarised below
                 regs[kernel] += map(int, re.findall(r"Used (\d+) reg", ln))
@@ -2352,7 +2525,8 @@ def main():
                 phase("build", f"{kernel}: {ln.strip()}")
                 used = re.search(r"Used (\d+) reg", ln)
                 mod = (full3d_shared if kernel.startswith("full3d")
-                       else board_shared)
+                       else metropolis_pallas
+                       if kernel.startswith("metropolis") else board_shared)
                 if (kernel in shared_instances and used
                         and int(used[1]) > mod.REGISTERS):
                     raise AssertionError(
@@ -2360,9 +2534,10 @@ def main():
                         f"rule reckons with {mod.REGISTERS}")
         built = collections.Counter(k.split("_")[0] for k in shared_instances)
         want = {"board": 2 * len(board_shared.LANES),
-                "full3d": 2 * len(full3d_shared.LANES)}
+                "full3d": 2 * len(full3d_shared.LANES),
+                "metropolis": len(metropolis_pallas.LANES)}
         if log.exists() and built != want:
-            raise AssertionError(f"shared-site kernel instances built: "
+            raise AssertionError(f"team-size kernel instances built: "
                                  f"{shared_instances}")
         for kernel, vals in regs.items():
             phase("build", f"{kernel}: {len(vals)} template instances, "
@@ -2450,6 +2625,44 @@ def main():
         ("metropolis N=16 C=4096 step0 > 2^24", pspec_of(
             16, 2 ** 25, 1024, lin(2 ** 25, 1.0, 5.0), n_bins=50),
          4096, 16387, 0, None),
+    ]
+    # The per-chain board kernel's design edges (kernels/metropolis_pallas.py:
+    # layout): each team size forced at the pod-scale width, stops and bin
+    # edges inside a batch of draws, segments of 1, B - 1 and B + 1 steps at
+    # a whole warp's batch (B = 32) and by the rule, N=170 (the largest it
+    # takes), C=4099 (not whole blocks) by the rule and with a ragged last
+    # CTA, and the pod-scale launch and the beyond-reference launch at its
+    # largest N in full, held against the twin on a sample.  (name, spec,
+    # chains, step0, seed0, keywords)
+    pod = pspec_of(20, 5_000_000, 256, lin(5_000_000, 1.0, 5.0))
+    edge = pspec_of(5, 600, 64, const(600, 50.0), early_stop_patience=13,
+                    n_bins=60)
+    far = pspec_of(16, 8_000_000, 1, lin(8_000_000, 1.0, 5.5))
+    metropolis_design_cases = [
+        *[(f"metropolis L={L} forced N=20 C=4096 256 steps", pod, 4096, 0, 42,
+           dict(forced=metropolis_forced(20, L, 128 // L)))
+          for L in metropolis_pallas.LANES],
+        ("metropolis stops and bin edges inside a batch L=32 N=5 C=1024",
+         edge, 1024, 0, 3, dict(forced=metropolis_forced(5, 32))),
+        ("metropolis stops and bin edges inside a batch N=5 C=4096", edge,
+         4096, 0, 3, {}),
+        *[(f"metropolis {n}-step segment{' L=32' if L else ''} N=16 C=128",
+           dataclasses.replace(far, history_stride=n), 128, 12345, 4242,
+           dict(forced=metropolis_forced(16, 32)) if L else {})
+          for L in (True, False) for n in (1, 31, 33)],
+        ("metropolis N=170 C=16 64 steps", pspec_of(
+            170, 10 ** 6, 64, lin(10 ** 6, 1.0, 3.0)), 16, 0, 1, {}),
+        ("metropolis C=4099 N=16 256 steps", pspec_of(
+            16, 2 ** 24, 256, lin(2 ** 24, 1.0, 5.0)), 4099, 0, 6, {}),
+        ("metropolis C=4099 ragged L=32 3 a CTA N=16 256 steps", pspec_of(
+            16, 2 ** 24, 256, lin(2 ** 24, 1.0, 5.0)), 4099, 0, 6,
+         dict(forced=metropolis_forced(16, 32, 3))),
+        ("metropolis pod-scale launch N=20 C=4096 16384 steps from 16384",
+         dataclasses.replace(pod, history_stride=16384), 4096, 16384, 42,
+         dict(prior=16384, sample=64)),
+        ("metropolis beyond-reference launch N=32 C=128 62500 steps",
+         pspec_of(32, 8_000_000, 62500, lin(8_000_000, 1.0, 5.5)), 128, 0,
+         4242, dict(sample=16)),
     ]
     full3d_pallas_cases = [
         ("full3d_pallas N=12 Q=144 C=4096 256 steps",
@@ -2698,6 +2911,11 @@ def main():
             check_full3d_case(name, res, kw)
         campaign = campaign_chunk_case(bounds)
         results["full3d campaign chunk"] = dict(campaign, mod=full3d_shared)
+    with timed("compare metropolis design"):
+        for name, spec, n_chains, step0, seed0, kw in metropolis_design_cases:
+            res = metropolis_case(name, spec, n_chains, step0, seed0, **kw)
+            results[name] = dict(res, mod=metropolis_pallas)
+            check_metropolis_case(name, res, kw)
     with timed("compare scan samplers"):
         for mod, cases in ((board_chain, scan_board_cases),
                            (full3d_chain, scan_full3d_cases)):
@@ -2800,6 +3018,7 @@ def main():
                            mcmc_type="full_3d"),
                    (65536, 4096), bounds)
     with timed("throughput metropolis"):
+        metropolis_table(bounds)
         horizon = 2 ** 24
         throughput(metropolis_pallas, "metropolis N=16 (bench.py --kernel "
                    "pallas configuration)",

@@ -1,31 +1,48 @@
 // Host emulation of the CUDA runtime and warp intrinsics that the warp
-// kernels use (board_scan.cu, full3d_scan.cu, board_shared.cu), so that a
-// kernel's logic can
-// be run and checked on a machine without a GPU or nvcc.  Built with g++
-// -std=c++20 -pthread by mcqueens_torch/kernels/host_emulation.py, which
-// puts this directory first on the include path (so the sources'
-// #include <cuda_runtime.h> finds this file) and rewrites two constructs
-// g++ cannot parse: a launch `kernel<<<grid, block, smem, stream>>>(args)`
-// becomes emu::launch(kernel, grid, block, smem, stream, args), and
+// kernels use (board_scan.cu, full3d_scan.cu, board_shared.cu,
+// full3d_shared.cu, metropolis.cu), so that a kernel's logic can be run and
+// checked on a machine without a GPU or nvcc.  Built with g++ -std=c++20
+// -pthread by mcqueens_torch/kernels/host_emulation.py, which puts this
+// directory first on the include path (so the sources' #include
+// <cuda_runtime.h> finds this file) and rewrites two constructs g++ cannot
+// parse: a launch `kernel<<<grid, block, smem, stream>>>(args)` becomes
+// emu::launch(kernel, grid, block, smem, stream, args), and
 // `extern __shared__ T name[];` a pointer to the block's shared memory.
 //
 // One fiber (ucontext) per CUDA thread, all on the calling OS thread; the
 // blocks of a launch run one after another, the fibers of an even block
 // round robin, each until it waits at a barrier, those of an odd block a
-// warp at a time (each warp until it waits at __syncthreads or ends).  A warp-wide intrinsic is "write
-// my slot, wait for the warp, read" (two slot banks used in turn, so no
-// second wait), __syncwarp a wait for the warp, __syncthreads for the
-// block.  As each lane runs as far as it can alone, a lane that reads what
-// another lane stored in the same step (a race on the card, hidden there by
-// lanes that run converged) sees it here, and so, in an odd block, does a
+// warp at a time (each warp until it waits at __syncthreads or ends).  Each
+// round resumes the fibers in a new pseudo-random order (a permutation
+// drawn from a generator seeded alike at every launch, so that a run
+// repeats), so the lanes a barrier releases run in no fixed order.  A
+// warp-wide intrinsic is "write my slot, wait for the warp, read" (two slot
+// banks used in turn, so no second wait), __syncwarp a wait for the warp,
+// __syncthreads for the block.  As each lane runs as far as it can alone, a
+// lane that reads what another lane stores between the same two barriers
+// (a race on the card, hidden there by lanes that run converged) sees the
+// store in some rounds and not in others, and so, in an odd block, does a
 // warp that reads shared memory other warps have not yet written (a missing
 // __syncthreads; the block's memory starts filled with 0xA5); a round of
-// the scheduler in which
-// no fiber arrives at a barrier or ends (lanes that reached different warp
-// intrinsics) aborts the process with a message rather than hang, and so
-// does a launch that runs over a minute (an endless loop).  Not
-// emulated: warp masks other than the full one, the device's expf rounding
-// (the host's expf is used).
+// the scheduler in which no fiber arrives at a barrier or ends (lanes that
+// reached different warp intrinsics) aborts the process with a message
+// rather than hang, and so does a launch that runs over a minute (an
+// endless loop).
+//
+// Shared memory has two models, chosen at each launch by MCQ_EMU_MEMORY.
+// "ordered" (the default): one block memory, a store visible to every lane
+// as soon as it is made, as above.  "delayed": the
+// card's rule that only __syncwarp and __syncthreads (not a shuffle or a
+// vote) order one thread's store before another thread's load.  Each
+// thread works on its own copy of the block's shared memory; at
+// __syncwarp its warp's stores reach the block's memory and its warp's
+// copies are renewed from it, at __syncthreads the block's.  A thread
+// that reads what another thread stored after the last such barrier they
+// share sees the old value every time, and two threads that store
+// different values to one byte between barriers are a race, which the
+// launch reports (cudaGetLastError, and a line on stderr).  Not emulated:
+// warp masks other than the full one, the device's expf rounding (the
+// host's expf is used).
 
 #pragma once
 
@@ -37,6 +54,7 @@
 
 #include <ucontext.h>
 
+#include <algorithm>
 #include <chrono>
 #include <condition_variable>
 #include <functional>
@@ -59,7 +77,11 @@ struct dim3 {
 };
 
 using cudaStream_t = void*;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorLaunchFailure = 4
+};
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
 // The running fiber's thread and block (one OS thread runs them all).
@@ -69,12 +91,19 @@ template <typename F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline long long min(long long a, long long b) { return a < b ? a : b; }
 inline long long max(long long a, long long b) { return a > b ? a : b; }
+
+struct uint4 {
+  unsigned x, y, z, w;
+};
+
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return (unsigned)(((unsigned long long)a * b) >> 32);
+}
 
 inline float __uint_as_float(uint32_t u) {
   float f;
@@ -103,11 +132,15 @@ inline void yield() { swapcontext(&current->ctx, &scheduler); }
 class Barrier {
  public:
   explicit Barrier(int n) : n_(n) {}
-  void wait() {
+  // The last thread to arrive runs `done(lo, hi)`, if given, before any
+  // waiting thread goes on.
+  void wait(void (*done)(unsigned, unsigned) = nullptr, unsigned lo = 0,
+            unsigned hi = 0) {
     ++progress;
     const unsigned long gen = gen_;
     if (++count_ == n_) {
       count_ = 0;
+      if (done) done(lo, hi);
       ++gen_;
       return;
     }
@@ -126,20 +159,60 @@ struct Warp {
 };
 
 struct Block {
-  Block(unsigned threads, size_t smem_bytes)
+  Block(unsigned threads, size_t smem_bytes, bool delayed)
       : bar(threads), smem(smem_bytes + 16, 0xA5) {
     for (unsigned w = 0; w < threads / 32; ++w) {
       warps.push_back(std::make_unique<Warp>());
+    }
+    if (delayed) {
+      views.assign(threads, smem);
+      bases.assign(threads, smem);
     }
   }
   Barrier bar;
   std::vector<std::unique_ptr<Warp>> warps;
   std::vector<uint8_t> smem;  // filled with 0xA5: never read unwritten
+  // The delayed model: each thread's copy, and the block's memory as that
+  // copy last took it.
+  std::vector<std::vector<uint8_t>> views, bases;
 };
 
 inline Block* block = nullptr;
+inline bool raced = false;  // this launch stored racing values
 
-inline void* shared_memory() { return block->smem.data(); }
+inline void* shared_memory() {
+  return block->views.empty() ? block->smem.data()
+                              : block->views[threadIdx.x].data();
+}
+
+// The delayed model's barrier for threads [lo, hi): their stores into the
+// block's memory, then their copies renewed from it.
+inline void publish(unsigned lo, unsigned hi) {
+  Block& b = *block;
+  if (b.views.empty()) return;
+  const size_t n = b.smem.size();
+  for (unsigned t = lo; t < hi; ++t) {
+    const uint8_t* v = b.views[t].data();
+    const uint8_t* base = b.bases[t].data();
+    for (size_t i = 0; i < n; i += 8) {
+      if (memcmp(v + i, base + i, n - i < 8 ? n - i : 8) == 0) continue;
+      for (size_t k = i; k < i + 8 && k < n; ++k) {
+        if (v[k] == base[k]) continue;
+        if (b.smem[k] != base[k] && b.smem[k] != v[k] && !raced) {
+          raced = true;
+          fprintf(stderr, "emu: block %u: thread %u stored %u at shared "
+                  "byte %zu, another thread %u since their last common "
+                  "barrier\n", blockIdx.x, t, v[k], k, b.smem[k]);
+        }
+        b.smem[k] = v[k];
+      }
+    }
+  }
+  for (unsigned t = lo; t < hi; ++t) {
+    memcpy(b.views[t].data(), b.smem.data(), n);
+    memcpy(b.bases[t].data(), b.smem.data(), n);
+  }
+}
 
 inline Warp& my_warp() { return *block->warps[threadIdx.x / 32]; }
 
@@ -231,16 +304,35 @@ void launch(void (*kernel)(P...), dim3 grid, dim3 threads, size_t smem,
     abort();
   }
   const Watchdog watchdog(60);
+  const char* memory = getenv("MCQ_EMU_MEMORY");
+  const bool delayed = memory && !strcmp(memory, "delayed");
+  if (memory && !delayed && strcmp(memory, "ordered")) {
+    fprintf(stderr, "emu: MCQ_EMU_MEMORY is ordered or delayed, not %s\n",
+            memory);
+    abort();
+  }
+  raced = false;
   gridDim = grid;
   blockDim = threads;
   const std::function<void()> run = [&] { kernel(args...); };
   body = &run;
   std::vector<Fiber> fibers(threads.x);
+  std::vector<unsigned> order(threads.x);
+  uint64_t rng = 0x9E3779B97F4A7C15ull;  // the same orders at every launch
+  const auto shuffle = [&](unsigned lo, unsigned hi) {
+    for (unsigned k = hi - 1; k > lo; --k) {
+      rng ^= rng << 13;
+      rng ^= rng >> 7;
+      rng ^= rng << 17;
+      std::swap(order[k], order[lo + rng % (k - lo + 1)]);
+    }
+  };
   for (unsigned b = 0; b < grid.x; ++b) {
-    Block blk(threads.x, smem);
+    Block blk(threads.x, smem, delayed);
     block = &blk;
     blockIdx = dim3(b);
     for (unsigned t = 0; t < threads.x; ++t) {
+      order[t] = t;
       Fiber& f = fibers[t];
       f.tid = t;
       f.done = false;
@@ -260,8 +352,9 @@ void launch(void (*kernel)(P...), dim3 grid, dim3 threads, size_t smem,
       for (unsigned w0 = 0; w0 < threads.x; w0 += span) {
         for (long moved = -1; moved != progress;) {
           moved = progress;
-          for (unsigned t = w0; t < w0 + span; ++t) {
-            Fiber& f = fibers[t];
+          shuffle(w0, w0 + span);
+          for (unsigned k = w0; k < w0 + span; ++k) {
+            Fiber& f = fibers[order[k]];
             if (f.done) continue;
             current = &f;
             threadIdx = dim3(f.tid);
@@ -295,5 +388,13 @@ T __shfl_xor_sync(unsigned, T v, int lane_mask) {
 inline int __reduce_add_sync(unsigned, int v) { return emu::reduce_add(v); }
 inline int __reduce_max_sync(unsigned, int v) { return emu::reduce_max(v); }
 inline int __any_sync(unsigned, int p) { return emu::any(p != 0); }
-inline void __syncthreads() { emu::block->bar.wait(); }
-inline void __syncwarp() { emu::my_warp().bar.wait(); }
+inline void __syncthreads() {
+  emu::block->bar.wait(emu::publish, 0, blockDim.x);
+}
+inline void __syncwarp() {
+  const unsigned w0 = threadIdx.x & ~31u;
+  emu::my_warp().bar.wait(emu::publish, w0, w0 + 32);
+}
+inline cudaError_t cudaGetLastError() {
+  return emu::raced ? cudaErrorLaunchFailure : cudaSuccess;
+}

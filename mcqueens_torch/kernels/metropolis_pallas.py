@@ -16,8 +16,10 @@ One chunk of ``n_inner`` steps has two implementations over the same
 chains-major state (:class:`SegmentState`), both updating it in place:
 
   * :func:`segment_cuda` launches the hand-written CUDA kernel
-    (``csrc/metropolis.cu``) and counts the launch in
-    :data:`KERNEL_LAUNCHES`;
+    (``csrc/metropolis.cu``: a team of lanes a chain, proposals drawn a
+    batch ahead, boards as bytes in shared memory) through
+    :func:`launch_segment`, laid out by :func:`layout`, and counts the
+    launch in :data:`KERNEL_LAUNCHES`;
   * :func:`segment_reference` is its plain-torch twin (vectorised over
     chains, a Python loop over steps, the dense O(N^2) dE).
 
@@ -29,13 +31,15 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import math
 
 import torch
 
 from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.core.schedules import chunk_betas
-from mcqueens_torch.kernels import (board_shared, delta_e, prng, segment,
-                                    sizing)
+from mcqueens_torch.kernels import (_build, board_shared, delta_e, prng,
+                                    segment, sizing)
 from mcqueens_torch.kernels.carry import BoardCarry
 
 DEFAULT_BLOCK = 2048
@@ -80,8 +84,8 @@ def init_carry_batch(seeds, spec: ChainSpec, block: int | None = None,
 @dataclasses.dataclass
 class SegmentState:
     """One segment's working state, chains major (contiguous int32), as the
-    carry holds it: a warp of CUDA threads (one chain) loads its board as
-    one contiguous row.  The chunk implementations update it in place."""
+    carry holds it: a CTA of the CUDA kernel loads its chains' boards as one
+    contiguous run.  The chunk implementations update it in place."""
 
     heights: torch.Tensor       # (C, N*N)
     best_heights: torch.Tensor  # (C, N*N)
@@ -101,7 +105,12 @@ _PLANES = ("heights", "best_heights", "accept_bins", "total_bins")
 
 
 def segment_state(carry: BoardCarry) -> SegmentState:
-    """A fresh :class:`SegmentState` holding copies of the carry's fields."""
+    """A fresh :class:`SegmentState` holding copies of the carry's fields;
+    raises ``ValueError`` unless every height lies in [0, N)
+    (:func:`board_shared.check_heights`: the CUDA kernel keeps a board as
+    bytes)."""
+    board_shared.check_heights(carry.heights,
+                               math.isqrt(carry.heights.shape[1]))
     kw = {name: getattr(carry, name).clone().contiguous()
           for name in _PLANES}
     kw.update({name: getattr(carry, name).reshape(-1).clone()
@@ -162,22 +171,129 @@ def segment_reference(st: SegmentState, step0: int, n_inner: int,
         getattr(st, name).copy_(val)
 
 
-def smem_bytes(spec: ChainSpec) -> int:
-    """Shared memory the kernel holds per chain: its board and best board."""
-    return 8 * spec.N * spec.N
+# Lanes a chain, registers a thread (csrc/metropolis.cu:
+# __launch_bounds__(1024, 1) holds every instance to 64 registers), threads a
+# CTA, and the largest N the kernel takes (the repo's configurations need
+# N <= 32).
+LANES = (1, 2, 4, 8, 16, 32)
+REGISTERS = 64
+MAX_THREADS_PER_CTA = 1024
+MAX_N = 170
+Layout = segment.Layout
+# The rule's cost model, fitted to every team size timed on the card at the
+# main paths' launches (pair_scan_slice.py --only metropolis; PERF.md,
+# section 6): a lane issues _PER_PASS instructions for each row offset of
+# the four lines it scores, _PER_STEP for the rest of a step and _PER_DRAW
+# for a step's draws (one a lane a batch of L steps); a step's latency is
+# _PASS_LAT cycles a row offset, _STEP_LAT for the rest, and _SUM_LAT a
+# level of the team's sum (_REDUX_LAT for the one reduce of a whole warp).
+# A wave of warps takes the longer of its instructions over four schedulers
+# and a step's latency, plus _OVERLAP of the shorter.
+_PER_PASS, _PER_STEP, _PER_DRAW = 95, 95, 60
+_PASS_LAT, _STEP_LAT, _SUM_LAT, _REDUX_LAT = 150, 450, 18, 25
+_OVERLAP = 0.2
 
 
-def segment_cuda(st: SegmentState, step0: int, n_inner: int,
-                 spec: ChainSpec, beta: torch.Tensor) -> None:
-    """Advance every chain by ``n_inner`` steps with the CUDA kernel
-    (asynchronous on the current stream; counts the launch)."""
-    global KERNEL_LAUNCHES
-    from mcqueens_torch.kernels import _build
+def row_pitch(N: int) -> int:
+    """Bytes of a board row in shared memory: N rounded up to an odd number
+    of words, so that a team's column reads fall in different banks."""
+    return 4 * (-(-N // 4) | 1)
 
+
+def board_bytes(N: int) -> int:
+    """Bytes of a board in shared memory: N rows, whole 16-byte words."""
+    return -(-(N * row_pitch(N)) // 16) * 16
+
+
+def slot_bytes(N: int) -> int:
+    """Shared-memory bytes of one chain: its board and its best board, an
+    odd number of 16-byte words."""
+    return 16 * (2 * board_bytes(N) // 16 | 1)
+
+
+def cta_smem_bytes(N: int, chains_per_cta: int) -> int:
+    """Shared memory of a CTA: a slot and a flag word per chain."""
+    return chains_per_cta * (slot_bytes(N) + 4)
+
+
+def check_n(N: int) -> None:
+    if not 2 <= N <= MAX_N:
+        raise ValueError(f"the metropolis CUDA kernel takes 2 <= N <= "
+                         f"{MAX_N}, got N={N}")
+
+
+def _cost(lay: Layout, N: int, C: int, n_sm: int) -> float:
+    """The rule's estimate of a step's cycles on the busiest SM: its CTAs
+    run in waves of what it holds (``segment.resident_ctas``)."""
+    lanes, cpb = lay.lanes, lay.chains_per_cta
+    passes, levels = -(-N // lanes), int(math.log2(lanes))
+    issue = (passes * _PER_PASS + _PER_STEP + _PER_DRAW / lanes
+             + (3 + levels) * (lanes > 1))
+    latency = (passes * _PASS_LAT + _STEP_LAT
+               + (_REDUX_LAT if lanes == 32 else levels * _SUM_LAT))
+    ctas = segment.resident_ctas(lay, REGISTERS)
+    per_sm = -(-math.ceil(C / cpb) // n_sm)  # CTAs on the busiest SM
+
+    def wave(k):
+        slots = k * cpb * lanes / 32 / 4 * issue
+        return max(slots, latency) + _OVERLAP * min(slots, latency)
+
+    full, rest = divmod(per_sm, ctas)
+    return full * wave(ctas) + (wave(rest) if rest else 0)
+
+
+@functools.cache
+def layout(N: int, C: int, n_sm: int, lanes: int | None = None) -> Layout:
+    """The CUDA kernel's layout for ``C`` chains of board size ``N`` on a
+    card of ``n_sm`` SMs: the team size (or the given ``lanes``) and chains
+    a CTA (lanes times chains a CTA a power of two from 32 to 1024, the
+    CTA's slots within a block's shared memory) of least :func:`_cost`.
+    Few chains take large teams (a step's latency), many chains small ones
+    (each warp instruction serves 32 / L chains), and a layout whose last
+    wave is nearly empty pays for a whole wave.  Ties go to fewer chains a
+    CTA (more SMs), then fewer lanes."""
+    check_n(N)
+    lays = [Layout(L, (32 << k) // L, cta_smem_bytes(N, (32 << k) // L))
+            for L in (LANES if lanes is None else (lanes,)) for k in range(6)
+            if 32 << k <= MAX_THREADS_PER_CTA
+            and cta_smem_bytes(N, (32 << k) // L) <= _build.SMEM_PER_BLOCK]
+    return min(lays, key=lambda lay: (_cost(lay, N, C, n_sm),
+                                      lay.chains_per_cta, lay.lanes))
+
+
+def launch_segment(lib, st: SegmentState, step0: int, n_inner: int,
+                   spec: ChainSpec, beta: torch.Tensor, *, n_sm: int,
+                   stream: int = 0, forced: Layout | None = None) -> Layout:
+    """Check a chunk's arguments, lay it out for ``n_sm`` SMs
+    (:func:`layout`, or ``forced``) and call ``lib.mcq_metropolis_segment``
+    on ``stream``; raises if it returns an error.  ``lib`` is the CUDA
+    library (:func:`segment_cuda`) or its host emulation
+    (:mod:`mcqueens_torch.kernels.host_emulation`, CPU tensors).  Returns
+    the layout."""
+    _check(st, step0, n_inner, spec, beta)
+    C = st.energy.shape[0]
+    lay = forced or layout(spec.N, C, n_sm)
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (
+        st.heights, st.best_heights, st.energy, st.best_energy,
+        st.best_step, st.no_improve, st.stop_step, st.accept_bins,
+        st.total_bins, st.chain_seeds, beta)]
+    patience = spec.early_stop_patience
+    err = lib.mcq_metropolis_segment(
+        *ptrs, step0, n_inner, spec.N, C, spec.n_steps, spec.n_bins,
+        -1 if patience is None else patience, lay.lanes,
+        lay.chains_per_cta, lay.smem_bytes, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"metropolis CUDA kernel launch failed "
+                           f"(cudaError {err}, {lay})")
+    return lay
+
+
+def _check(st: SegmentState, step0: int, n_inner: int, spec: ChainSpec,
+           beta: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless the state and betas fit a launch."""
     NN, C, nb = spec.N * spec.N, st.energy.shape[0], spec.n_bins
-    dev = st.heights.device
     i32 = torch.int32
-    _build.check_args(dev, {
+    _build.check_args(st.heights.device, {
         "heights": (st.heights, (C, NN), i32),
         "best_heights": (st.best_heights, (C, NN), i32),
         "accept_bins": (st.accept_bins, (C, nb), i32),
@@ -185,30 +301,29 @@ def segment_cuda(st: SegmentState, step0: int, n_inner: int,
         **{name: (getattr(st, name), (C,), i32) for name in _ROWS},
         "beta": (beta, (n_inner,), torch.float32),
     })
-    if smem_bytes(spec) > _build.SMEM_PER_BLOCK:
-        raise ValueError(
-            f"the metropolis kernel keeps a chain's board and best board in "
-            f"shared memory: 8*N^2 = {smem_bytes(spec)} bytes at N={spec.N} "
-            f"exceeds the {_build.SMEM_PER_BLOCK} bytes a block may hold "
-            f"(N <= 170)")
+    check_n(spec.N)
     if C == 0:
         raise ValueError("no chains")
     if not 0 <= step0 <= 2 ** 31 - 1 - n_inner:
         raise ValueError(f"step0={step0} + n_inner={n_inner} overflows int32")
-    lib = _build.load_library()
-    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (
-        st.heights, st.best_heights, st.energy, st.best_energy,
-        st.best_step, st.no_improve, st.stop_step, st.accept_bins,
-        st.total_bins, st.chain_seeds, beta)]
-    patience = spec.early_stop_patience
+
+
+def segment_cuda(st: SegmentState, step0: int, n_inner: int,
+                 spec: ChainSpec, beta: torch.Tensor, *,
+                 forced: Layout | None = None) -> None:
+    """Advance every chain by ``n_inner`` steps with the CUDA kernel
+    (asynchronous on the current stream; counts the launch), laid out by
+    :func:`layout` unless ``forced`` is given."""
+    global KERNEL_LAUNCHES
+    _check(st, step0, n_inner, spec, beta)
+    dev = st.heights.device
+    if dev.type != "cuda":
+        raise ValueError(f"segment_cuda: state on {dev}, not a CUDA device")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mcq_metropolis_segment(
-            *ptrs, step0, n_inner, spec.N, C, spec.n_steps, nb,
-            -1 if patience is None else patience, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"metropolis CUDA kernel launch failed "
-                           f"(cudaError {err})")
+        launch_segment(_build.load_library(), st, step0, n_inner, spec, beta,
+                       n_sm=n_sm, stream=stream, forced=forced)
     KERNEL_LAUNCHES += 1
 
 

@@ -61,8 +61,24 @@ public functions that both sides have are called.  Phases:
     the Q_max search (``runner.run_chains``: N=8, Q=48, 4096 chains, 2^18
     steps, stride 4096): wall time.
 
-``--only full3d`` runs the last two items alone.  Prints one JSON line with
-the card's name and power limit; exits non-zero without a CUDA GPU.
+  * the per-chain board kernel (``kernels/metropolis_pallas.py``) alone,
+    each launch on a fresh state behind a spin kernel, three times after
+    one untimed launch: the pod-scale launch (N=20, 4096 chains, the second
+    16384-step chunk of linear 1->5 over 5M), the beyond-reference launch
+    (128 chains, 62500 steps from step 0, linear 1->5.5 over 8M) at N=16
+    and N=32, and the bench chunk (N=16, linear 1->5 over 2^24 steps, the
+    second 32768-step chunk) at 32768 and 4096 chains: ms; where the module
+    has a layout rule (``metropolis_pallas.layout``), the same launches at
+    each team size, one launch each: ms;
+  * ``configs/pod_scale.yaml``'s run (``runner.run_experiment``: N=20,
+    4096 runs, cut to 2^19 steps, stride 16384, kernel pallas) and
+    ``configs/beyond_reference.yaml``'s sweep
+    (``drivers.measure_min_energy_vs_n``: 10 N, random and klarner, 128
+    runs, cut to 62500 steps), as ``chip_smoke.py`` runs them: wall time.
+
+``--only full3d`` runs the full-3D shared kernel's items alone, ``--only
+metropolis`` the per-chain board kernel's.  Prints one JSON line with the
+card's name and power limit; exits non-zero without a CUDA GPU.
 """
 
 import argparse
@@ -170,14 +186,133 @@ def full3d_phases():
     return out
 
 
+def metropolis_phases():
+    """The per-chain board kernel's phases (module docstring)."""
+    import numpy as np
+    import torch
+
+    from mcqueens_torch.chain.spec import ChainSpec
+    from mcqueens_torch.core.schedules import build_schedule, chunk_betas
+    from mcqueens_torch.dist import runner
+    from mcqueens_torch.experiments import drivers
+    from mcqueens_torch.kernels import metropolis_pallas as mp
+
+    def spec_of(N, n_steps, stride, b1):
+        return ChainSpec(N=N, n_steps=n_steps, history_stride=stride,
+                         kernel="pallas", schedule=build_schedule(
+                             "linear_annealing", n_steps, beta_start=1.0,
+                             beta_end=b1))
+
+    def events_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(5_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    launches = {
+        "pod_scale_N20_C4096": (spec_of(20, 5_000_000, 16384, 5.0), 4096, 1,
+                                42),
+        "beyond_reference_N16_C128": (spec_of(16, 8_000_000, 62500, 5.5),
+                                      128, 0, 4242),
+        "beyond_reference_N32_C128": (spec_of(32, 8_000_000, 62500, 5.5),
+                                      128, 0, 4242),
+        "bench_chunk_C32768": (spec_of(16, 2 ** 24, 32768, 5.0), 32768, 1,
+                               0),
+        "bench_chunk_C4096": (spec_of(16, 2 ** 24, 32768, 5.0), 4096, 1, 0),
+    }
+
+    def launch_ms(spec, chains, chunks, seed0, reps, **kw):
+        carry = mp.init_carry_batch(seed0 + np.arange(chains, dtype=np.uint32),
+                                    spec, device="cuda")
+        if chunks:
+            carry, _ = mp.run_segment(carry, 0, spec, chunks)
+        step0, n = chunks * spec.history_stride, spec.history_stride
+        beta = chunk_betas(spec.schedule, step0, n, "cuda")
+        times = []
+        for rep in range(reps + 1):  # the first loads the kernel: not kept
+            st = mp.segment_state(carry)
+            ms = events_ms(lambda: mp.segment_cuda(st, step0, n, spec, beta,
+                                                   **kw))
+            if rep:
+                times.append(ms)
+        return times
+
+    out = {"metropolis_launch_ms": {
+        key: launch_ms(*args, reps=3) for key, args in launches.items()}}
+    if hasattr(mp, "layout"):
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        out["metropolis_layouts"] = {
+            key: {"rule": str(mp.layout(spec.N, chains, n_sm)), **{
+                f"L={L}": launch_ms(spec, chains, chunks, seed0, reps=1,
+                                    forced=mp.layout(spec.N, chains, n_sm,
+                                                     L))[0]
+                for L in mp.LANES}}
+            for key, (spec, chains, chunks, seed0) in launches.items()}
+
+    # configs/pod_scale.yaml, cut to 2^19 steps (chip_smoke.py:
+    # pod_scale_slice), and configs/beyond_reference.yaml cut to 62500 steps
+    # (chip_smoke.py: beyond_reference_slice).
+    n_steps = 1 << 19
+    sched = build_schedule("linear_annealing", n_steps, beta_start=1.0,
+                           beta_end=5.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        runner.run_experiment(
+            N=20, n_steps=n_steps, init_mode="random", schedule=sched,
+            n_runs=4096, base_seed=42, device="cuda", mcmc_type="board",
+            early_stop_patience=None, verbose=True, history_stride=16384,
+            kernel="pallas", n_bins=100)
+    torch.cuda.synchronize()
+    out["pod_scale_slice_s"] = time.perf_counter() - t0
+
+    from mcqueens_torch.experiments.config import parse_config
+
+    n_steps = 62500
+    cfg = parse_config({
+        "experiment_type": "measure_min_energy_vs_N",
+        "common": {"n_steps": n_steps, "n_runs": 128, "verbose": False,
+                   "initialization": "random", "mcmc_type": "board",
+                   "early_stop_patience": "None",
+                   "betta_scheduling": {"type": "linear_annealing",
+                                        "base_seed": 4242, "beta_start": 1.0,
+                                        "beta_end": 5.5},
+                   "output_path": "min_energy_vs_N_beyond_reference.png"},
+        "measure_min_energy_vs_N": {
+            "Ns": [16, 17, 19, 20, 23, 24, 28, 29, 31, 32],
+            "init_modes": ["random", "klarner"]},
+        "tpu": {"kernel": "pallas", "history_stride": 62500}})
+    params = cfg.section("measure_min_energy_vs_N")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = drivers.measure_min_energy_vs_n(
+        Ns=params["Ns"], n_steps=n_steps, schedule=build_schedule(
+            "linear_annealing", n_steps, beta_start=1.0, beta_end=5.5),
+        init_modes=params["init_modes"], n_runs=cfg.n_runs, base_seed=4242,
+        verbose=False, plot=False, mcmc_type=cfg.mcmc_type,
+        early_stop_patience=cfg.early_stop_patience, tpu=cfg.tpu,
+        device="cuda")
+    torch.cuda.synchronize()
+    out["beyond_reference_slice_s"] = time.perf_counter() - t0
+    out["beyond_reference_random_mean_best"] = [
+        float(x) for x in res["results"]["random"]["mean_min_energies"]]
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True,
                     help="root of the checkout whose port is timed")
     ap.add_argument("--label", default=None)
     ap.add_argument("--json", default=None, help="also write the line here")
-    ap.add_argument("--only", choices=["full3d"], default=None,
-                    help="time only the full-3D shared kernel's phases")
+    ap.add_argument("--only", choices=["full3d", "metropolis"],
+                    default=None,
+                    help="time only one kernel's phases")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -457,6 +592,8 @@ def main(argv=None):
                 name: events_ms(library, 10, spin=True)}
     if args.only in (None, "full3d"):
         out.update(full3d_phases())
+    if args.only in (None, "metropolis"):
+        out.update(metropolis_phases())
     line = json.dumps(out)
     print(line)
     if args.json:

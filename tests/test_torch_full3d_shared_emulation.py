@@ -192,3 +192,20 @@ def test_warm_starts(lib):
     carry = _carry(spec, 128, initial_states=starts)
     for mode in MODES:
         _emulated_equals_twin(lib, spec, carry, 2, mode)
+
+
+@pytest.mark.parametrize("lanes", full3d_shared.LANES)
+def test_every_team_size_delayed_memory(lib, lanes, monkeypatch):
+    """Each team size in shared memory under the emulator's delayed memory
+    model (only __syncwarp and __syncthreads make one thread's stores
+    visible to another): a lane that read a row another lane stored after
+    their last common barrier, such as the mover's start cell read by every
+    lane instead of handed over by its owner's shuffle, sees the old cell
+    and fails the compare."""
+    monkeypatch.setenv("MCQ_EMU_MEMORY", "delayed")
+    spec = _spec(6, 36, 4000, 200)  # 25 chunks: movers recur in a launch
+    cpb = max(1, 32 // lanes)
+    forced = full3d_shared.Layout(
+        lanes, cpb, full3d_shared.cta_smem_bytes(spec.q_eff, lanes, cpb))
+    _emulated_equals_twin(lib, spec, _carry(spec, 64, seed0=11), 1,
+                          forced=forced)

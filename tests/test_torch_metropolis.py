@@ -262,9 +262,11 @@ def test_segment_call_refuses_other_devices_and_cuda_guards():
     beta = torch.zeros(50)
     with pytest.raises(ValueError, match="beta"):
         metropolis_pallas.segment_cuda(st, 0, 40, spec, beta)
-    _, big = _specs("n2", N=171)
-    assert metropolis_pallas.smem_bytes(big) > 232448
-    assert metropolis_pallas.smem_bytes(_specs("n2", N=170)[1]) <= 232448
+    # The kernel keeps boards as bytes in shared memory and takes the
+    # parent's N <= 170: N=171 is refused, N=170 fits a block.
+    with pytest.raises(ValueError, match="N <= 170"):
+        metropolis_pallas.layout(171, 8, 132)
+    assert metropolis_pallas.layout(170, 8, 132).smem_bytes <= 232448
 
 
 # -- the competition CLI ----------------------------------------------------
