@@ -66,9 +66,23 @@ and the script exits non-zero without printing a result:
    largest N (62500 steps from step 0, 128 chains, N=32) in full, held
    against the twin on a sample of 64 and 16 chains (the twin's time is
    ~1.2-1.6 ms a step whatever the chains).  Each of its instances' registers
-   must stay within the 64 its layout rule reckons with.  Per-chain full-3D shapes: N=12/Q=144 and N=15/Q=225 at 4096
-   chains, N=3/Q=26 (attempt runs past 32), N=2/Q=7, N=5/Q=13 with
-   patience, N=11 klarner at beta=100 and a launch past step 2^24.
+   must stay within the 64 its layout rule reckons with.  Per-chain
+   full-3D shapes: N=12/Q=144 and N=15/Q=225 at 4096 chains, N=3/Q=26
+   (attempt runs past 32), N=2/Q=7, N=5/Q=13 with patience, N=11 klarner
+   at beta=100 and a launch past step 2^24; and the redesigned kernel's
+   edges (kernels/full3d_pallas.py:layout, printed on each compare line; a
+   team of L lanes a chain drawing a batch of L steps' proposals and first
+   two rejection attempts ahead): each team size forced at the beta pairs'
+   width (N=12, Q=144, 4096 chains, 256 steps), N=3/Q=26 at each team size
+   (nearly every step takes rounds of attempts past the two drawn ahead),
+   C=4099 by the rule and with a ragged last CTA of 3 chains, and, held
+   against the twin on a sample of 64 chains, the beta pairs' launch (linear
+   0.5->3 over 2^17, 4096 chains) in full from step 0 (16384 steps) and its
+   first 2048 steps from step 65536, and the first 1024 steps of the
+   N=15/Q=225 chunk from step 8192 at 65536 chains (the twin takes ~2 ms a
+   step whatever the chains, so only fewer steps shorten it).  Each of its
+   instances' registers must stay within the 80 its layout rule reckons
+   with.
    Board freeze mode (track_best off, a per-chain step horizon), against the
    twin: horizons inside the chunk (N=16, 32768 chains), all at 0, past
    n_steps on the tail chunk, with patience, and 1000 chains padded to 1024.
@@ -483,16 +497,31 @@ def full3d_bytes(ln, occ_words):
     return 4 * words
 
 
-def full3d_pallas_work(ln):
-    """(int32 ops, bytes) of one per-chain full-3D launch, counted from
-    ``csrc/full3d_pallas.cu``: 22 ops per (queen, target) pair for the Q-1
-    other queens against the new and the old cell, 40 for the step's hashes
-    and bookkeeping, and 12 per rejection attempt, N^3 / (N^3 - Q)
-    attempts expected; its state holds the occupancy bitfield."""
+def full3d_pallas_work(ln, per_pair=13, per_queen=3):
+    """(ops, bytes) of one per-chain full-3D launch: for each of the Q-1
+    other queens, ``per_queen`` ops to unpack its coordinates and
+    ``per_pair`` for each of its two targets (the new and the old cell),
+    40 for the step's hashes and bookkeeping, and 12 per rejection attempt,
+    N^3 / (N^3 - Q) attempts expected; its state holds the occupancy
+    bitfield.  The default counts the fewest ops known for the attack test:
+    the identity sum r^2 == max|r| * sum|r| (``csrc/full3d_pallas.cu``:
+    hits) takes 3 differences, 3 for sum r^2, 2 for sum |r| and 2 maxima
+    (abs an operand modifier), the fused product and difference, the
+    compare and the count, 13 float32 and int32 ops that the instruction
+    rate bounds alike.  ``full3d_pallas_work(ln, 22, 0)`` is the JAX
+    kernel's count (:func:`full3d_pallas_jax_ops`)."""
     N, Q = ln.spec.N, ln.spec.q_eff
     attempts = N ** 3 / (N ** 3 - Q)
-    ops = ln.proposals * (44 * (Q - 1) + 40 + 12 * attempts)
+    ops = ln.proposals * ((2 * per_pair + per_queen) * (Q - 1) + 40
+                          + 12 * attempts)
     return ops, full3d_bytes(ln, -(-N ** 3 // 32))
+
+
+def full3d_pallas_jax_ops(ln):
+    """The JAX kernel's count of a per-chain full-3D launch: 22 int32 ops
+    a (queen, target) pair, the form of mcqueens/kernels/full3d_pallas.py;
+    a second figure beside :func:`full3d_pallas_work`'s bound."""
+    return full3d_pallas_work(ln, 22, 0)[0]
 
 
 def full3d_work(ln):
@@ -509,6 +538,16 @@ def full3d_work(ln):
 WORK = {board_shared: board_work, full3d_shared: full3d_work,
         metropolis_pallas: metropolis_work,
         full3d_pallas: full3d_pallas_work}
+
+
+def jax_count_note(mod, ln, bounds, kernel_ms):
+    """For the per-chain full-3D kernel, the bound by the JAX kernel's
+    count beside the one printed before it; nothing for the others."""
+    if mod is not full3d_pallas:
+        return ""
+    ms = bounds.terms(full3d_pallas_jax_ops(ln), 0)["operations"]
+    return (f"; by the JAX kernel's 22 ops a pair {ms:.4f} ms = "
+            f"{ms / kernel_ms:.3f}")
 
 
 def shared_layout(spec, C, track_best, forced=None):
@@ -540,6 +579,25 @@ def metropolis_forced(N, lanes, cpb=None):
     cpb = cpb or max(1, 32 // lanes)
     return metropolis_pallas.Layout(
         lanes, cpb, metropolis_pallas.cta_smem_bytes(N, cpb))
+
+
+def full3d_pallas_layout(spec, C, forced=None):
+    """The per-chain full-3D kernel's layout of a launch of C chains on this
+    card (kernels/full3d_pallas.py:layout), or the forced one."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return forced or full3d_pallas.layout(spec.N, spec.q_eff, C, n_sm)
+
+
+def full3d_pallas_forced(spec, lanes, cpb=None):
+    """A forced layout of the per-chain full-3D kernel: ``lanes`` lanes a
+    chain, ``cpb`` chains a CTA (by default a warp's chains)."""
+    cpb = cpb or max(1, 32 // lanes)
+    return full3d_pallas.Layout(lanes, cpb, full3d_pallas.cta_smem_bytes(
+        spec.q_eff, spec.N, lanes, cpb))
+
+
+PER_CHAIN_LAYOUT = {metropolis_pallas: metropolis_layout,
+                    full3d_pallas: full3d_pallas_layout}
 
 
 def shared_note(lay):
@@ -607,8 +665,8 @@ def compare_case(mod, name, spec, n_chains, start_outer=0, seed0=0,
     elif mod is full3d_shared:
         lay = full3d_layout(k_st, spec, forced)
         note = shared_note(lay)
-    elif mod is metropolis_pallas:
-        lay = metropolis_layout(spec, C, forced)
+    elif mod in PER_CHAIN:
+        lay = PER_CHAIN_LAYOUT[mod](spec, C, forced)
         note = shared_note(lay)
     phase("compare", f"{name}: kernel == twin on all {len(vars(k_st))} "
           f"state fields; {ln.proposals} proposals, {ln.accepted} "
@@ -616,7 +674,7 @@ def compare_case(mod, name, spec, n_chains, start_outer=0, seed0=0,
           f"{kernel_ms:.3f} ms, twin {twin_ms:.1f} ms{note}")
     return dict(err=err, kernel_ms=kernel_ms, twin_ms=twin_ms, st=k_st,
                 spec=spec, work=work, n_chains=n_chains, layout=lay,
-                init=carry)
+                init=carry, ln=ln)
 
 
 def check_layout_case(name, res, kw):
@@ -756,44 +814,44 @@ def campaign_chunk_case(bounds):
     return dict(err=err, kernel_ms=k_ms, bound_ms=bound_ms)
 
 
-def metropolis_case(name, spec, n_chains, step0=0, seed0=0, forced=None,
-                    prior=0, sample=None):
-    """One launch of the per-chain board kernel over ``history_stride``
-    steps from ``step0``, against the twin on the card from one state: the
-    first ``n_chains`` chains of an ``init_carry_batch`` carry (so C need
-    not be whole blocks), first advanced by the kernel over ``prior`` steps
-    from step 0 when given.  ``sample`` evenly spaced chains are held
-    against the twin instead of all (the twin's time is per step, not per
-    chain).  The kernel is timed on the card alone (behind a spin kernel);
-    returns a dict like :func:`compare_case`'s, with the sample's states."""
+def per_chain_case(mod, name, spec, n_chains, step0=0, seed0=0, forced=None,
+                   prior=0, sample=None):
+    """One launch of a per-chain kernel (``mod``: ``metropolis_pallas`` or
+    ``full3d_pallas``) over ``history_stride`` steps from ``step0``,
+    against the twin on the card from one state: the first ``n_chains``
+    chains of an ``init_carry_batch`` carry (so C need not be whole
+    blocks), first advanced by the kernel over ``prior`` steps from step 0
+    when given.  ``sample`` evenly spaced chains are held against the twin
+    instead of all (the twin's time is per step, not per chain).  The kernel
+    is timed on the card alone (behind a spin kernel); returns a dict like
+    :func:`compare_case`'s, with the sample's states."""
     seeds = seed0 + np.arange(n_chains, dtype=np.uint32)
-    carry = metropolis_pallas.init_carry_batch(seeds, spec, device="cuda")
-    st = metropolis_pallas.SegmentState(**{
+    carry = mod.init_carry_batch(seeds, spec, device="cuda")
+    st = mod.SegmentState(**{
         k: v[:n_chains].contiguous()
-        for k, v in vars(metropolis_pallas.segment_state(carry)).items()})
-    launches = metropolis_pallas.KERNEL_LAUNCHES
+        for k, v in vars(mod.segment_state(carry)).items()})
+    launches = mod.KERNEL_LAUNCHES
     if prior:
-        metropolis_pallas.segment_cuda(
-            st, 0, prior, spec, chunk_betas(spec.schedule, 0, prior, "cuda"))
+        mod.segment_cuda(st, 0, prior, spec,
+                         chunk_betas(spec.schedule, 0, prior, "cuda"))
     n = spec.history_stride
     beta = chunk_betas(spec.schedule, step0, n, "cuda")
     idx = torch.arange(n_chains, device="cuda")
     if sample is not None:
         idx = torch.linspace(0, n_chains - 1, sample, device="cuda").long()
-    twin = metropolis_pallas.SegmentState(**{
+    twin = mod.SegmentState(**{
         k: v.index_select(0, idx).contiguous() for k, v in vars(st).items()})
-    init = metropolis_pallas.SegmentState(**{
-        k: v.clone() for k, v in vars(twin).items()})
+    init = mod.SegmentState(**{k: v.clone() for k, v in vars(twin).items()})
     before = snapshot(st, True)
-    kernel_ms = device_ms(lambda: metropolis_pallas.segment_cuda(
+    kernel_ms = device_ms(lambda: mod.segment_cuda(
         st, step0, n, spec, beta, forced=forced), reps=1)
     # Comparison launches are not the main path's: take them back.
-    metropolis_pallas.KERNEL_LAUNCHES = launches
+    mod.KERNEL_LAUNCHES = launches
     t0 = time.perf_counter()
-    metropolis_pallas.segment_reference(twin, step0, n, spec, beta)
+    mod.segment_reference(twin, step0, n, spec, beta)
     torch.cuda.synchronize()
     twin_ms = (time.perf_counter() - t0) * 1e3
-    got = metropolis_pallas.SegmentState(**{
+    got = mod.SegmentState(**{
         k: v.index_select(0, idx) for k, v in vars(st).items()})
     err = 0
     for field, want in vars(twin).items():
@@ -805,20 +863,19 @@ def metropolis_case(name, spec, n_chains, step0=0, seed0=0, forced=None,
     if err:
         raise AssertionError(f"kernel != twin on {name}: max abs err {err}")
     ln = launch_of(spec, before, snapshot(st, True), step0, n)
-    lay = metropolis_layout(spec, n_chains, forced)
+    lay = PER_CHAIN_LAYOUT[mod](spec, n_chains, forced)
     held = "all" if sample is None else f"{sample} sampled"
     phase("compare", f"{name}: kernel == twin on all {len(vars(st))} state "
           f"fields of {held} chains; {ln.proposals} proposals, "
           f"{ln.accepted} accepted, {ln.improved} chains improved; kernel "
           f"{kernel_ms:.3f} ms, twin {twin_ms:.1f} ms{shared_note(lay)}")
     return dict(err=err, kernel_ms=kernel_ms, twin_ms=twin_ms, st=got,
-                spec=spec, work=metropolis_work(ln), n_chains=n_chains,
-                layout=lay, init=init, step0=step0)
+                spec=spec, work=WORK[mod](ln), n_chains=n_chains,
+                layout=lay, init=init, step0=step0, ln=ln)
 
 
-def check_metropolis_case(name, res, kw):
-    """What each of the per-chain board kernel's design cases is there to
-    show."""
+def check_per_chain_case(name, res, kw):
+    """What each of the per-chain kernels' design cases is there to show."""
     st, lay, spec = res["st"], res["layout"], res["spec"]
     if "forced" in kw and lay != kw["forced"]:
         raise AssertionError(f"{name}: launched as {lay}")
@@ -844,6 +901,11 @@ def check_metropolis_case(name, res, kw):
               f"with stops at different steps; up to {bins} bins a chain")
     if "170" in name and spec.N != 170:
         raise AssertionError(f"{name}: N={spec.N}")
+    if "long attempt runs" in name:
+        share = float(st.accept_bins.sum() / st.total_bins.sum())
+        phase("compare", f"{name}: accept share {share:.4f} (1 of 27 cells "
+              f"is free: nearly every step takes rounds of attempts past "
+              f"the two drawn ahead)")
 
 
 def run_cli(argv):
@@ -910,6 +972,13 @@ def warm_up():
     for lanes in metropolis_pallas.LANES:
         metropolis_pallas.segment_cuda(st, 0, 8, spec, beta,
                                        forced=metropolis_forced(4, lanes))
+    # So has the per-chain full-3D kernel.
+    spec = pspec_of(4, 8, 8, const(8, 1.0), mcmc_type="full_3d")
+    st = full3d_pallas.segment_state(full3d_pallas.init_carry_batch(
+        np.arange(4, dtype=np.uint32), spec, device="cuda"))
+    for lanes in full3d_pallas.LANES:
+        full3d_pallas.segment_cuda(
+            st, 0, 8, spec, beta, forced=full3d_pallas_forced(spec, lanes))
     # So has the full-3D shared kernel, with six team sizes.
     spec = spec_of(4, 8, 8, const(8, 1.0), mcmc_type="full_3d")
     st = full3d_shared.segment_state(full3d_shared.init_carry_batch(
@@ -1667,7 +1736,7 @@ def throughput(mod, label, spec, chain_counts, bounds):
               f"{seg_steps}-step chunk = "
               f"{seg_steps * chains / k_ms * 1e3:.4e} moves/s; bound "
               f"{bound_ms:.1f} ms ({bound_by}) = {bound_ms / k_ms:.3f} of "
-              f"the kernel's time")
+              f"the kernel's time{jax_count_note(mod, ln, bounds, k_ms)}")
     phase("throughput", "nvidia-smi clocks.sm,power.draw,temperature.gpu: "
           + nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
 
@@ -2512,9 +2581,10 @@ def main():
                               f"{'shared' if inst[3] == '1' else 'device'}"
                               f" memory>")
                     shared_instances.append(kernel)
-                inst = re.search(r"metropolis_kernelILi(\d+)EE", ln)
+                inst = re.search(r"(metropolis|full3d_pallas)_kernelILi(\d+)EE",
+                                 ln)
                 if inst:
-                    kernel = f"metropolis_kernel<L={inst[1]}>"
+                    kernel = f"{inst[1]}_kernel<L={inst[2]}>"
                     shared_instances.append(kernel)
             elif kernel in PROBE_FUNCS:
                 # one line per template instance: summarised below
@@ -2524,7 +2594,8 @@ def main():
             elif kernel and ("registers" in ln or "spill" in ln):
                 phase("build", f"{kernel}: {ln.strip()}")
                 used = re.search(r"Used (\d+) reg", ln)
-                mod = (full3d_shared if kernel.startswith("full3d")
+                mod = (full3d_pallas if kernel.startswith("full3d_pallas")
+                       else full3d_shared if kernel.startswith("full3d")
                        else metropolis_pallas
                        if kernel.startswith("metropolis") else board_shared)
                 if (kernel in shared_instances and used
@@ -2532,10 +2603,12 @@ def main():
                     raise AssertionError(
                         f"{kernel} uses {used[1]} registers; its layout "
                         f"rule reckons with {mod.REGISTERS}")
-        built = collections.Counter(k.split("_")[0] for k in shared_instances)
-        want = {"board": 2 * len(board_shared.LANES),
-                "full3d": 2 * len(full3d_shared.LANES),
-                "metropolis": len(metropolis_pallas.LANES)}
+        built = collections.Counter(k.split("_kernel<")[0]
+                                    for k in shared_instances)
+        want = {"board_shared": 2 * len(board_shared.LANES),
+                "full3d_shared": 2 * len(full3d_shared.LANES),
+                "metropolis": len(metropolis_pallas.LANES),
+                "full3d_pallas": len(full3d_pallas.LANES)}
         if log.exists() and built != want:
             raise AssertionError(f"team-size kernel instances built: "
                                  f"{shared_instances}")
@@ -2686,6 +2759,41 @@ def main():
         ("full3d_pallas N=8 Q=48 step0 > 2^24", pspec_of(
             8, 2 ** 25, 1028, lin(2 ** 25, 0.5, 5.0), mcmc_type="full_3d",
             Q=48, n_bins=50), 1000, 16330, 0, None),
+    ]
+    # The per-chain full-3D kernel's design edges (kernels/full3d_pallas.py:
+    # layout): each team size forced at the beta pairs' width, N=3/Q=26 (one
+    # free cell in 27: rounds of attempts past the two drawn ahead) at each
+    # team size, C=4099 (not whole blocks) by the rule and with a ragged last
+    # CTA, and, held against the twin on a sample, the beta pairs' launch in
+    # full from step 0, and its first 2048 steps from step 65536 and the N=15
+    # chunk's first 1024 at 65536 chains (the twin's time is per step).
+    # (name, spec, chains, step0, seed0, keywords)
+    f3p = pspec_of(12, 1 << 17, 256, lin(1 << 17, 0.5, 3.0),
+                   mcmc_type="full_3d")
+    f3p_dense = pspec_of(3, 512, 128, lin(512, 0.5, 3.0), mcmc_type="full_3d",
+                         Q=26)
+    pairs = dataclasses.replace(f3p, history_stride=16384)
+    f3p_n15 = pspec_of(15, 8_000_000, 8192, lin(8_000_000, 0.8, 7.0),
+                       mcmc_type="full_3d")
+    full3d_pallas_design_cases = [
+        *[(f"full3d_pallas L={L} forced N=12 Q=144 C=4096 256 steps", f3p,
+           4096, 0, 42, dict(forced=full3d_pallas_forced(f3p, L, 128 // L)))
+          for L in full3d_pallas.LANES],
+        *[(f"full3d_pallas long attempt runs L={L} forced N=3 Q=26 C=256",
+           f3p_dense, 256, 0, 0,
+           dict(forced=full3d_pallas_forced(f3p_dense, L)))
+          for L in full3d_pallas.LANES],
+        ("full3d_pallas C=4099 N=12 Q=144 256 steps", f3p, 4099, 0, 6, {}),
+        ("full3d_pallas C=4099 ragged L=32 3 a CTA N=12 Q=144 256 steps",
+         f3p, 4099, 0, 6, dict(forced=full3d_pallas_forced(f3p, 32, 3))),
+        ("full3d_pallas beta pairs launch N=12 Q=144 C=4096 16384 steps from 0",
+         pairs, 4096, 0, 42, dict(sample=64)),
+        ("full3d_pallas beta pairs launch N=12 Q=144 C=4096 2048 steps from "
+         "65536", dataclasses.replace(pairs, history_stride=2048), 4096,
+         65536, 42, dict(prior=65536, sample=64)),
+        ("full3d_pallas N=15 Q=225 C=65536 1024 steps from 8192",
+         dataclasses.replace(f3p_n15, history_stride=1024), 65536, 8192, 0,
+         dict(prior=8192, sample=64)),
     ]
     rs = np.random.default_rng(7)
     # (name, spec, chains, start_outer, seed0, freeze horizons of C chains)
@@ -2913,9 +3021,17 @@ def main():
         results["full3d campaign chunk"] = dict(campaign, mod=full3d_shared)
     with timed("compare metropolis design"):
         for name, spec, n_chains, step0, seed0, kw in metropolis_design_cases:
-            res = metropolis_case(name, spec, n_chains, step0, seed0, **kw)
+            res = per_chain_case(metropolis_pallas, name, spec, n_chains,
+                                 step0, seed0, **kw)
             results[name] = dict(res, mod=metropolis_pallas)
-            check_metropolis_case(name, res, kw)
+            check_per_chain_case(name, res, kw)
+    with timed("compare full3d_pallas design"):
+        for name, spec, n_chains, step0, seed0, kw in \
+                full3d_pallas_design_cases:
+            res = per_chain_case(full3d_pallas, name, spec, n_chains, step0,
+                                 seed0, **kw)
+            results[name] = dict(res, mod=full3d_pallas)
+            check_per_chain_case(name, res, kw)
     with timed("compare scan samplers"):
         for mod, cases in ((board_chain, scan_board_cases),
                            (full3d_chain, scan_full3d_cases)):
@@ -3070,7 +3186,8 @@ def main():
               f"{res['work'][0]:.4e} int32 ops, {res['work'][1]:.4e} bytes "
               f"-> bound {bound_ms:.4f} ms ({bound_by}) = "
               f"{bound_ms / res['kernel_ms']:.3f} of the kernel's "
-              f"{res['kernel_ms']:.4f} ms")
+              f"{res['kernel_ms']:.4f} ms"
+              f"{jax_count_note(mod, res['ln'], bounds, res['kernel_ms'])}")
         rows.append({
             **KERNELS[mod],
             "route": "cuda",
@@ -3084,6 +3201,18 @@ def main():
             # No single PyTorch call computes a Metropolis launch.
             "library_ms": None,
         })
+    # The per-chain full-3D kernel at its main path's launch, and at the
+    # first 1024 steps of the N=15 chunk.
+    for case, res in results.items():
+        if res["mod"] is full3d_pallas and (
+                "launch" in case or "steps from 8192" in case):
+            bound_ms, bound_by = bounds.of(*res["work"])
+            note = jax_count_note(full3d_pallas, res["ln"], bounds,
+                                  res["kernel_ms"])
+            phase("bound", f"{KERNELS[full3d_pallas]['name']} on '{case}': "
+                  f"bound {bound_ms:.4f} ms ({bound_by}) = "
+                  f"{bound_ms / res['kernel_ms']:.3f} of the kernel's "
+                  f"{res['kernel_ms']:.4f} ms{note}")
     scan_rows = (
         (FREEZE_ROW, recovered["launches"], results,
          "board freeze horizons inside the chunk N=16 C=32768 48 steps",

@@ -35,7 +35,7 @@ ENTRY_POINTS = {
     "mcq_full3d_scan_segment": [_P] * 15 + [_I] * 11 + [_P],
     "mcq_full3d_shared_segment": [_P] * 17 + [_I] * 12 + [_P],
     "mcq_metropolis_segment": [_P] * 11 + [_I] * 10 + [_P],
-    "mcq_full3d_pallas_segment": [_P] * 16 + [_I] * 8 + [_P],
+    "mcq_full3d_pallas_segment": [_P] * 16 + [_I] * 11 + [_P],
     "mcq_probe_vpu": [_P] * 2 + [_I] * 5 + [_P],
     "mcq_probe_op": [_P] * 2 + [_I] * 5 + [_P],
     "mcq_probe_test": [_P] * 2 + [_I] * 7 + [_P],

@@ -1,12 +1,12 @@
 // Host emulation of the CUDA runtime and warp intrinsics that the warp
 // kernels use (board_scan.cu, full3d_scan.cu, board_shared.cu,
-// full3d_shared.cu, metropolis.cu), so that a kernel's logic can be run and
-// checked on a machine without a GPU or nvcc.  Built with g++ -std=c++20
-// -pthread by mcqueens_torch/kernels/host_emulation.py, which puts this
-// directory first on the include path (so the sources' #include
-// <cuda_runtime.h> finds this file) and rewrites two constructs g++ cannot
-// parse: a launch `kernel<<<grid, block, smem, stream>>>(args)` becomes
-// emu::launch(kernel, grid, block, smem, stream, args), and
+// full3d_shared.cu, metropolis.cu, full3d_pallas.cu), so that a kernel's
+// logic can be run and checked on a machine without a GPU or nvcc.  Built
+// with g++ -std=c++20 -pthread by mcqueens_torch/kernels/host_emulation.py,
+// which puts this directory first on the include path (so the sources'
+// #include <cuda_runtime.h> finds this file) and rewrites two constructs
+// g++ cannot parse: a launch `kernel<<<grid, block, smem, stream>>>(args)`
+// becomes emu::launch(kernel, grid, block, smem, stream, args), and
 // `extern __shared__ T name[];` a pointer to the block's shared memory.
 //
 // One fiber (ucontext) per CUDA thread, all on the calling OS thread; the
@@ -109,6 +109,18 @@ inline float __uint_as_float(uint32_t u) {
   float f;
   memcpy(&f, &u, sizeof f);
   return f;
+}
+
+inline float __int_as_float(int i) { return __uint_as_float((uint32_t)i); }
+
+// Byte i of the result is byte (s >> 4i) & 7 of the eight bytes of y:x.
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = (uint64_t)y << 32 | x;
+  unsigned out = 0;
+  for (int i = 0; i < 4; ++i) {
+    out |= (unsigned)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i);
+  }
+  return out;
 }
 
 namespace emu {
@@ -251,6 +263,13 @@ inline int reduce_max(int v) {
   return m;
 }
 
+inline unsigned ballot(bool p) {
+  const uint64_t* slot = exchange(p ? 1 : 0);
+  unsigned bits = 0;
+  for (int l = 0; l < 32; ++l) bits |= (slot[l] ? 1u : 0u) << l;
+  return bits;
+}
+
 inline bool any(bool p) {
   const uint64_t* slot = exchange(p ? 1 : 0);
   for (int l = 0; l < 32; ++l) {
@@ -388,6 +407,8 @@ T __shfl_xor_sync(unsigned, T v, int lane_mask) {
 inline int __reduce_add_sync(unsigned, int v) { return emu::reduce_add(v); }
 inline int __reduce_max_sync(unsigned, int v) { return emu::reduce_max(v); }
 inline int __any_sync(unsigned, int p) { return emu::any(p != 0); }
+inline unsigned __ballot_sync(unsigned, int p) { return emu::ballot(p != 0); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 inline void __syncthreads() {
   emu::block->bar.wait(emu::publish, 0, blockDim.x);
 }

@@ -23,8 +23,10 @@ One chunk of ``n_inner`` steps has two implementations over the same
 chains-major state (:class:`SegmentState`), both updating it in place:
 
   * :func:`segment_cuda` launches the hand-written CUDA kernel
-    (``csrc/full3d_pallas.cu``) and counts the launch in
-    :data:`KERNEL_LAUNCHES`;
+    (``csrc/full3d_pallas.cu``: a team of lanes a chain, proposals and
+    first attempts drawn a batch ahead, queens and bitfield in shared
+    memory) through :func:`launch_segment`, laid out by :func:`layout`, and
+    counts the launch in :data:`KERNEL_LAUNCHES`;
   * :func:`segment_reference` is its plain-torch twin (vectorised over
     chains, a Python loop over steps, JAX's one-vs-all dE with the mover's
     own row cancelled arithmetically).
@@ -37,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -45,7 +48,7 @@ from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.core import fastinit
 from mcqueens_torch.core import tables as tables_mod
 from mcqueens_torch.core.schedules import chunk_betas
-from mcqueens_torch.kernels import prng, segment, sizing
+from mcqueens_torch.kernels import _build, prng, segment, sizing
 from mcqueens_torch.kernels.carry import Full3DCarry
 
 DEFAULT_BLOCK = 2048
@@ -298,22 +301,86 @@ def segment_reference(st: SegmentState, step0: int, n_inner: int,
 
 
 def smem_bytes(spec: ChainSpec) -> int:
-    """Shared memory the kernel holds per chain: its packed queens, packed
-    best queens and occupancy bitfield."""
-    return 4 * (2 * spec.q_eff + _occ_words(spec.N))
+    """Shared memory a chain needs at least: its packed queens, packed best
+    queens and occupancy bitfield (a team of 32 lanes, one chain a CTA,
+    holds no more)."""
+    return 4 * slot_words(spec.q_eff, spec.N, 32)
 
 
-def segment_cuda(st: SegmentState, step0: int, n_inner: int,
-                 spec: ChainSpec, beta: torch.Tensor) -> None:
-    """Advance every chain by ``n_inner`` steps with the CUDA kernel
-    (asynchronous on the current stream; counts the launch)."""
-    global KERNEL_LAUNCHES
-    from mcqueens_torch.kernels import _build
+# Lanes a chain, registers a thread (the 80 that ptxas allocates for the ~76
+# each instance of csrc/full3d_pallas.cu uses under __launch_bounds__(256,
+# 2); chip_smoke.py checks the build's count against it) and threads a CTA.
+# A chain's bitfield alone caps N at 122 in a block's shared memory, so a
+# coordinate fits a byte of the packed queen.
+LANES = (1, 2, 4, 8, 16, 32)
+REGISTERS = 80
+MAX_THREADS_PER_CTA = 256
+Layout = segment.Layout
+# The rule's cost model (segment.TeamModel, a unit a queen row), fitted to
+# every team size timed on the card at the beta pairs' launch and the N=15
+# chunk at 65536 and 4096 chains (pair_scan_slice.py --only full3d_pallas;
+# PERF.md, section 6).
+MODEL = segment.TeamModel(
+    per_unit=32, per_step=220, per_draw=180, unit_lat=48, step_lat=135,
+    sum_lat=130, redux_lat=130, overlap=0.37, registers=REGISTERS,
+    max_threads=MAX_THREADS_PER_CTA)
 
+
+def slot_words(Q: int, N: int, lanes: int) -> int:
+    """Shared-memory words of one chain: its Q queens, Q best queens and
+    ``ceil(N^3/32)`` bitfield words, rounded up to ``lanes`` (mod 2 *
+    lanes) below 32 lanes, so that a warp's loads of its teams' queens fall
+    in 32 banks."""
+    s = 2 * Q + _occ_words(N)
+    return s + (lanes - s % (2 * lanes)) % (2 * lanes) if lanes < 32 else s
+
+
+def cta_smem_bytes(Q: int, N: int, lanes: int, chains_per_cta: int) -> int:
+    """Shared memory of a CTA: a slot per chain."""
+    return 4 * chains_per_cta * slot_words(Q, N, lanes)
+
+
+def check_shape(N: int, Q: int) -> None:
+    """Raise ``ValueError`` unless the kernel takes ``N`` and ``Q``: a free
+    cell (Q < N^3) and a chain's queens, best queens and bitfield within a
+    block's shared memory."""
+    if not 1 <= Q < N ** 3 or N < 2:
+        raise ValueError(f"the full3d_pallas kernel needs N >= 2 and "
+                         f"1 <= Q < N^3 (a free cell), got N={N}, Q={Q}")
+    need = 4 * slot_words(Q, N, 32)
+    if need > _build.SMEM_PER_BLOCK:
+        raise ValueError(
+            f"the full3d_pallas kernel keeps a chain's queens, best queens "
+            f"and occupancy bitfield in shared memory: 4*(2Q + ceil(N^3/32)) "
+            f"= {need} bytes at N={N}, Q={Q} exceeds the "
+            f"{_build.SMEM_PER_BLOCK} bytes a block may hold (N <= 104 at "
+            f"Q = N^2, N <= 122 at any Q)")
+
+
+@functools.cache
+def layout(N: int, Q: int, C: int, n_sm: int,
+           lanes: int | None = None) -> Layout:
+    """The CUDA kernel's layout for ``C`` chains of ``Q`` queens on the
+    ``N^3`` cube on a card of ``n_sm`` SMs: the team size (or the given
+    ``lanes``) and chains a CTA (lanes times chains a CTA a power of two
+    from 32 to 256, the CTA's slots within a block's shared memory) of
+    least cost (:data:`MODEL`).  Few chains take large teams (a step's
+    latency), many chains small ones (each warp instruction serves 32 / L
+    chains), and a layout whose last wave is nearly empty pays for a whole
+    wave.  Ties go to fewer chains a CTA (more SMs), then fewer lanes.
+    Raises ``ValueError`` for a shape no layout takes (:func:`check_shape`)
+    or a team size whose warp of slots does not fit a block."""
+    check_shape(N, Q)
+    return MODEL.layout(Q, C, n_sm, LANES if lanes is None else (lanes,),
+                        lambda L, cpb: cta_smem_bytes(Q, N, L, cpb))
+
+
+def _check(st: SegmentState, step0: int, n_inner: int, spec: ChainSpec,
+           beta: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless the state and betas fit a launch."""
     Q, C, nb = spec.q_eff, st.energy.shape[0], spec.n_bins
-    dev = st.qi.device
     i32 = torch.int32
-    _build.check_args(dev, {
+    _build.check_args(st.qi.device, {
         **{name: (getattr(st, name), (C, Q), i32) for name in (
             "qi", "qj", "qk", "best_qi", "best_qj", "best_qk")},
         "occ": (st.occ, (C, _occ_words(spec.N)), i32),
@@ -322,31 +389,56 @@ def segment_cuda(st: SegmentState, step0: int, n_inner: int,
         **{name: (getattr(st, name), (C,), i32) for name in _ROWS},
         "beta": (beta, (n_inner,), torch.float32),
     })
-    if smem_bytes(spec) > _build.SMEM_PER_BLOCK:
-        raise ValueError(
-            f"the full3d_pallas kernel keeps a chain's queens, best queens "
-            f"and occupancy bitfield in shared memory: 4*(2Q + ceil(N^3/32)) "
-            f"= {smem_bytes(spec)} bytes at N={spec.N}, Q={Q} exceeds the "
-            f"{_build.SMEM_PER_BLOCK} bytes a block may hold (N <= 104 at "
-            f"Q = N^2)")
+    check_shape(spec.N, Q)
     if C == 0:
         raise ValueError("no chains")
     if not 0 <= step0 <= 2 ** 31 - 1 - n_inner:
         raise ValueError(f"step0={step0} + n_inner={n_inner} overflows int32")
-    lib = _build.load_library()
+
+
+def launch_segment(lib, st: SegmentState, step0: int, n_inner: int,
+                   spec: ChainSpec, beta: torch.Tensor, *, n_sm: int,
+                   stream: int = 0, forced: Layout | None = None) -> Layout:
+    """Check a chunk's arguments, lay it out for ``n_sm`` SMs
+    (:func:`layout`, or ``forced``) and call
+    ``lib.mcq_full3d_pallas_segment`` on ``stream``; raises if it returns an
+    error.  ``lib`` is the CUDA library (:func:`segment_cuda`) or its host
+    emulation (:mod:`mcqueens_torch.kernels.host_emulation`, CPU tensors).
+    Returns the layout."""
+    _check(st, step0, n_inner, spec, beta)
+    C = st.energy.shape[0]
+    lay = forced or layout(spec.N, spec.q_eff, C, n_sm)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (
         st.qi, st.qj, st.qk, st.best_qi, st.best_qj, st.best_qk, st.occ,
         st.energy, st.best_energy, st.best_step, st.no_improve,
         st.stop_step, st.accept_bins, st.total_bins, st.chain_seeds, beta)]
     patience = spec.early_stop_patience
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mcq_full3d_pallas_segment(
-            *ptrs, step0, n_inner, spec.N, Q, C, spec.n_steps, nb,
-            -1 if patience is None else patience, ctypes.c_void_p(stream))
+    err = lib.mcq_full3d_pallas_segment(
+        *ptrs, step0, n_inner, spec.N, spec.q_eff, C, spec.n_steps,
+        spec.n_bins, -1 if patience is None else patience, lay.lanes,
+        lay.chains_per_cta, lay.smem_bytes, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"full3d_pallas CUDA kernel launch failed "
-                           f"(cudaError {err})")
+                           f"(cudaError {err}, {lay})")
+    return lay
+
+
+def segment_cuda(st: SegmentState, step0: int, n_inner: int,
+                 spec: ChainSpec, beta: torch.Tensor, *,
+                 forced: Layout | None = None) -> None:
+    """Advance every chain by ``n_inner`` steps with the CUDA kernel
+    (asynchronous on the current stream; counts the launch), laid out by
+    :func:`layout` unless ``forced`` is given."""
+    global KERNEL_LAUNCHES
+    _check(st, step0, n_inner, spec, beta)
+    dev = st.qi.device
+    if dev.type != "cuda":
+        raise ValueError(f"segment_cuda: state on {dev}, not a CUDA device")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        launch_segment(_build.load_library(), st, step0, n_inner, spec, beta,
+                       n_sm=n_sm, stream=stream, forced=forced)
     KERNEL_LAUNCHES += 1
 
 

@@ -2,13 +2,13 @@
 GPU.
 
 :func:`load` compiles ``csrc/board_scan.cu``, ``csrc/full3d_scan.cu``,
-``csrc/board_shared.cu``, ``csrc/full3d_shared.cu`` and ``csrc/metropolis.cu``
-with ``g++ -std=c++20 -pthread`` against ``emu/cuda_runtime.h`` (one OS
-thread per CUDA thread, the warp intrinsics and ``__syncthreads`` over
-barriers) into one shared library with the same C entry points as the CUDA
-library, and loads it with ``ctypes``.  The modules' ``launch_segment``
-then runs a kernel on CPU tensors, through the same argument checks and
-layout rule as a launch on the card::
+``csrc/board_shared.cu``, ``csrc/full3d_shared.cu``, ``csrc/metropolis.cu``
+and ``csrc/full3d_pallas.cu`` with ``g++ -std=c++20 -pthread`` against
+``emu/cuda_runtime.h`` (one OS thread per CUDA thread, the warp intrinsics
+and ``__syncthreads`` over barriers) into one shared library with the same
+C entry points as the CUDA library, and loads it with ``ctypes``.  The
+modules' ``launch_segment`` then runs a kernel on CPU tensors, through the
+same argument checks and layout rule as a launch on the card::
 
     lib = host_emulation.load()
     full3d.launch_segment(lib, st, ys, start_outer, n_outer, spec, beta,
@@ -17,14 +17,16 @@ layout rule as a launch on the card::
     full3d_shared.launch_segment(lib, st, step0, n_inner, spec, beta, n_sm=2)
     metropolis_pallas.launch_segment(lib, st, step0, n_inner, spec, beta,
                                      n_sm=2)
+    full3d_pallas.launch_segment(lib, st, step0, n_inner, spec, beta, n_sm=2)
 
 The library goes to ``build/mcqueens_torch/host/``, named by a hash of the
 sources, the header and the flags.  A source is the ``.cu`` file with its
 kernel launches and ``extern __shared__`` arrays rewritten (the only CUDA
 syntax g++ cannot parse).  ``tests/test_torch_scan_emulation.py``,
 ``tests/test_torch_shared_emulation.py``,
-``tests/test_torch_full3d_shared_emulation.py`` and
-``tests/test_torch_metropolis_emulation.py`` hold the emulated kernels
+``tests/test_torch_full3d_shared_emulation.py``,
+``tests/test_torch_metropolis_emulation.py`` and
+``tests/test_torch_full3d_pallas_emulation.py`` hold the emulated kernels
 bitwise against their plain-torch twins.
 """
 
@@ -43,13 +45,13 @@ from mcqueens_torch.kernels import _build
 EMU_DIR = _build._PKG / "emu"
 SOURCES = tuple(_build._PKG / "csrc" / f"{name}.cu"
                 for name in ("board_scan", "full3d_scan", "board_shared",
-                             "full3d_shared", "metropolis"))
+                             "full3d_shared", "metropolis", "full3d_pallas"))
 BUILD_DIR = _build.BUILD_DIR / "host"
 CXX_FLAGS = ("-std=c++20", "-O1", "-pthread", "-fPIC", "-shared",
              "-ffp-contract=off", "-w")
 ENTRY_POINTS = ("mcq_board_scan_segment", "mcq_full3d_scan_segment",
                 "mcq_board_shared_segment", "mcq_full3d_shared_segment",
-                "mcq_metropolis_segment")
+                "mcq_metropolis_segment", "mcq_full3d_pallas_segment")
 
 _LAUNCH = re.compile(r"(\w+)<<<([^>]*)>>>\(([^;]*)\);")
 _SHARED = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")

@@ -180,18 +180,14 @@ REGISTERS = 64
 MAX_THREADS_PER_CTA = 1024
 MAX_N = 170
 Layout = segment.Layout
-# The rule's cost model, fitted to every team size timed on the card at the
-# main paths' launches (pair_scan_slice.py --only metropolis; PERF.md,
-# section 6): a lane issues _PER_PASS instructions for each row offset of
-# the four lines it scores, _PER_STEP for the rest of a step and _PER_DRAW
-# for a step's draws (one a lane a batch of L steps); a step's latency is
-# _PASS_LAT cycles a row offset, _STEP_LAT for the rest, and _SUM_LAT a
-# level of the team's sum (_REDUX_LAT for the one reduce of a whole warp).
-# A wave of warps takes the longer of its instructions over four schedulers
-# and a step's latency, plus _OVERLAP of the shorter.
-_PER_PASS, _PER_STEP, _PER_DRAW = 95, 95, 60
-_PASS_LAT, _STEP_LAT, _SUM_LAT, _REDUX_LAT = 150, 450, 18, 25
-_OVERLAP = 0.2
+# The rule's cost model (segment.TeamModel, a unit a row offset of the four
+# lines), fitted to every team size timed on the card at the main paths'
+# launches (pair_scan_slice.py --only metropolis; each team size's times
+# are in docs/PERF_HISTORY.md).
+MODEL = segment.TeamModel(
+    per_unit=95, per_step=95, per_draw=60, unit_lat=150, step_lat=450,
+    sum_lat=18, redux_lat=25, overlap=0.2, registers=REGISTERS,
+    max_threads=MAX_THREADS_PER_CTA)
 
 
 def row_pitch(N: int) -> int:
@@ -222,43 +218,19 @@ def check_n(N: int) -> None:
                          f"{MAX_N}, got N={N}")
 
 
-def _cost(lay: Layout, N: int, C: int, n_sm: int) -> float:
-    """The rule's estimate of a step's cycles on the busiest SM: its CTAs
-    run in waves of what it holds (``segment.resident_ctas``)."""
-    lanes, cpb = lay.lanes, lay.chains_per_cta
-    passes, levels = -(-N // lanes), int(math.log2(lanes))
-    issue = (passes * _PER_PASS + _PER_STEP + _PER_DRAW / lanes
-             + (3 + levels) * (lanes > 1))
-    latency = (passes * _PASS_LAT + _STEP_LAT
-               + (_REDUX_LAT if lanes == 32 else levels * _SUM_LAT))
-    ctas = segment.resident_ctas(lay, REGISTERS)
-    per_sm = -(-math.ceil(C / cpb) // n_sm)  # CTAs on the busiest SM
-
-    def wave(k):
-        slots = k * cpb * lanes / 32 / 4 * issue
-        return max(slots, latency) + _OVERLAP * min(slots, latency)
-
-    full, rest = divmod(per_sm, ctas)
-    return full * wave(ctas) + (wave(rest) if rest else 0)
-
-
 @functools.cache
 def layout(N: int, C: int, n_sm: int, lanes: int | None = None) -> Layout:
     """The CUDA kernel's layout for ``C`` chains of board size ``N`` on a
     card of ``n_sm`` SMs: the team size (or the given ``lanes``) and chains
     a CTA (lanes times chains a CTA a power of two from 32 to 1024, the
-    CTA's slots within a block's shared memory) of least :func:`_cost`.
-    Few chains take large teams (a step's latency), many chains small ones
-    (each warp instruction serves 32 / L chains), and a layout whose last
-    wave is nearly empty pays for a whole wave.  Ties go to fewer chains a
-    CTA (more SMs), then fewer lanes."""
+    CTA's slots within a block's shared memory) of least cost
+    (:data:`MODEL`).  Few chains take large teams (a step's latency), many
+    chains small ones (each warp instruction serves 32 / L chains), and a
+    layout whose last wave is nearly empty pays for a whole wave.  Ties go
+    to fewer chains a CTA (more SMs), then fewer lanes."""
     check_n(N)
-    lays = [Layout(L, (32 << k) // L, cta_smem_bytes(N, (32 << k) // L))
-            for L in (LANES if lanes is None else (lanes,)) for k in range(6)
-            if 32 << k <= MAX_THREADS_PER_CTA
-            and cta_smem_bytes(N, (32 << k) // L) <= _build.SMEM_PER_BLOCK]
-    return min(lays, key=lambda lay: (_cost(lay, N, C, n_sm),
-                                      lay.chains_per_cta, lay.lanes))
+    return MODEL.layout(N, C, n_sm, LANES if lanes is None else (lanes,),
+                        lambda L, cpb: cta_smem_bytes(N, cpb))
 
 
 def launch_segment(lib, st: SegmentState, step0: int, n_inner: int,

@@ -5,14 +5,15 @@ runs a launch on a working state that its CUDA kernel and the kernel's
 plain-torch twin both update in place.  This module holds the parts that do
 not depend on the sampler: the transposes between a carry and a
 chains-minor working state, the choice of the twin for CPU tensors and the
-kernel for CUDA tensors, with no fallback between them, and the launch
-layout of the shared-site kernels (a team of lanes a chain) with what an SM
-holds of it.
+kernel for CUDA tensors, with no fallback between them, the launch layout
+of the team kernels (a team of lanes a chain) with what an SM holds of it,
+and the cost model that lays out the per-chain ones.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 from mcqueens_torch.kernels import _build
@@ -48,6 +49,70 @@ def resident_ctas(lay: Layout, registers: int) -> int:
         ctas = min(ctas, _build.SMEM_PER_SM // (
             lay.smem_bytes + _build.SMEM_RESERVED_PER_BLOCK))
     return ctas
+
+
+@dataclasses.dataclass(frozen=True)
+class TeamModel:
+    """The cost model of a per-chain kernel whose team of L lanes splits a
+    step's work into units (``csrc/metropolis.cu``: the lines' row
+    offsets; ``csrc/full3d_pallas.cu``: the queens), fitted on the card: a
+    lane issues ``per_unit`` instructions for each unit it takes,
+    ``per_step`` for the rest of a step and ``per_draw`` for a step's draws
+    (one a lane a batch of L steps); a step's latency is ``unit_lat``
+    cycles a unit, ``step_lat`` for the rest, and ``sum_lat`` a level of
+    the team's sum (``redux_lat`` for the one reduce of a whole warp).  A
+    wave of warps takes the longer of its instructions over four schedulers
+    and a step's latency, plus ``overlap`` of the shorter.  ``registers`` a
+    thread, ``max_threads`` a CTA."""
+
+    per_unit: float
+    per_step: float
+    per_draw: float
+    unit_lat: float
+    step_lat: float
+    sum_lat: float
+    redux_lat: float
+    overlap: float
+    registers: int
+    max_threads: int
+
+    def cost(self, lay: Layout, units: int, C: int, n_sm: int) -> float:
+        """A step's cycles on the busiest SM of ``n_sm`` for ``C`` chains of
+        ``units`` units each: its CTAs run in waves of what it holds
+        (:func:`resident_ctas`)."""
+        lanes, cpb = lay.lanes, lay.chains_per_cta
+        passes, levels = -(-units // lanes), int(math.log2(lanes))
+        issue = (passes * self.per_unit + self.per_step
+                 + self.per_draw / lanes + (3 + levels) * (lanes > 1))
+        latency = (passes * self.unit_lat + self.step_lat
+                   + (self.redux_lat if lanes == 32 else levels * self.sum_lat))
+        ctas = resident_ctas(lay, self.registers)
+        per_sm = -(-math.ceil(C / cpb) // n_sm)  # CTAs on the busiest SM
+
+        def wave(k):
+            slots = k * cpb * lanes / 32 / 4 * issue
+            return max(slots, latency) + self.overlap * min(slots, latency)
+
+        full, rest = divmod(per_sm, ctas)
+        return full * wave(ctas) + (wave(rest) if rest else 0)
+
+    def layout(self, units: int, C: int, n_sm: int, lanes,
+               cta_smem: Callable[[int, int], int]) -> Layout:
+        """The layout of least :meth:`cost` among the team sizes ``lanes``
+        and chains a CTA (lanes times chains a CTA a power of two from 32 to
+        ``max_threads``) whose ``cta_smem(lanes, chains_per_cta)`` bytes fit
+        a block; ties go to fewer chains a CTA (more SMs), then fewer lanes.
+        Raises ``ValueError`` if none fits."""
+        lays = [Layout(L, (32 << k) // L, cta_smem(L, (32 << k) // L))
+                for L in lanes for k in range(6)
+                if 32 << k <= self.max_threads
+                and cta_smem(L, (32 << k) // L) <= _build.SMEM_PER_BLOCK]
+        if not lays:
+            raise ValueError(f"no layout of {lanes} lanes a chain fits a "
+                             f"block's {_build.SMEM_PER_BLOCK} bytes of "
+                             f"shared memory")
+        return min(lays, key=lambda lay: (self.cost(lay, units, C, n_sm),
+                                          lay.chains_per_cta, lay.lanes))
 
 
 def chains_minor(carry, planes, rows) -> dict:

@@ -76,9 +76,33 @@ public functions that both sides have are called.  Phases:
     (``drivers.measure_min_energy_vs_n``: 10 N, random and klarner, 128
     runs, cut to 62500 steps), as ``chip_smoke.py`` runs them: wall time.
 
+  * the per-chain full-3D kernel (``kernels/full3d_pallas.py``) alone,
+    each launch on a fresh state behind a spin kernel, three times after
+    one untimed launch: the beta pairs' launch (N=12, Q=144, 4096 chains,
+    16384 steps of linear 0.5->3 over 2^17, seed 42) from step 0 and from
+    step 65536, the N=15 chunk (Q=225, linear 0.8->7 over 8M, the second
+    8192-step chunk) at 65536 and 4096 chains, and the compare shape
+    (N=12, Q=144, 4096 chains, 256 steps from step 0): ms; where the module
+    has a layout rule (``full3d_pallas.layout``), the same launches at each
+    team size, one launch each, and the rule's layout: ms; the compiler's
+    registers and spills of each of its instances;
+  * ``config.yaml``'s beta_start_end_pairs section as full_3d with kernel
+    pallas (N=12, 4096 runs, 2^17 steps, stride 16384), as ``chip_smoke.py``
+    runs it: wall time, twice.
+
 ``--only full3d`` runs the full-3D shared kernel's items alone, ``--only
-metropolis`` the per-chain board kernel's.  Prints one JSON line with the
-card's name and power limit; exits non-zero without a CUDA GPU.
+metropolis`` the per-chain board kernel's, ``--only full3d_pallas`` the
+per-chain full-3D kernel's.  ``--only full3d_pallas_variants`` (never run
+by default) builds the variants of ``csrc/full3d_pallas.cu`` in
+:data:`F3P_VARIANTS` beside the committed source, each into a library of
+its own under ``DIR/build``, and times each at the rule's layout of the
+launches above, after one untimed launch of each, in the order committed,
+variants, variants reversed, committed; each launch's every field must
+equal the committed kernel's.
+It also prints each build's registers and spills, and the SASS opcodes of
+each instance's pass (its largest innermost loop, one LDS a queen row) by
+the pipe they issue on.  Prints one JSON line with the card's name and
+power limit; exits non-zero without a CUDA GPU.
 """
 
 import argparse
@@ -304,13 +328,349 @@ def metropolis_phases():
     return out
 
 
+def full3d_pallas_phases():
+    """The per-chain full-3D kernel's phases (module docstring)."""
+    import numpy as np
+    import torch
+
+    from mcqueens_torch.chain.spec import ChainSpec
+    from mcqueens_torch.core.schedules import build_schedule, chunk_betas
+    from mcqueens_torch.experiments import drivers
+    from mcqueens_torch.experiments.config import parse_config
+    from mcqueens_torch.kernels import _build
+    from mcqueens_torch.kernels import full3d_pallas as fp
+
+    def spec_of(N, n_steps, stride, b0, b1):
+        return ChainSpec(N=N, n_steps=n_steps, history_stride=stride,
+                         kernel="pallas", mcmc_type="full_3d",
+                         schedule=build_schedule(
+                             "linear_annealing", n_steps, beta_start=b0,
+                             beta_end=b1))
+
+    def events_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(5_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    pairs = spec_of(12, 1 << 17, 16384, 0.5, 3.0)
+    n15 = spec_of(15, 8_000_000, 8192, 0.8, 7.0)
+    # name -> (spec, chains, chunks run before the timed one, seed0)
+    launches = {
+        "pairs_launch_from_0": (pairs, 4096, 0, 42),
+        "pairs_launch_from_65536": (pairs, 4096, 4, 42),
+        "n15_chunk_C65536": (n15, 65536, 1, 0),
+        "n15_chunk_C4096": (n15, 4096, 1, 0),
+        "compare_shape_N12_C4096_256": (spec_of(12, 1 << 17, 256, 0.5, 3.0),
+                                        4096, 0, 42),
+    }
+
+    def launch_ms(spec, chains, chunks, seed0, reps, **kw):
+        carry = fp.init_carry_batch(seed0 + np.arange(chains, dtype=np.uint32),
+                                    spec, device="cuda")
+        if chunks:
+            carry, _ = fp.run_segment(carry, 0, spec, chunks)
+        step0, n = chunks * spec.history_stride, spec.history_stride
+        beta = chunk_betas(spec.schedule, step0, n, "cuda")
+        times = []
+        for rep in range(reps + 1):  # the first loads the kernel: not kept
+            st = fp.segment_state(carry)
+            ms = events_ms(lambda: fp.segment_cuda(st, step0, n, spec, beta,
+                                                   **kw))
+            if rep:
+                times.append(ms)
+        return times
+
+    out = {"full3d_pallas_launch_ms": {
+        key: launch_ms(*args, reps=3) for key, args in launches.items()}}
+    if hasattr(fp, "layout"):
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        out["full3d_pallas_layouts"] = {
+            key: {"rule": str(fp.layout(spec.N, spec.q_eff, chains, n_sm)),
+                  **{f"L={L}": launch_ms(
+                      spec, chains, chunks, seed0, reps=1,
+                      forced=fp.layout(spec.N, spec.q_eff, chains, n_sm,
+                                       L))[0]
+                     for L in fp.LANES}}
+            for key, (spec, chains, chunks, seed0) in launches.items()}
+    log = _build.library_path().with_suffix(".log").read_text().splitlines()
+    out["full3d_pallas_ptxas"] = [
+        " ".join(ln.split()) for i, ln in enumerate(log)
+        if "full3d_pallas_kernel" in "".join(log[max(0, i - 2):i + 1])
+        and ("registers" in ln or "spill" in ln)]
+
+    # config.yaml's beta_start_end_pairs section as full_3d, kernel pallas
+    # (chip_smoke.py: full3d_pairs_slice).
+    n_steps = 1 << 17
+    cfg = parse_config({
+        "experiment_type": "beta_start_end_pairs",
+        "common": {"n_steps": n_steps, "n_runs": 4096, "verbose": False,
+                   "initialization": "random", "mcmc_type": "full_3d",
+                   "early_stop_patience": "None",
+                   "betta_scheduling": {"type": "exponential_annealing",
+                                        "base_seed": 42, "beta_const": 5.0,
+                                        "beta_start": 1.0, "beta_end": 3.0},
+                   "output_path": "figures/energy_history_N3to15.png"},
+        "beta_start_end_pairs": {
+            "N": 12, "beta_start_ends": [[0.5, 3.0], [0.1, 5.0], [1.0, 5.0]],
+            "annealing_type": "linear_annealing"},
+        "tpu": {"kernel": "pallas", "history_stride": 16384}})
+    params = cfg.section("beta_start_end_pairs")
+    out["beta_pairs_full3d_pallas_slice_s"] = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drivers.run_beta_start_end_pairs(
+            N=params["N"], n_steps=n_steps,
+            beta_start_ends=params["beta_start_ends"],
+            annealing_type=params["annealing_type"],
+            init_mode=cfg.init_mode, n_runs=cfg.n_runs,
+            base_seed=cfg.sched_cfg["base_seed"], verbose=False, plot=False,
+            mcmc_type=cfg.mcmc_type,
+            early_stop_patience=cfg.early_stop_patience, tpu=cfg.tpu,
+            device="cuda")
+        torch.cuda.synchronize()
+        out["beta_pairs_full3d_pallas_slice_s"].append(
+            time.perf_counter() - t0)
+    return out
+
+
+# Variants of csrc/full3d_pallas.cu timed beside it (--only
+# full3d_pallas_variants): the attack test in int32, as the same identity
+# and as the JAX kernel's squared form (8 at distance 0, so the mover's own
+# row is cancelled with 8), and the pass's registers held to 80 and to 64
+# by __launch_bounds__(256, 3) and (256, 4).  Each is the same function:
+# the phase checks every field against the committed kernel.
+_F3P_INT_CELL = """__device__ __forceinline__ int coord(uint32_t w, int k) {
+  return (int)((w >> (8 * k)) & 0xFFu);
+}
+
+struct Cell {
+  int x, y, z;
+};
+
+__device__ __forceinline__ Cell cell_of(uint32_t w) {
+  return {coord(w, 0), coord(w, 1), coord(w, 2)};
+}
+
+"""
+F3P_VARIANTS = {
+    "committed": {},
+    "int32 identity": {"attack": _F3P_INT_CELL + """\
+__device__ __forceinline__ bool hits(const Cell& q, const Cell& t) {
+  const int rx = q.x - t.x, ry = q.y - t.y, rz = q.z - t.z;
+  const int ax = abs(rx), ay = abs(ry), az = abs(rz);
+  return max(ax, max(ay, az)) * (ax + ay + az) ==
+         rx * rx + ry * ry + rz * rz;
+}
+
+"""},
+    "int32 squared (JAX form)": {"self_row": 8, "attack": _F3P_INT_CELL + """\
+__device__ __forceinline__ int hits(const Cell& q, const Cell& t) {
+  const int rx = q.x - t.x, ry = q.y - t.y, rz = q.z - t.z;
+  const int p2 = rx * rx, q2 = ry * ry, r2 = rz * rz;
+  const int m = max(p2, max(q2, r2));
+  return ((p2 == 0) + (p2 == m)) * ((q2 == 0) + (q2 == m)) *
+         ((r2 == 0) + (r2 == m));
+}
+
+"""},
+    "__launch_bounds__(256, 3)": {"min_ctas": 3},
+    "__launch_bounds__(256, 4)": {"min_ctas": 4},
+}
+# Where SASS opcodes issue on an SM sub-partition of sm_90, as NVIDIA's
+# throughput tables put them (an attribution, not a measurement): FP32
+# arithmetic on the FMA pipes at one warp instruction a clock, IMAD on the
+# heavy FMA pipe at half that, shared-memory accesses and shuffles through
+# MIO, branches and barriers apart, the rest on the ALU pipe at half rate.
+_PIPES = {"FADD": "FP32", "FMUL": "FP32", "FFMA": "FP32", "IMAD": "IMAD",
+          "LDS": "MIO", "STS": "MIO", "SHFL": "MIO", "BRA": "branch",
+          "BSSY": "branch", "BSYNC": "branch", "WARPSYNC": "branch",
+          "NOP": "branch"}
+
+
+def f3p_variant_source(text, attack=None, self_row=None, min_ctas=None):
+    """``csrc/full3d_pallas.cu``'s text with a variant's pieces swapped in:
+    ``attack`` for the packed cell's coordinates and the attack test,
+    ``self_row`` for the constant that cancels the mover's own row,
+    ``min_ctas`` for __launch_bounds__' second argument."""
+    def swap(old, new):
+        if text.count(old) != 1:
+            raise AssertionError(f"variant: {old!r} not found once")
+        return text.replace(old, new)
+
+    if attack:
+        i = text.index("__device__ __forceinline__ float coord(")
+        j = text.index("// attack(queen, new) - attack(queen, old)")
+        text = text[:i] + attack + text[j:]
+    if self_row:
+        text = swap("- (int)hits(o, n) + 1;",
+                    f"- (int)hits(o, n) + {self_row};")
+    if min_ctas:
+        text = swap("constexpr int kMinCtasPerSm = 2;",
+                    f"constexpr int kMinCtasPerSm = {min_ctas};")
+    return text
+
+
+def pass_mix(so):
+    """``{L: {pipe: instructions a queen row}}`` of each instance of the
+    kernel in the library ``so``: its largest innermost loop (the pass, a
+    queen row one 32-bit word loaded), a loop being the instructions from
+    a backward branch's target to the branch (``cuobjdump -sass``)."""
+    import collections
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    text = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(so)],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : \S*full3d_pallas_kernelILi(\d+)E", line)
+        if m or "Function :" in line:
+            cur = int(m.group(1)) if m else None
+            if cur:
+                funcs[cur] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if m and cur:
+            funcs[cur].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = {}
+    for L, ins in sorted(funcs.items()):
+        loops = []
+        for addr, op, rest in ins:
+            t = re.search(r"0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and t and int(t.group(1), 16) <= addr:
+                loops.append((int(t.group(1), 16), addr))
+        inner = [lp for lp in loops if not any(
+            o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+        lo, hi = max(inner, key=lambda lp: lp[1] - lp[0])
+        body = [op for a, op, _ in ins if lo <= a <= hi]
+        # A queen row is one 32-bit word: LDS.64 and LDS.128 load 2 and 4.
+        rows = sum({"64": 2, "128": 4}.get(op.split(".")[-1], 1)
+                   for op in body if op.startswith("LDS")) or 1
+        ops = collections.Counter(op.split(".")[0] for op in body)
+        pipes = collections.Counter()
+        for op, n in ops.items():
+            pipes[_PIPES.get(op, "ALU")] += n
+        out[L] = {"rows": rows,
+                  **{k: v / rows for k, v in sorted(pipes.items())},
+                  "opcodes": dict(ops.most_common())}
+    return out
+
+
+def full3d_pallas_variants():
+    """The variants of the per-chain full-3D kernel (module docstring)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from mcqueens_torch.chain.spec import ChainSpec
+    from mcqueens_torch.core.schedules import build_schedule, chunk_betas
+    from mcqueens_torch.kernels import _build
+    from mcqueens_torch.kernels import full3d_pallas as fp
+
+    def spec_of(N, n_steps, stride, b0, b1):
+        return ChainSpec(N=N, n_steps=n_steps, history_stride=stride,
+                         kernel="pallas", mcmc_type="full_3d",
+                         schedule=build_schedule(
+                             "linear_annealing", n_steps, beta_start=b0,
+                             beta_end=b1))
+
+    src = (_build.SOURCES[0].parent / "full3d_pallas.cu").read_text()
+    out_dir = _build.BUILD_DIR.parent / "full3d_pallas_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, kw) in enumerate(F3P_VARIANTS.items()):
+        cu, so = out_dir / f"v{i}.cu", out_dir / f"v{i}.so"
+        cu.write_text(f3p_variant_source(src, **kw))
+        procs[name] = so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    libs, out = {}, {"full3d_pallas_variants": {}}
+    for name, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        fn = lib.mcq_full3d_pallas_segment
+        fn.argtypes = _build.ENTRY_POINTS["mcq_full3d_pallas_segment"]
+        fn.restype = ctypes.c_int
+        libs[name] = lib
+        out["full3d_pallas_variants"][name] = {
+            "registers": sorted({int(v) for v in re.findall(
+                r"Used (\d+) registers", log)}),
+            "spill_bytes": sum(int(v) for v in re.findall(
+                r"(\d+) bytes spill", log)),
+            "pass_mix": pass_mix(so)}
+
+    pairs = spec_of(12, 1 << 17, 16384, 0.5, 3.0)
+    n15 = spec_of(15, 8_000_000, 8192, 0.8, 7.0)
+    # name -> (spec, chains, chunks run before the timed one, seed0)
+    launches = {
+        "pairs_launch_from_0": (pairs, 4096, 0, 42),
+        "pairs_launch_from_65536": (pairs, 4096, 4, 42),
+        "n15_chunk_C65536": (n15, 65536, 1, 0),
+        "n15_chunk_C4096": (n15, 4096, 1, 0),
+        "compare_shape_N12_C4096_256": (spec_of(12, 1 << 17, 256, 0.5, 3.0),
+                                        4096, 0, 42),
+    }
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    order = [*F3P_VARIANTS, *reversed(F3P_VARIANTS)]
+    times = out["full3d_pallas_variant_ms"] = {}
+    for key, (spec, chains, chunks, seed0) in launches.items():
+        carry = fp.init_carry_batch(seed0 + np.arange(chains, dtype=np.uint32),
+                                    spec, device="cuda")
+        if chunks:
+            carry, _ = fp.run_segment(carry, 0, spec, chunks)
+        step0, n = chunks * spec.history_stride, spec.history_stride
+        beta = chunk_betas(spec.schedule, step0, n, "cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        row = times[key] = {name: [] for name in F3P_VARIANTS}
+        want = None
+        # One untimed launch of each first: it loads the kernel.
+        for i, name in enumerate([*F3P_VARIANTS, *order]):
+            st = fp.segment_state(carry)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(5_000_000)
+            start.record()
+            fp.launch_segment(libs[name], st, step0, n, spec, beta,
+                              n_sm=n_sm, stream=stream)
+            end.record()
+            torch.cuda.synchronize()
+            if want is None:
+                want = st
+            bad = [f for f, v in vars(st).items()
+                   if not torch.equal(v, getattr(want, f))]
+            if bad:
+                raise AssertionError(f"variant {name} on {key}: fields "
+                                     f"{bad} differ from the committed "
+                                     f"kernel's")
+            if i >= len(F3P_VARIANTS):
+                row[name].append(start.elapsed_time(end))
+        row["layout"] = str(fp.layout(spec.N, spec.q_eff, chains, n_sm))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True,
                     help="root of the checkout whose port is timed")
     ap.add_argument("--label", default=None)
     ap.add_argument("--json", default=None, help="also write the line here")
-    ap.add_argument("--only", choices=["full3d", "metropolis"],
+    ap.add_argument("--only", choices=["full3d", "metropolis",
+                                       "full3d_pallas",
+                                       "full3d_pallas_variants"],
                     default=None,
                     help="time only one kernel's phases")
     args = ap.parse_args(argv)
@@ -594,6 +954,10 @@ def main(argv=None):
         out.update(full3d_phases())
     if args.only in (None, "metropolis"):
         out.update(metropolis_phases())
+    if args.only in (None, "full3d_pallas"):
+        out.update(full3d_pallas_phases())
+    if args.only == "full3d_pallas_variants":
+        out.update(full3d_pallas_variants())
     line = json.dumps(out)
     print(line)
     if args.json:
