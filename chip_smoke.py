@@ -37,7 +37,14 @@ and the script exits non-zero without printing a result:
    launches, so no launch waits for the host).  A shared-memory kernel's
    hot loop is its largest loop that touches no device memory.  A bound
    adds shared-memory bytes (32 banks x 4 B per SM per clock) to
-   device-memory bytes and int32 operations.
+   device-memory bytes and int32 operations.  Each hot loop's instructions
+   are printed by pipe; kernel A's must issue at least 40% of its int32
+   instructions on each (IADD3 on the ALU pipe, IMAD on the FMA pipe).
+   Kernel A runs at every instance in both modes, with odd and even inner
+   counts, and the reduce at both its instances (the column in registers
+   up to 64 rows, the staged strip above); the reduce's bound counts the
+   function's operations, and the staged kernel's shared-memory words,
+   its earlier bound, are printed beside it.
 3. kernel vs twin: one launch through each CUDA kernel and one through its
    plain-torch twin (``segment_reference``), both on the card from the same
    ``init_carry_batch`` state, betas and beta scales; every state field must
@@ -1824,14 +1831,16 @@ def sass_loops():
 
 
 # Evaluations one trip of each probe's hot loop makes, by its template
-# arguments: A and C unroll 16 and 8 trips of K chains, B one trip of K
-# chains, D one row against the 9 targets.
-LOOP_EVALS = {"vpu": lambda t: 16 * t[0], "test": lambda t: t[0],
+# arguments: A and C unroll 32 and 8 doublings or ops of K chains, B one
+# trip of K chains, D one row against the 9 targets.
+LOOP_EVALS = {"vpu": lambda t: 32 * t[0], "test": lambda t: t[0],
               "op": lambda t: 8 * t[0], "sweep": lambda t: 9,
               # the gather chain: one step of E elements a thread; the slice
-              # loop and the reduce unroll 16 rows; one draw per trip
+              # loop and the staged reduce (ROWS = 0) unroll 16 rows, the
+              # register reduce walks its ROWS rows once a trip; one draw
+              # per trip
               "gather_chain": lambda t: t[0], "slice_loop": lambda t: 16,
-              "reduce": lambda t: 16, "prng": lambda t: 1}
+              "reduce": lambda t: t[0] or 16, "prng": lambda t: 1}
 # int32 operations of one evaluation as the TPU function writes it (each
 # elementwise jnp operation one, constant expressions none), the yardstick
 # of the samplers' bounds too:
@@ -1854,6 +1863,9 @@ LOOP_EVALS = {"vpu": lambda t: 16 * t[0], "test": lambda t: t[0],
 #   slice loop (probe_slice.py:105) per (row word, step) blk + acc: 1 (and
 #     a load and a store); the offset and acc + 1 are per step, not per word.
 #   reduce (probe_slice.py:174) per (row word, step) x + acc and the sum: 2.
+#     The register instances issue one IADD3 for both, exactly half: the
+#     check below fails only under half, so they pass at equality (plus
+#     the loop's own few instructions).
 #   PRNG draws (probe_slice.py:194, the port's generators as
 #     mcqueens/kernels/prng.py and core/rng.py write them), counted as the
 #     uint32 operations they need, as THREEFRY_OPS counts a rotate as one
@@ -1873,6 +1885,26 @@ PROBE_OPS = {"vpu": {None: 1}, "op": {None: 2},
 # stores, and the uniform datapath (one per warp: the loop's scalars).
 NOT_INT32 = ("BRA", "EXIT", "NOP", "BSSY", "BSYNC", "BAR", "WARPSYNC", "LD",
              "ST", "S2R", "CS2R", "U")
+# The pipe an sm_90 sub-partition issues an opcode on, as NVIDIA's
+# throughput tables put them (an attribution, not a measurement): IMAD and
+# float arithmetic on the FMA pipe, shared-memory accesses and shuffles
+# through MIO, what NOT_INT32 lists apart, the rest on the ALU pipe.
+FMA_PIPE = ("IMAD", "FFMA", "FADD", "FMUL")
+MIO = ("LDS", "STS", "SHFL")
+# Kernel A's hot loop keeps both int32 pipes busy (half its doublings
+# IADD3, half IMAD): each pipe must issue at least this share of the loop's
+# int32 instructions.
+BOTH_PIPES = 0.4
+
+
+def pipe_mix(body):
+    """{pipe: instructions} of a loop body's opcode Counter."""
+    mix = collections.Counter()
+    for op, n in body.items():
+        mix["FMA" if op.startswith(FMA_PIPE) else "MIO"
+            if op.startswith(MIO) else "other"
+            if op.startswith(NOT_INT32) else "ALU"] += n
+    return mix
 
 
 def instance_kind(key, targs):
@@ -1897,7 +1929,9 @@ def probe_instances():
                for i in range(len(probes.OPS))]
             + [(f["sweep"], (i,)) for i in range(len(probes.SWEEP_KINDS))]
             + [(f["gather_chain"], (e,)) for e in probes_mem.CHAIN_ES]
-            + [(f["slice_loop"], ()), (f["reduce"], ())]
+            + [(f["slice_loop"], ())]
+            + [(f["reduce"], (r,))
+               for r in range(probes_mem.REDUCE_REG_ROWS + 1)]
             + [(f["prng"], (i,)) for i in range(len(probes_mem.PRNG_MODES))])
 
 
@@ -1929,15 +1963,26 @@ def check_sass(loops):
                    key=lambda c: sum(c.values()))
         n_int = sum(v for op, v in body.items()
                     if not op.startswith(NOT_INT32))
-        per = n_int / LOOP_EVALS[key](targs)
+        evals = LOOP_EVALS[key](targs)
+        per = n_int / evals
         need = PROBE_OPS[key][instance_kind(key, targs)]
+        mix = pipe_mix(body)
         phase("sass", f"{name}<{', '.join(map(str, targs))}>: hot loop "
               f"{sum(body.values())} instructions, {per:.3f} int32 per "
-              f"evaluation against {need} source ops ({per / need:.3f})")
+              f"evaluation against {need} source ops ({per / need:.3f}); "
+              f"per evaluation by pipe: " + ", ".join(
+                  f"{p} {mix[p] / evals:.3f}" for p in sorted(mix))
+              + f" (IADD3 {body['IADD3'] / evals:.3f}, IMAD "
+              f"{body['IMAD'] / evals:.3f})")
         if per < need / 2:
             raise AssertionError(f"{name}<{targs}>: {per:.3f} int32 "
                                  f"instructions per evaluation, under half "
                                  f"the source's {need}: the loop was cut")
+        least = min(mix["ALU"], mix["FMA"]) / max(1, mix["ALU"] + mix["FMA"])
+        if key == "vpu" and least < BOTH_PIPES:
+            raise AssertionError(f"{name}<{targs}>: one int32 pipe issues "
+                                 f"{least:.3f} of the hot loop, under "
+                                 f"{BOTH_PIPES}")
 
 
 def probe_cases(rs):
@@ -1970,6 +2015,27 @@ def probe_cases(rs):
         ("vpu", f"A ones (8,{W}) dependent n_iter=2048 k=8", (rows(1, W),),
          dict(independent=False, n_iter=2048, k=8, inner=16), False),
     ]
+    # Every instance, both forms of a doubling in both modes, an odd inner
+    # (the last doubling outside the loop over pairs) and an even one, and
+    # 19 doublings (9 pairs and the last one alone); under 32 doublings, so
+    # random words do not wrap to 0.
+    for k in probes.VPU_KS:
+        for independent, n_iter, inners in ((True, 3, (5, 6)),
+                                            (False, 1, (3, 2))):
+            for inner in inners:
+                for name, x in (("random", rand()), ("ones", rows(1))):
+                    cases.append((
+                        "vpu", f"A {name} (8,1024) "
+                        f"{'' if independent else 'dependent '}"
+                        f"n_iter={n_iter} k={k} inner={inner}", (x,),
+                        dict(independent=independent, n_iter=n_iter, k=k,
+                             inner=inner), False))
+    for independent, k in ((True, 8), (False, 1)):
+        cases.append(("vpu", f"A random (8,1024) "
+                      f"{'' if independent else 'dependent '}n_iter=1 k={k} "
+                      f"inner=19", (rand(),),
+                      dict(independent=independent, n_iter=1, k=k, inner=19),
+                      False))
     for kind in probes.TEST_KINDS:
         for k in (2, 4, 16):
             cases.append(("test", f"B {kind} 70s (8,1024) n_iter=3 k={k}",
@@ -2173,6 +2239,14 @@ def mem_cases(rs):
          dict(n_iter=4096), False),
         ("reduce", "reduce random (24,200) n_iter=5", (rand(24, 200),),
          dict(n_iter=5), False),
+    ]
+    # both instances: the column in registers (S <= 64) and the staged strip
+    for S in (1, 24, 63, 64, 65, 256):
+        for n in (1, 5):
+            cases.append(("reduce", f"reduce random ({S},1000) n_iter={n} "
+                          f"(instance {probes_mem.reduce_instance(S)})",
+                          (rand(S, 1000),), dict(n_iter=n), False))
+    cases += [
         ("reduce", f"reduce (64,{T}) n_iter=512", (ones(64, T),),
          dict(n_iter=512), True),
     ]
@@ -2236,9 +2310,23 @@ def loop_work(inputs, kw):
 
 
 def reduce_work(inputs, kw):
+    # The function's work: a column fits in registers, so re-reading x from
+    # shared memory every step is a choice of a kernel, not work the
+    # function needs (a bound counts each input word read once).
     x, n = inputs[0], kw["n_iter"]
     words = x.numel()
-    return 2 * words * n, 4 * (words + x.shape[1]), 4 * words * (n + 1)
+    return 2 * words * n, 4 * (words + x.shape[1]), 0
+
+
+def reduce_staging_note(inputs, kw, bounds, kernel_ms):
+    """The reduce's earlier bound, printed beside the function's: the
+    staged kernel's own shared-memory words, 4 S C (n_iter + 1) bytes."""
+    x, n = inputs[0], kw["n_iter"]
+    staged = 4 * x.numel() * (n + 1)
+    ms = bounds.terms(0, 0, staged)["shared-memory bytes"]
+    return (f"old yardstick, the staged kernel's shared-memory words: "
+            f"{staged:.4e} B -> {ms:.4f} ms = {ms / kernel_ms:.3f} of the "
+            f"kernel's {kernel_ms:.4f} ms")
 
 
 def prng_work(inputs, kw):
@@ -2271,7 +2359,8 @@ def store_library(inputs):
 
 
 def probe_row(name, source, replaces, calls, work, *, ops=None,
-              trip="n_iter", sites=None, smem=False, library=None):
+              trip="n_iter", sites=None, smem=False, library=None,
+              note=None):
     """One probe row of the kernels line.  ``calls``: (public wrapper,
     launcher, plain twin); ``work(inputs, kw)``: (int32 operations,
     device-memory bytes, shared-memory bytes) of a launch; ``ops``: the
@@ -2279,10 +2368,13 @@ def probe_row(name, source, replaces, calls, work, *, ops=None,
     (no loop: no SASS check, no scaling); ``trip``: the trip count the
     scaling check doubles; ``sites``: every pallas_call site the row stands
     for; ``smem``: the hot loop works out of shared memory; ``library``:
-    inputs -> one PyTorch call computing the same words, or None."""
+    inputs -> one PyTorch call computing the same words, or None;
+    ``note(inputs, kw, bounds, kernel_ms)``: a second figure printed beside
+    the bound, or None."""
     return dict(name=name, func=name.split(" ")[0], source=source,
                 replaces=replaces, sites=sites or [replaces], calls=calls,
-                work=work, ops=ops, trip=trip, smem=smem, library=library)
+                work=work, ops=ops, trip=trip, smem=smem, library=library,
+                note=note)
 
 
 _ALU_CU = "mcqueens_torch/kernels/csrc/probe_alu.cu"
@@ -2347,7 +2439,7 @@ PROBES = {
         "reduce_probe_kernel", _SLICE_CU, f"{_SLICE}:174",
         (probes_mem.sublane_reduce, probes_mem.sublane_reduce_cuda,
          probes_mem.sublane_reduce_reference), reduce_work, ops="reduce",
-        smem=True),
+        smem=True, note=reduce_staging_note),
     "prng_lowbias32": probe_row(
         "prng_probe_kernel (lowbias32)", _SLICE_CU, f"{_SLICE}:194", _PRNG,
         prng_work, ops="prng"),
@@ -2447,6 +2539,9 @@ def probe_kernel_rows(rows, launches, bounds):
               f"int32 ops, {work[1]:.4e} bytes, {work[2]:.4e} shared-memory "
               f"bytes -> {terms}; bound {bound_ms:.4f} ms ({bound_by}) = "
               f"{share:.3f} of the kernel's {row['kernel_ms']:.4f} ms")
+        if meta["note"]:
+            phase("bound", f"{meta['name']}: " + meta["note"](
+                row["inputs"], row["kw"], bounds, row["kernel_ms"]))
         if share > 1.05:
             raise AssertionError(f"{meta['name']} ran at {share:.3f} of its "
                                  f"bound: work was cut")

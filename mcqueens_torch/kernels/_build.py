@@ -36,7 +36,7 @@ ENTRY_POINTS = {
     "mcq_full3d_shared_segment": [_P] * 17 + [_I] * 12 + [_P],
     "mcq_metropolis_segment": [_P] * 11 + [_I] * 10 + [_P],
     "mcq_full3d_pallas_segment": [_P] * 16 + [_I] * 11 + [_P],
-    "mcq_probe_vpu": [_P] * 2 + [_I] * 5 + [_P],
+    "mcq_probe_vpu": [_P] * 2 + [_I] * 6 + [_P],
     "mcq_probe_op": [_P] * 2 + [_I] * 5 + [_P],
     "mcq_probe_test": [_P] * 2 + [_I] * 7 + [_P],
     "mcq_probe_sweep": [_P] * 4 + [_I] * 4 + [_P],
@@ -44,7 +44,7 @@ ENTRY_POINTS = {
     "mcq_probe_gather_chain": [_P] * 3 + [_I] * 7 + [_P],
     "mcq_probe_slice": [_P] * 3 + [_I] * 5 + [_P],
     "mcq_probe_slice_loop": [_P] * 2 + [_I] * 5 + [_P],
-    "mcq_probe_reduce": [_P] * 2 + [_I] * 4 + [_P],
+    "mcq_probe_reduce": [_P] * 2 + [_I] * 5 + [_P],
     "mcq_probe_prng": [_P] + [_I] * 5 + [_P],
 }
 # Shared memory one block may opt into on the H100 (sm_90), an SM's

@@ -19,12 +19,13 @@
 // Plain-torch twins: mcqueens_torch/kernels/probes_mem.py:*_reference.
 //
 // What bounds them on the H100.  The slice copy is one pass over device
-// memory.  The slice loop and the reduce run out of shared memory: per
-// (row, step) the loop loads and stores a word there and adds, the reduce
-// loads a word and does two adds; shared memory serves 32 banks x 4 bytes
-// per SM per clock, which binds before the int32 pipes.  The PRNG draws are
-// int32 issue: 39 operations per lowbias32 draw and 75 per threefry draw as
-// the reference functions write them, and one word written per element.
+// memory.  The slice loop runs out of shared memory: per (row, step) it
+// loads and stores a word there and adds; shared memory serves 32 banks x 4
+// bytes per SM per clock, which binds before the int32 pipes.  The reduce
+// needs two adds per (row, step) and nothing more (a column of up to 64
+// words fits in registers): int32 issue.  The PRNG draws are int32 issue
+// too: 30 uint32 operations per lowbias32 draw and 75 per threefry draw,
+// and one word written per element.
 //
 // Design.  The slice copy moves 16 bytes an access (int4) when every row
 // starts 16-byte aligned (C a multiple of 4, both base pointers aligned),
@@ -40,18 +41,27 @@
 // (S, 32) strip in shared memory: each thread owns its column, so the
 // threads never wait for each other, and each step loads, adds and stores
 // its w rows (a runtime count) at a runtime offset.  The reduce is one
-// thread per column, 128 columns a block, x's (S, 128) strip in shared
-// memory; each step walks the S rows.  LLVM would rewrite sum(x_s + acc) as
-// sum(x_s) + S * acc and hoist sum(x_s) out of the step loop, so each x_s is
-// tied to acc through a runtime zero (the wrapper passes 0): x_s ^ (acc &
-// zero) is x_s, one LOP3, and every step really walks the rows.  The PRNG
+// thread per column, 128 columns a block, one template instance per row
+// count S <= 64 (ROWS = S): the thread loads its S words once, coalesced,
+// into registers, and each step adds x_s + acc into four partial sums (sums
+// mod 2^32 are associative, so the words match, and four chains of S/4
+// adds keep the ALU pipe busy), one IADD3 per row written as inline PTX
+// (add s, s, x_s; add s, s, acc): LLVM would rewrite sum(x_s + acc) as
+// sum(x_s) + S * acc and hoist sum(x_s) out of the step loop.  That is half
+// the function's two ops per (row, step) on the ALU pipe alone, exactly the
+// ops bound at both pipes' rate.  Above 64 rows (no tool runs them) the
+// instance ROWS = 0 stages x's (S, 128) strip in shared memory and each step
+// walks the S rows there, each x_s tied to acc through a runtime zero (the
+// wrapper passes 0): x_s ^ (acc & zero) is x_s, one LOP3.  The wrapper picks
+// the instance from S (probes_mem.reduce_instance).  The PRNG
 // kernel is one thread per word, its draw loop over a runtime n_iter.  Every
 // count, offset and width is a runtime argument; all arithmetic is uint32_t.
 // The strips' fill and drain unroll 8 rows, so each thread keeps 8 loads in
 // flight (one at a time left the fill at 7 warps per SM latency-bound, a
-// fixed cost as large as 500 steps of the loop), and the step loops unroll
-// 16: the hot loop stays the largest loop of its kernel, the one the smoke
-// test's SASS check reads.
+// fixed cost as large as 500 steps of the loop), and the row loops over a
+// strip unroll 16: the hot loop stays the largest loop of its kernel, the
+// one the smoke test's SASS check reads.  The register reduce's step loop is
+// not unrolled: one trip walks the S rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,6 +76,8 @@ constexpr int kCopyThreads = 256;
 constexpr int kCopyItems = 2;
 constexpr int kLoopCols = 32;
 constexpr int kReduceCols = 128;
+constexpr int kReduceRegRows = 64;  // rows a column holds in registers
+constexpr int kReducePartials = 4;
 constexpr int kPrngThreads = 128;
 
 template <typename V>
@@ -187,27 +199,76 @@ __global__ void __launch_bounds__(kLoopCols) slice_loop_probe_kernel(
   }
 }
 
+// s + x + acc: one IADD3 that LLVM cannot reassociate.
+__device__ __forceinline__ uint32_t add_row(uint32_t s, uint32_t x,
+                                           uint32_t acc) {
+  asm volatile("add.u32 %0, %0, %1;\n\tadd.u32 %0, %0, %2;"
+               : "+r"(s)
+               : "r"(x), "r"(acc));
+  return s;
+}
+
+// ROWS = S in 1..kReduceRegRows: the column in registers; ROWS = 0: x's
+// (S, kReduceCols) strip staged in shared memory.
+template <int ROWS>
 __global__ void __launch_bounds__(kReduceCols) reduce_probe_kernel(
     const int32_t* __restrict__ x, int32_t* __restrict__ out, int S, int C,
     int n_iter, uint32_t zero) {
-  extern __shared__ uint32_t xs[];  // (S, kReduceCols)
   const int lane = threadIdx.x;
   const int c = blockIdx.x * kReduceCols + lane;
-  const bool live = c < C;
-#pragma unroll 8
-  for (int r = 0; r < S; ++r) {
-    xs[r * kReduceCols + lane] =
-        live ? (uint32_t)x[(long long)r * C + c] : 0u;
-  }
   uint32_t acc = 0;
-  for (int t = 0; t < n_iter; ++t) {
-    const uint32_t tie = acc & zero;
-    uint32_t s = 0;
+  if constexpr (ROWS > 0) {
+    if (c >= C) return;
+    uint32_t xr[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) xr[r] = (uint32_t)x[(long long)r * C + c];
+    constexpr int P = ROWS < kReducePartials ? ROWS : kReducePartials;
+#pragma unroll 1
+    for (int t = 0; t < n_iter; ++t) {
+      uint32_t s[P] = {};
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) s[r % P] = add_row(s[r % P], xr[r], acc);
+      acc = s[0];
+#pragma unroll
+      for (int p = 1; p < P; ++p) acc += s[p];
+    }
+    out[c] = (int32_t)acc;
+  } else {
+    extern __shared__ uint32_t xs[];  // (S, kReduceCols)
+    const bool live = c < C;
+#pragma unroll 8
+    for (int r = 0; r < S; ++r) {
+      xs[r * kReduceCols + lane] =
+          live ? (uint32_t)x[(long long)r * C + c] : 0u;
+    }
+    for (int t = 0; t < n_iter; ++t) {
+      const uint32_t tie = acc & zero;
+      uint32_t s = 0;
 #pragma unroll 16
-    for (int r = 0; r < S; ++r) s += (xs[r * kReduceCols + lane] ^ tie) + acc;
-    acc = s;
+      for (int r = 0; r < S; ++r) {
+        s += (xs[r * kReduceCols + lane] ^ tie) + acc;
+      }
+      acc = s;
+    }
+    if (live) out[c] = (int32_t)acc;
   }
-  if (live) out[c] = (int32_t)acc;
+}
+
+// Launches the register instance ROWS = rows, searched from R up.
+template <int R>
+int launch_reduce_rows(int rows, const int32_t* x, int32_t* out, int C,
+                       int n_iter, cudaStream_t s) {
+  if (rows == R) {
+    reduce_probe_kernel<R><<<(C + kReduceCols - 1) / kReduceCols,
+                             kReduceCols, 0, s>>>(x, out, rows, C, n_iter,
+                                                  0u);
+    return (int)cudaGetLastError();
+  }
+  if constexpr (R < kReduceRegRows) {
+    return launch_reduce_rows<R + 1>(rows, x, out, C, n_iter, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
 }
 
 // mcqueens_torch/kernels/prng.py, in uint32_t (logical shifts need no mask).
@@ -297,15 +358,24 @@ extern "C" int mcq_probe_slice_loop(const void* x, void* out, int S, int C,
   return (int)cudaGetLastError();
 }
 
-// The reduce on `stream`: x (S, C) int32, out (1, C); zero must be 0;
-// S * 128 words of shared memory per block.
+// The reduce on `stream`: x (S, C) int32, out (1, C); rows is the
+// instance, S itself for 1 <= S <= 64 (the column in registers) or 0 (the
+// strip staged in shared memory, S * 128 words a block; zero must be 0);
+// returns cudaErrorInvalidValue for another.
 extern "C" int mcq_probe_reduce(const void* x, void* out, int S, int C,
-                                int n_iter, int zero, void* stream) {
+                                int n_iter, int zero, int rows,
+                                void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (rows != 0) {
+    if (rows != S) return (int)cudaErrorInvalidValue;
+    return launch_reduce_rows<1>(rows, (const int32_t*)x, (int32_t*)out, C,
+                                 n_iter, s);
+  }
   const int smem = S * kReduceCols * (int)sizeof(uint32_t);
-  const int err = set_smem((const void*)reduce_probe_kernel, smem);
+  const int err = set_smem((const void*)reduce_probe_kernel<0>, smem);
   if (err != 0) return err;
   const int blocks = (C + kReduceCols - 1) / kReduceCols;
-  reduce_probe_kernel<<<blocks, kReduceCols, smem, (cudaStream_t)stream>>>(
+  reduce_probe_kernel<0><<<blocks, kReduceCols, smem, s>>>(
       (const int32_t*)x, (int32_t*)out, S, C, n_iter, (uint32_t)zero);
   return (int)cudaGetLastError();
 }

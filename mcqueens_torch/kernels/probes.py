@@ -142,10 +142,11 @@ def vpu_doubling_cuda(x: torch.Tensor, independent: bool = True, *,
     """Kernel A on the card (asynchronous; counts the launch)."""
     n_acc, n_it = _vpu_shape(independent, n_iter, k)
     out = torch.empty_like(x)
-    # The last argument is a runtime zero added to every doubling (one
-    # IADD3 with it): no compiler can then merge the doublings into a shift.
+    # The last two arguments are a runtime two and zero: every doubling is
+    # one instruction a + a + zero (IADD3) or a * two + zero (IMAD), which no
+    # compiler can merge into a shift.
     _launch("vpu", _lib().mcq_probe_vpu, x, out, x.numel(), n_acc, n_it,
-            inner, 0)
+            inner, 2, 0)
     return out
 
 
@@ -156,7 +157,11 @@ def vpu_doubling(x: torch.Tensor, independent: bool = True, *,
     per iteration for ``n_iter`` iterations, summed (``independent``), or
     one accumulator ``x`` over ``n_iter * k`` iterations."""
     _check_rows("x", x)
-    _check_k(_vpu_shape(independent, n_iter, k)[0], VPU_KS)
+    n_acc, n_it = _vpu_shape(independent, n_iter, k)
+    _check_k(n_acc, VPU_KS)
+    if n_it * inner >= 2 ** 31:
+        raise ValueError(f"{n_it} x {inner} doublings a chain: the kernel "
+                         f"takes fewer than 2^31")
     return segment.on_device("vpu_doubling", x.device,
                              vpu_doubling_reference, vpu_doubling_cuda, x,
                              independent, n_iter=n_iter, k=k, inner=inner)

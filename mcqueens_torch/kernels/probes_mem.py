@@ -70,6 +70,7 @@ CHAIN_MAX_TILE = CHAIN_THREADS * CHAIN_ES[-1]
 CHAIN_STRIP = 32  # columns of an axis-0 tile
 LOOP_COLS = 32  # the slice loop's columns per block
 REDUCE_COLS = 128  # the reduce's columns per block
+REDUCE_REG_ROWS = 64  # rows of a column the reduce holds in registers
 SLICE_STRIDE = 16  # the TPU loop's row step
 PRNG_MODES = ("lowbias32", "threefry")
 PRNG_SEED, PRNG_STEP0 = 7, 9  # the TPU kernel's prng_seed(7, 9)
@@ -313,13 +314,21 @@ def sublane_reduce_reference(x: torch.Tensor, *, n_iter: int) -> torch.Tensor:
     return acc
 
 
+def reduce_instance(S: int) -> int:
+    """The reduce's template instance for ``S`` rows: ``S`` up to
+    :data:`REDUCE_REG_ROWS` (each thread's column in registers), else 0
+    (x's strip staged in shared memory)."""
+    return S if S <= REDUCE_REG_ROWS else 0
+
+
 def sublane_reduce_cuda(x: torch.Tensor, *, n_iter: int) -> torch.Tensor:
     """The reduce on the card (asynchronous; counts the launch)."""
     S, C = x.shape
     out = torch.empty((1, C), dtype=torch.int32, device=x.device)
-    # The last argument is a runtime zero that ties each row to the
-    # accumulator, so the row sum cannot be hoisted out of the step loop.
-    _launch("reduce", probes._lib().mcq_probe_reduce, x, out, S, C, n_iter, 0)
+    # The runtime zero ties each row to the accumulator in the staged
+    # instance, so the row sum cannot be hoisted out of the step loop.
+    _launch("reduce", probes._lib().mcq_probe_reduce, x, out, S, C, n_iter, 0,
+            reduce_instance(S))
     return out
 
 

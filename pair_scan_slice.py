@@ -90,6 +90,19 @@ public functions that both sides have are called.  Phases:
     pallas (N=12, 4096 runs, 2^17 steps, stride 16384), as ``chip_smoke.py``
     runs it: wall time, twice.
 
+  * (``--only probes``, never run by default) kernel A
+    (``kernels/probes.py:vpu_doubling``) and the reduce
+    (``kernels/probes_mem.py:sublane_reduce``) alone through their
+    launchers, each launch behind a spin kernel, three times after one
+    untimed launch, each launch's words equal to the plain twin's (so
+    parent and change give the same words): kernel A at the roofline's
+    timing shape ((8, 135168) ones, 8 chains x 2048 x 16 doublings) and the
+    pass cost's ((8, 135168) ones, one chain of 8192 doublings), the reduce
+    at the slice tool's card-filling shape ((64, 1081344) ones, 512 steps):
+    ms, with a digest of the words; and ``mcqueens_torch.tools.roofline``
+    and ``probe_slice`` ``--quick`` as wall time, with the roofline's int32
+    add rate and the slice tool's reduce costs.
+
 ``--only full3d`` runs the full-3D shared kernel's items alone, ``--only
 metropolis`` the per-chain board kernel's, ``--only full3d_pallas`` the
 per-chain full-3D kernel's.  ``--only full3d_pallas_variants`` (never run
@@ -101,8 +114,14 @@ variants, variants reversed, committed; each launch's every field must
 equal the committed kernel's.
 It also prints each build's registers and spills, and the SASS opcodes of
 each instance's pass (its largest innermost loop, one LDS a queen row) by
-the pipe they issue on.  Prints one JSON line with the card's name and
-power limit; exits non-zero without a CUDA GPU.
+the pipe they issue on.  ``--only vpu_variants`` (never run by default)
+builds the variants of kernel A's ``csrc/probe_alu.cu`` in
+:data:`VPU_VARIANTS` the same way and times each at the roofline's two
+launches and the pass cost's, in the order committed, variants, variants
+reversed, committed, each launch's words equal to the committed kernel's
+(and on random words under 32 doublings), with each instance's hot-loop
+opcodes.  Prints one JSON line with the card's name and power limit; exits
+non-zero without a CUDA GPU.
 """
 
 import argparse
@@ -440,6 +459,80 @@ def full3d_pallas_phases():
     return out
 
 
+def probes_phases():
+    """Kernel A and the reduce alone, and two tools' walls (module
+    docstring)."""
+    import hashlib
+
+    import torch
+
+    from mcqueens_torch import tools
+    from mcqueens_torch.kernels import probes, probes_mem
+    from mcqueens_torch.tools import probe_slice, roofline
+
+    def events_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(5_000_000)
+        start.record()
+        got = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), got
+
+    W, T = tools.ALU_WIDTH, tools.TIMING_THREADS
+    ones = torch.ones((8, W), dtype=torch.int32, device="cuda")
+    launches = {
+        f"A_roofline_(8,{W})_k8_2048x16": (
+            probes.vpu_doubling_cuda, probes.vpu_doubling_reference, ones,
+            dict(independent=True, n_iter=2048, k=8, inner=16)),
+        f"A_pass_cost_(8,{W})_one_chain_8192": (
+            probes.vpu_doubling_cuda, probes.vpu_doubling_reference, ones,
+            dict(independent=False, n_iter=1, k=1, inner=8192)),
+        f"reduce_(64,{T})_512_steps": (
+            probes_mem.sublane_reduce_cuda,
+            probes_mem.sublane_reduce_reference,
+            torch.ones((64, T), dtype=torch.int32, device="cuda"),
+            dict(n_iter=512)),
+    }
+    out = {"probe_launch_ms": {}, "probe_words_sha256": {}}
+    for key, (launcher, twin, x, kw) in launches.items():
+        want = twin(x, **kw)
+        times = []
+        for rep in range(4):  # the first loads the kernel: not kept
+            ms, got = events_ms(lambda: launcher(x, **kw))
+            if not torch.equal(got, want):
+                raise AssertionError(f"{key}: the kernel's words differ from "
+                                     f"the twin's")
+            if rep:
+                times.append(ms)
+        out["probe_launch_ms"][key] = times
+        out["probe_words_sha256"][key] = hashlib.sha256(
+            want.cpu().numpy().tobytes()).hexdigest()[:16]
+    with tempfile.TemporaryDirectory() as d:
+        for mod in (roofline, probe_slice):
+            name = mod.__name__.rsplit(".", 1)[1]
+            path = os.path.join(d, f"{name}.json")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = mod.main(["--quick", "--json", path])
+            out[f"{name}_quick_s"] = time.perf_counter() - t0
+            with open(path) as f:
+                res = json.load(f)
+            if rc != 0:
+                raise AssertionError(f"{name} --quick: rc {rc}, {res}")
+            if mod is roofline:
+                out["roofline_int32_add_ops_per_s"] = res[
+                    "int32_add_ops_per_s"]
+            else:
+                out["probe_slice_reduce"] = {
+                    k: v["result"] for k, v in res["probes"].items()
+                    if "reduce" in k}
+    return out
+
+
 # Variants of csrc/full3d_pallas.cu timed beside it (--only
 # full3d_pallas_variants): the attack test in int32, as the same identity
 # and as the JAX kernel's squared form (8 at distance 0, so the mover's own
@@ -517,13 +610,11 @@ def f3p_variant_source(text, attack=None, self_row=None, min_ctas=None):
     return text
 
 
-def pass_mix(so):
-    """``{L: {pipe: instructions a queen row}}`` of each instance of the
-    kernel in the library ``so``: its largest innermost loop (the pass, a
-    queen row one 32-bit word loaded), a loop being the instructions from
-    a backward branch's target to the branch (``cuobjdump -sass``)."""
-    import collections
-
+def hot_loops(so, kernel):
+    """``{first template argument: [opcodes]}`` of each instance of
+    ``kernel`` in the library ``so``: its largest innermost loop, a loop
+    being the instructions from a backward branch's target to the branch
+    (``cuobjdump -sass``)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     text = subprocess.run(
@@ -531,18 +622,18 @@ def pass_mix(so):
         capture_output=True, text=True, check=True, timeout=300).stdout
     funcs, cur = {}, None
     for line in text.splitlines():
-        m = re.search(r"Function : \S*full3d_pallas_kernelILi(\d+)E", line)
+        m = re.search(rf"Function : \S*{len(kernel)}{kernel}ILi(\d+)E", line)
         if m or "Function :" in line:
             cur = int(m.group(1)) if m else None
-            if cur:
+            if cur is not None:
                 funcs[cur] = []
             continue
         m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                       r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
-        if m and cur:
+        if m and cur is not None:
             funcs[cur].append((int(m.group(1), 16), m.group(2), m.group(3)))
     out = {}
-    for L, ins in sorted(funcs.items()):
+    for key, ins in sorted(funcs.items()):
         loops = []
         for addr, op, rest in ins:
             t = re.search(r"0x([0-9a-f]+)", rest)
@@ -551,7 +642,18 @@ def pass_mix(so):
         inner = [lp for lp in loops if not any(
             o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
         lo, hi = max(inner, key=lambda lp: lp[1] - lp[0])
-        body = [op for a, op, _ in ins if lo <= a <= hi]
+        out[key] = [op for a, op, _ in ins if lo <= a <= hi]
+    return out
+
+
+def pass_mix(so):
+    """``{L: {pipe: instructions a queen row}}`` of each instance of the
+    kernel in the library ``so``: its pass (the largest innermost loop, a
+    queen row one 32-bit word loaded)."""
+    import collections
+
+    out = {}
+    for L, body in hot_loops(so, "full3d_pallas_kernel").items():
         # A queen row is one 32-bit word: LDS.64 and LDS.128 load 2 and 4.
         rows = sum({"64": 2, "128": 4}.get(op.split(".")[-1], 1)
                    for op in body if op.startswith("LDS")) or 1
@@ -662,6 +764,175 @@ def full3d_pallas_variants():
     return out
 
 
+# Variants of kernel A (csrc/probe_alu.cu) timed beside it (--only
+# vpu_variants): the loop over inner restarted every iteration, as before
+# the loops were merged; every chain alternating its two forms along
+# itself; the IMAD without its runtime addend; 8 pairs a trip.  Each
+# computes the same words: the phase checks them against the committed
+# kernel's.
+_VPU_FLAT = """  const int total = n_iter * inner;
+  // doublings r - 1 and r (r odd); 16 trips unrolled: 32 doublings a
+  // chain, so the loop's own three instructions cost one chain under 10%
+#pragma unroll 16
+  for (int r = 1; r < total; r += 2) {
+    if constexpr (K == 1) {
+      acc[0] = double_add(acc[0], zero);
+      acc[0] = double_mad(acc[0], two, zero);
+    } else {
+      double_chains<K>(acc, two, zero);
+      double_chains<K>(acc, two, zero);
+    }
+  }
+  if (total & 1) {  // doubling total - 1, whose index is even
+    if constexpr (K == 1) {
+      acc[0] = double_add(acc[0], zero);
+    } else {
+      double_chains<K>(acc, two, zero);
+    }
+  }
+"""
+_VPU_NESTED = """  for (int t = 0; t < n_iter; ++t) {
+#pragma unroll 16
+    for (int r = 1; r < inner; r += 2) {
+      if constexpr (K == 1) {
+        acc[0] = double_add(acc[0], zero);
+        acc[0] = double_mad(acc[0], two, zero);
+      } else {
+        double_chains<K>(acc, two, zero);
+        double_chains<K>(acc, two, zero);
+      }
+    }
+    if (inner & 1) {
+      if constexpr (K == 1) {
+        acc[0] = double_add(acc[0], zero);
+      } else {
+        double_chains<K>(acc, two, zero);
+      }
+    }
+  }
+"""
+VPU_VARIANTS = {
+    "committed": {},
+    "nested loops": {_VPU_FLAT: _VPU_NESTED},
+    # half of each round in each form, every chain alternating along itself
+    "every chain alternating": {
+        """      double_chains<K>(acc, two, zero);
+      double_chains<K>(acc, two, zero);
+""": """#pragma unroll
+      for (int i = 0; i < K; i += 2) {
+        acc[i] = double_mad(acc[i], two, zero);
+        acc[i + 1] = double_add(acc[i + 1], zero);
+      }
+#pragma unroll
+      for (int i = 0; i < K; i += 2) {
+        acc[i] = double_add(acc[i], zero);
+        acc[i + 1] = double_mad(acc[i + 1], two, zero);
+      }
+"""},
+    # a * two: IMAD with RZ as its addend
+    "IMAD without addend": {'asm volatile("mad.lo.u32 %0, %0, %1, %2;"':
+                            'asm volatile("mul.lo.u32 %0, %0, %1;"'},
+    "8 pairs a trip": {"#pragma unroll 16\n  for (int r = 1; r < total":
+                       "#pragma unroll 8\n  for (int r = 1; r < total"},
+}
+
+
+def vpu_variants():
+    """Kernel A's variants (module docstring)."""
+    import collections
+    import ctypes
+
+    import torch
+
+    from mcqueens_torch import tools
+    from mcqueens_torch.kernels import _build
+
+    src = (_build.SOURCES[0].parent / "probe_alu.cu").read_text()
+    out_dir = _build.BUILD_DIR.parent / "vpu_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, swaps) in enumerate(VPU_VARIANTS.items()):
+        text = src
+        for old, new in swaps.items():
+            if text.count(old) != 1:
+                raise AssertionError(f"variant {name}: {old!r} not found "
+                                     f"once")
+            text = text.replace(old, new)
+        cu, so = out_dir / f"v{i}.cu", out_dir / f"v{i}.so"
+        cu.write_text(text)
+        procs[name] = so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    fns, out = {}, {"vpu_variants": {}}
+    for name, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+        fn = ctypes.CDLL(str(so)).mcq_probe_vpu
+        fn.argtypes = _build.ENTRY_POINTS["mcq_probe_vpu"]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+        loops = hot_loops(so, "vpu_probe_kernel")
+        out["vpu_variants"][name] = {
+            f"K={k}": {"opcodes": dict(collections.Counter(
+                op.split(".")[0] for op in body)),
+                       "first_32": " ".join(op.split(".")[0]
+                                            for op in body[:32])}
+            for k, body in loops.items()}
+
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    r = torch.randint(-2 ** 31, 2 ** 31, (8, 1024), dtype=torch.int32,
+                      device="cuda", generator=gen)
+    # under 32 doublings, so the random words do not wrap to 0
+    for k, n_iter, inner in ((8, 1, 19), (4, 3, 5), (1, 3, 5), (1, 1, 19)):
+        outs = {name: torch.empty_like(r) for name in VPU_VARIANTS}
+        for name, got in outs.items():
+            if fns[name](r.data_ptr(), got.data_ptr(), r.numel(), k, n_iter,
+                         inner, 2, 0, stream):
+                raise RuntimeError(f"variant {name}: launch failed")
+        torch.cuda.synchronize()
+        if not all(torch.equal(v, outs["committed"]) for v in outs.values()):
+            raise AssertionError(f"a variant's words differ at k={k}, "
+                                 f"n_iter={n_iter}, inner={inner}")
+
+    W = tools.ALU_WIDTH
+    x = torch.ones((8, W), dtype=torch.int32, device="cuda")
+    # name -> (chains, iterations, doublings an iteration), as
+    # probes.vpu_doubling_cuda passes them
+    launches = {f"roofline_(8,{W})_k8_2048x16": (8, 2048, 16),
+                f"roofline_dependent_(8,{W})_16384x16": (1, 16384, 16),
+                f"pass_cost_(8,{W})_one_chain_8192": (1, 1, 8192)}
+    order = [*VPU_VARIANTS, *reversed(VPU_VARIANTS)]
+    times = out["vpu_variant_ms"] = {}
+    for key, (k, n_iter, inner) in launches.items():
+        row = times[key] = {name: [] for name in VPU_VARIANTS}
+        want = None
+        # One untimed launch of each first: it loads the kernel.
+        for i, name in enumerate([*VPU_VARIANTS, *order]):
+            got = torch.empty_like(x)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(5_000_000)
+            start.record()
+            err = fns[name](x.data_ptr(), got.data_ptr(), x.numel(), k,
+                            n_iter, inner, 2, 0, stream)
+            end.record()
+            torch.cuda.synchronize()
+            if err:
+                raise RuntimeError(f"variant {name}: cudaError {err}")
+            want = got if want is None else want
+            if not torch.equal(got, want):
+                raise AssertionError(f"variant {name} on {key}: words "
+                                     f"differ from the committed kernel's")
+            if i >= len(VPU_VARIANTS):
+                row[name].append(start.elapsed_time(end))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True,
@@ -670,7 +941,8 @@ def main(argv=None):
     ap.add_argument("--json", default=None, help="also write the line here")
     ap.add_argument("--only", choices=["full3d", "metropolis",
                                        "full3d_pallas",
-                                       "full3d_pallas_variants"],
+                                       "full3d_pallas_variants", "probes",
+                                       "vpu_variants"],
                     default=None,
                     help="time only one kernel's phases")
     args = ap.parse_args(argv)
@@ -958,6 +1230,10 @@ def main(argv=None):
         out.update(full3d_pallas_phases())
     if args.only == "full3d_pallas_variants":
         out.update(full3d_pallas_variants())
+    if args.only == "probes":
+        out.update(probes_phases())
+    if args.only == "vpu_variants":
+        out.update(vpu_variants())
     line = json.dumps(out)
     print(line)
     if args.json:

@@ -93,7 +93,11 @@ def test_vpu_doubling_matches_jax(jax_output, independent):
 
 @pytest.mark.parametrize("independent,n_iter,k,inner", [
     (True, 1, 8, 3), (True, 2, 4, 5), (True, 1, 1, 31), (False, 1, 2, 7),
-    (False, 3, 1, 4)])
+    (False, 3, 1, 4),
+    # every instance in both modes at an odd inner (the kernel's last
+    # doubling outside its loop over pairs), and 19 (9 pairs, the last)
+    (True, 3, 1, 5), (True, 3, 4, 5), (True, 3, 8, 5), (True, 1, 8, 19),
+    (False, 1, 1, 3), (False, 1, 4, 3), (False, 1, 8, 3), (False, 1, 1, 19)])
 def test_vpu_doubling_closed_form(independent, n_iter, k, inner):
     # Before 32 doublings: sum over the accumulators of
     # (x + i) * 2^(doublings) mod 2^32.
@@ -167,6 +171,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     x = torch.ones((8, 16), dtype=torch.int32)
     with pytest.raises(ValueError):
         probes.vpu_doubling(x.to(torch.int64))
+    with pytest.raises(ValueError, match="2\\^31"):
+        probes.vpu_doubling(x, False, n_iter=2 ** 26, k=8, inner=4)
     with pytest.raises(ValueError):
         probes.attack_test(x, "production", k=3)
     with pytest.raises(ValueError):

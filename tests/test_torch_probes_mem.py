@@ -168,17 +168,20 @@ def test_add_cost_matches_jax(jax_output, S, L, n_iter):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("S,C,n_iter", [(1, 128, 3), (8, 128, 5),
-                                        (128, 8, 2)])
-def test_pass_cost_matches_jax(jax_output, S, C, n_iter):
+@pytest.mark.parametrize("S,C,n_iter,k", [
+    (1, 128, 3, 1), (8, 128, 5, 1), (128, 8, 2, 1),
+    # kernel A's dependent mode: one chain, k iterations of an odd inner
+    (8, 128, 3, 4), (8, 128, 3, 8)])
+def test_pass_cost_matches_jax(jax_output, S, C, n_iter, k):
     js = _js()
-    want = jax_output(js, js.pass_cost, S, C, n_iter=n_iter)
+    want = jax_output(js, js.pass_cost, S, C, n_iter=n_iter * k)
     got = probes.vpu_doubling(torch.ones((S, C), dtype=torch.int32), False,
-                              n_iter=1, k=1, inner=n_iter)
+                              n_iter=1, k=k, inner=n_iter)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("S,C,n_iter,k", [(8, 128, 3, 8), (16, 128, 2, 4)])
+@pytest.mark.parametrize("S,C,n_iter,k", [(8, 128, 3, 8), (16, 128, 2, 4),
+                                          (8, 128, 5, 1), (8, 128, 5, 4)])
 def test_independent_pass_cost_matches_jax(jax_output, S, C, n_iter, k):
     js = _js()
     want = jax_output(js, js.independent_pass_cost, S, C, n_iter=n_iter,
@@ -270,20 +273,27 @@ def test_slice_loop_closed_form_long_run():
 
 # -- 5j: the reduce -----------------------------------------------------------
 
-def test_sublane_reduce_matches_jax(jax_output):
+# Row counts at both of the kernel's instances' edges: in registers up to 64
+# rows, the staged strip above.
+REDUCE_ROWS = [1, 8, 63, 64, 65]
+
+
+@pytest.mark.parametrize("S", REDUCE_ROWS)
+def test_sublane_reduce_matches_jax(jax_output, S):
     js = _js()
-    want = jax_output(js, js.sublane_reduce_cost, 8, 128, n_iter=3)
-    got = probes_mem.sublane_reduce(torch.ones((8, 128), dtype=torch.int32),
+    want = jax_output(js, js.sublane_reduce_cost, S, 128, n_iter=3)
+    got = probes_mem.sublane_reduce(torch.ones((S, 128), dtype=torch.int32),
                                     n_iter=3)
     assert got.shape == (1, 128)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert (want == 584).all()
+    assert (want == S + S * S + S ** 3).all()  # 584 at S = 8
 
 
-def test_sublane_reduce_closed_form():
+@pytest.mark.parametrize("S", REDUCE_ROWS + [24])
+def test_sublane_reduce_closed_form(S):
     # acc <- sum(x) + S * acc per column, mod 2^32, on random words.
-    rs = np.random.default_rng(9)
-    S, C = 24, 40
+    rs = np.random.default_rng(9 + S)
+    C = 40
     x = rs.integers(-2 ** 31, 2 ** 31, size=(S, C)).astype(np.int32)
     acc = np.zeros(C, np.int64)
     col = x.astype(np.int64).sum(0)
@@ -292,6 +302,19 @@ def test_sublane_reduce_closed_form():
     got = probes_mem.sublane_reduce(_t(x), n_iter=6)
     np.testing.assert_array_equal(got.numpy()[0].astype(np.int64) % 2 ** 32,
                                   acc)
+
+
+def test_reduce_instance_by_rows():
+    # The launcher's template instance: S itself while the column fits the
+    # registers, 0 (the staged strip) above, up to the largest S a block's
+    # shared memory takes.
+    assert [probes_mem.reduce_instance(S) for S in range(1, 65)] == list(
+        range(1, 65))
+    assert probes_mem.REDUCE_REG_ROWS == 64
+    for S in (65, 256, 448):
+        assert probes_mem.reduce_instance(S) == 0
+        probes_mem._check_strip(torch.zeros((S, 8), dtype=torch.int32),
+                                probes_mem.REDUCE_COLS)
 
 
 # -- 5k: the PRNG draws -------------------------------------------------------
