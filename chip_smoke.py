@@ -32,14 +32,22 @@ and the script exits non-zero without printing a result:
    beside torch.gather, narrow_copy and index_fill, which compute the same
    words; the slice copy also at a C that is not a multiple of 4, on a view
    4 bytes past 16-byte alignment (its int32 path) and at the last legal
-   offset.  Every probe is checked through its public wrapper and timed
+   offset.  The gather chain also at indices that defeat a bank schedule
+   (all zeros, one bank, identity, permutations), and the PRNG draws at
+   1, 33 and 4097 steps, ragged word counts and steps wrapping past 2^32.
+   Every probe is checked through its public wrapper and timed
    through its launcher on the card alone (a spin kernel ahead of the
    launches, so no launch waits for the host).  A shared-memory kernel's
-   hot loop is its largest loop that touches no device memory.  A bound
+   hot loop is its largest loop that touches no device memory (the gather
+   chain's: one with a barrier).  A bound
    adds shared-memory bytes (32 banks x 4 B per SM per clock) to
-   device-memory bytes and int32 operations.  Each hot loop's instructions
-   are printed by pipe; kernel A's must issue at least 40% of its int32
-   instructions on each (IADD3 on the ALU pipe, IMAD on the FMA pipe).
+   device-memory bytes and int32 operations; the gather chain's prints the
+   bank schedule the card built beside it (instructions and wavefronts a
+   256-word row).  Each hot loop's instructions are printed by pipe; kernel
+   A's and the threefry draws' must issue at least 40% of their int32
+   instructions on each (IADD3, SHF, LOP3 on the ALU pipe, IMAD on the FMA
+   pipe).  The scan samplers' SASS digest is printed (the threefry probe
+   shares their header).
    Kernel A runs at every instance in both modes, with odd and even inner
    counts, and the reduce at both its instances (the column in registers
    up to 64 rows, the staged strip above); the reduce's bound counts the
@@ -1787,17 +1795,52 @@ def metropolis_table(bounds):
               f"of the kernel's time{shared_note(lay)}")
 
 
-def sass_loops():
-    """Innermost loops of each probe kernel instance in the built library
-    (``cuobjdump -sass``): ``{(kernel, template args): [Counter of the
-    opcodes of one loop body, ...]}``, a loop being the instructions from a
-    backward branch's target to the branch."""
+def sass_text():
+    """``cuobjdump -sass`` of the built kernel library."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    text = subprocess.run(
+    return subprocess.run(
         [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
          str(_build.library_path())],
         capture_output=True, text=True, check=True, timeout=300).stdout
+
+
+# The scan samplers' kernels, which include csrc/threefry.cuh: their SASS
+# digest is printed so that a change to the threefry code of the probes
+# can be shown to leave them as they were (pair_scan_slice.py --only probes
+# prints the same digest for two checkouts).
+SCAN_KERNELS = ("board_scan_kernel", "full3d_scan_kernel")
+
+
+def scan_sass_digest(text):
+    """sha256 (16 hex digits) of the instructions of every instance of the
+    scan kernels, and the number of instances.  A name is hashed from the
+    kernel's on (its template arguments): nvcc names an anonymous
+    namespace after the source's path, which differs between checkouts."""
+    import hashlib
+
+    h, n, keep = hashlib.sha256(), 0, False
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = next((k for k in SCAN_KERNELS if mangled(k) in m.group(1)),
+                     None)
+            keep = k is not None
+            n += keep
+            if keep:
+                h.update(m.group(1).split(mangled(k), 1)[1].encode())
+            continue
+        ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", line)
+        if keep and ins:
+            h.update(re.sub(r"_Z\w+", "_Z", ins.group(1)).encode())
+    return h.hexdigest()[:16], n
+
+
+def sass_loops(text):
+    """Innermost loops of each probe kernel instance in the built library
+    (``cuobjdump -sass`` text): ``{(kernel, template args): [Counter of the
+    opcodes of one loop body, ...]}``, a loop being the instructions from a
+    backward branch's target to the branch."""
     funcs, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -1831,16 +1874,21 @@ def sass_loops():
 
 
 # Evaluations one trip of each probe's hot loop makes, by its template
-# arguments: A and C unroll 32 and 8 doublings or ops of K chains, B one
-# trip of K chains, D one row against the 9 targets.
-LOOP_EVALS = {"vpu": lambda t: 32 * t[0], "test": lambda t: t[0],
-              "op": lambda t: 8 * t[0], "sweep": lambda t: 9,
-              # the gather chain: one step of E elements a thread; the slice
+# arguments and the loop's opcodes: A and C unroll 32 and 8 doublings or
+# ops of K chains, B one trip of K chains, D one row against the 9 targets.
+LOOP_EVALS = {"vpu": lambda t, b: 32 * t[0], "test": lambda t, b: t[0],
+              "op": lambda t, b: 8 * t[0], "sweep": lambda t, b: 9,
+              # the gather chain: one store per element and step (axis 0: a
+              # step of E elements a thread; axis 1: two steps of the
+              # schedule's slots, empty slots predicated off); the slice
               # loop and the staged reduce (ROWS = 0) unroll 16 rows, the
-              # register reduce walks its ROWS rows once a trip; one draw
-              # per trip
-              "gather_chain": lambda t: t[0], "slice_loop": lambda t: 16,
-              "reduce": lambda t: t[0] or 16, "prng": lambda t: 1}
+              # register reduce walks its ROWS rows once a trip; a step's
+              # draws, 1 word a thread (lowbias32) or 4 (threefry)
+              "gather_chain": lambda t, b: b["STS"],
+              "slice_loop": lambda t, b: 16,
+              "reduce": lambda t, b: t[0] or 16,
+              "prng": lambda t, b: probes_mem.PRNG_WORDS[
+                  probes_mem.PRNG_MODES[t[0]]]}
 # int32 operations of one evaluation as the TPU function writes it (each
 # elementwise jnp operation one, constant expressions none), the yardstick
 # of the samplers' bounds too:
@@ -1892,9 +1940,11 @@ NOT_INT32 = ("BRA", "EXIT", "NOP", "BSSY", "BSYNC", "BAR", "WARPSYNC", "LD",
 FMA_PIPE = ("IMAD", "FFMA", "FADD", "FMUL")
 MIO = ("LDS", "STS", "SHFL")
 # Kernel A's hot loop keeps both int32 pipes busy (half its doublings
-# IADD3, half IMAD): each pipe must issue at least this share of the loop's
-# int32 instructions.
+# IADD3, half IMAD), and so does the threefry draws' (part of each draw's
+# adds and rotates as IMAD): each pipe must issue at least this share of
+# the loop's int32 instructions.
 BOTH_PIPES = 0.4
+BOTH_PIPES_LOOPS = (("vpu", None), ("prng", "threefry"))
 
 
 def pipe_mix(body):
@@ -1942,7 +1992,10 @@ def hot_candidates(key, loops):
     8 global loads or stores a trip)."""
     if key not in SMEM_LOOPS:
         return loops
-    return [c for c in loops if not (c["LDG"] or c["STG"])]
+    loops = [c for c in loops if not (c["LDG"] or c["STG"])]
+    if key == "gather_chain":  # a step ends at a barrier (the schedule's
+        return [c for c in loops if c["BAR"]]  # build loops have none)
+    return loops
 
 
 def check_sass(loops):
@@ -1963,7 +2016,7 @@ def check_sass(loops):
                    key=lambda c: sum(c.values()))
         n_int = sum(v for op, v in body.items()
                     if not op.startswith(NOT_INT32))
-        evals = LOOP_EVALS[key](targs)
+        evals = LOOP_EVALS[key](targs, body)
         per = n_int / evals
         need = PROBE_OPS[key][instance_kind(key, targs)]
         mix = pipe_mix(body)
@@ -1979,7 +2032,8 @@ def check_sass(loops):
                                  f"instructions per evaluation, under half "
                                  f"the source's {need}: the loop was cut")
         least = min(mix["ALU"], mix["FMA"]) / max(1, mix["ALU"] + mix["FMA"])
-        if key == "vpu" and least < BOTH_PIPES:
+        if ((key, instance_kind(key, targs)) in BOTH_PIPES_LOOPS
+                and least < BOTH_PIPES):
             raise AssertionError(f"{name}<{targs}>: one int32 pipe issues "
                                  f"{least:.3f} of the hot loop, under "
                                  f"{BOTH_PIPES}")
@@ -2171,14 +2225,36 @@ def mem_cases(rs):
                       f" n_iter=3", (arange(S, L) % 7,
                                      index(2, L if axis == 1 else S, (S, L)),
                                      axis), dict(n_iter=3), False))
-    # ragged tiles, and every elements-per-thread instance (1, 2, 8, 16, 32,
-    # 4 in this order)
+    # ragged tiles, and every elements-per-thread instance on both axes
+    # (axis 1: 4, 4, 8, 16, 1, 2, 32, 32; axis 0: 32, 4, 1), odd and even
+    # step counts
     for S, L, axis in ((40, 100, 1), (6, 400, 1), (5, 2000, 1), (3, 4000, 1),
-                       (300, 45, 0), (32, 128, 0)):
-        cases.append(("gather_chain", f"gather chain random ({S},{L}) axis "
-                      f"{axis} n_iter=5", (rand(S, L), index(
-                          4, L if axis == 1 else S, (S, L)), axis),
-                      dict(n_iter=5), False))
+                       (1, 200, 1), (1, 500, 1), (2, 8000, 1), (3, 8192, 1),
+                       (300, 45, 0), (32, 128, 0), (8, 96, 0)):
+        for n in (4, 5):
+            cases.append(("gather_chain", f"gather chain random ({S},{L}) "
+                          f"axis {axis} n_iter={n} (e="
+                          f"{probes_mem.chain_tile(S, L, axis)[2]})",
+                          (rand(S, L), index(4, L if axis == 1 else S,
+                                             (S, L)), axis),
+                          dict(n_iter=n), False))
+    # indices that defeat a bank schedule: every element gathering one word,
+    # every source in one bank, the identity, a permutation of each row
+    for S, L, axis in ((16, 256, 1), (3, 4000, 1), (32, 128, 0)):
+        n_src = L if axis == 1 else S
+        rg = np.random.default_rng(5)
+        for name, a in (
+                ("all zeros", np.zeros((S, L))),
+                ("one bank", 32 * rg.integers(0, n_src // 32, (S, L))),
+                ("identity", np.broadcast_to(np.arange(L), (S, L)) if axis == 1
+                 else np.broadcast_to(np.arange(S)[:, None], (S, L))),
+                ("permutation", np.stack([rg.permutation(L) for _ in range(S)])
+                 if axis == 1 else np.stack([rg.permutation(S)
+                                             for _ in range(L)], 1))):
+            cases.append(("gather_chain", f"gather chain {name} ({S},{L}) "
+                          f"axis {axis} n_iter=5",
+                          (rand(S, L), cuda(a.astype(np.int32)), axis),
+                          dict(n_iter=5), False))
     cases += [
         ("gather_chain", f"gather chain ({T // 256},256) axis 1 n_iter=512",
          (arange(T // 256, 256) % 7, big_index(256, (T // 256, 256)), 1),
@@ -2256,6 +2332,14 @@ def mem_cases(rs):
             cases.append((key, f"5k prng {mode} ({R},1024) n_iter=4096",
                           ((R, 1024), mode),
                           dict(n_iter=4096, device="cuda"), False))
+        # a step count that is not a multiple of the key chunk (128), ragged
+        # word counts, and steps wrapping past 2^32
+        for shape, n, step0 in (((3, 333), 1, 9), ((1, 1000), 33, 9),
+                                ((5, 77), 4097, 9), ((7, 513), 33, 2 ** 32 - 17),
+                                ((2, 1024), 300, 2 ** 32 - 200)):
+            cases.append((key, f"prng {mode} {shape} n_iter={n} step0={step0}",
+                          (shape, mode), dict(n_iter=n, device="cuda",
+                                              step0=step0), False))
         cases.append((key, f"prng {mode} (8,{W}) n_iter=512", ((8, W), mode),
                       dict(n_iter=512, device="cuda"), True))
     return cases
@@ -2327,6 +2411,42 @@ def reduce_staging_note(inputs, kw, bounds, kernel_ms):
     return (f"old yardstick, the staged kernel's shared-memory words: "
             f"{staged:.4e} B -> {ms:.4f} ms = {ms / kernel_ms:.3f} of the "
             f"kernel's {kernel_ms:.4f} ms")
+
+
+def chain_schedule_note(inputs, kw, bounds, kernel_ms):
+    """The bank schedule the kernel built on the card for these inputs (axis
+    1): instructions and shared-memory wavefronts a 256-word row, against
+    8 and 16 with no conflict; 0 for axis 0, which has none."""
+    x, idx, axis = inputs
+    if axis != 1:
+        return "axis 0: no schedule (a lane a column, one bank each)"
+    S, L = x.shape
+    rows, _, e = probes_mem.chain_tile(S, L, axis)
+    sched = torch.empty((-(-S // rows), probes_mem.chain_instructions(e),
+                         32), dtype=torch.int32, device="cuda")
+    probes_mem.launch_chain(probes._lib(), x, idx, torch.empty_like(x), axis,
+                            n_iter=1, schedule=sched,
+                            stream=torch.cuda.current_stream().cuda_stream)
+    sc = sched.cpu().numpy().view(np.uint32)
+    live = sc != 0xFFFFFFFF
+    src = np.where(live, sc & 0xFFFF, 0xFFFFFFFF).astype(np.int64)
+    # load wavefronts of an instruction: the most distinct words in a bank
+    loads = 0
+    for blk, lv in zip(src, live):
+        for ins, m in zip(blk, lv):
+            if m.any():
+                u = np.unique(ins[m])
+                loads += int(np.bincount(u % 32, minlength=32).max())
+    n_instr = int(live.any(-1).sum())
+    if live.sum() != S * L:
+        raise AssertionError(f"the schedule holds {int(live.sum())} "
+                             f"elements, not {S * L}")
+    rows_256 = S * L / 256
+    return (f"the card's bank schedule: {n_instr / rows_256:.3f} "
+            f"instructions a 256-word row (8 with no conflict), "
+            f"{(loads + n_instr) / rows_256:.3f} wavefronts (16), "
+            f"{loads - n_instr} load conflicts in all; model share "
+            f"{16 * rows_256 / (loads + n_instr):.3f}")
 
 
 def prng_work(inputs, kw):
@@ -2415,7 +2535,7 @@ PROBES = {
         "gather_chain_probe_kernel", _GATHER_CU, "tools/probe_gather.py:84",
         (probes_mem.gather_chain, probes_mem.gather_chain_cuda,
          probes_mem.gather_chain_reference), chain_work, ops="gather_chain",
-        smem=True),
+        smem=True, note=chain_schedule_note),
     "vpu_mem": probe_row(
         "vpu_probe_kernel (add, pass and independent pass costs)", _ALU_CU,
         "tools/probe_gather.py:114", _A, alu_work("vpu"), ops="vpu",
@@ -2716,7 +2836,11 @@ def main():
 
     # 3a. the probe kernels vs their twins --------------------------------
     with timed("compare probes"):
-        check_sass(sass_loops())
+        text = sass_text()
+        digest, n_scan = scan_sass_digest(text)
+        phase("sass", f"scan samplers ({', '.join(SCAN_KERNELS)}): "
+              f"{n_scan} instances, SASS sha256 {digest}")
+        check_sass(sass_loops(text))
         probe_rows = probe_compare(probe_cases(np.random.default_rng(11))
                                    + mem_cases(np.random.default_rng(13)))
         probe_scaling(probe_rows)

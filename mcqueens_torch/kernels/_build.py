@@ -41,11 +41,11 @@ ENTRY_POINTS = {
     "mcq_probe_test": [_P] * 2 + [_I] * 7 + [_P],
     "mcq_probe_sweep": [_P] * 4 + [_I] * 4 + [_P],
     "mcq_probe_gather": [_P] * 3 + [_I] * 4 + [_P],
-    "mcq_probe_gather_chain": [_P] * 3 + [_I] * 7 + [_P],
+    "mcq_probe_gather_chain": [_P] * 4 + [_I] * 7 + [_P],
     "mcq_probe_slice": [_P] * 3 + [_I] * 5 + [_P],
     "mcq_probe_slice_loop": [_P] * 2 + [_I] * 5 + [_P],
     "mcq_probe_reduce": [_P] * 2 + [_I] * 5 + [_P],
-    "mcq_probe_prng": [_P] + [_I] * 5 + [_P],
+    "mcq_probe_prng": [_P] + [_I] * 6 + [_P],
 }
 # Shared memory one block may opt into on the H100 (sm_90), an SM's
 # shared memory, and what the card reserves of it for each resident block.

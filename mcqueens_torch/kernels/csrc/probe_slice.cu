@@ -53,9 +53,25 @@
 // instance ROWS = 0 stages x's (S, 128) strip in shared memory and each step
 // walks the S rows there, each x_s tied to acc through a runtime zero (the
 // wrapper passes 0): x_s ^ (acc & zero) is x_s, one LOP3.  The wrapper picks
-// the instance from S (probes_mem.reduce_instance).  The PRNG
-// kernel is one thread per word, its draw loop over a runtime n_iter.  Every
-// count, offset and width is a runtime argument; all arithmetic is uint32_t.
+// the instance from S (probes_mem.reduce_instance).  The lowbias32 draws
+// are one thread per word, the draw loop over a runtime n_iter.  The
+// threefry draws share each step's key, fold_in(key(seed), step0 + t), the
+// same for every word: a block hashes the keys of a chunk of kKeyChunk
+// steps once, one step a thread, into shared memory with the per-step
+// constants of the draw's hash (k2 = k0 ^ k1 ^ 0x1BD11BDA and the key
+// injections' addends), and each step every thread reads them as two
+// broadcast 16-byte loads and draws kDrawWords words under them: four
+// independent hash chains a thread.  A round is an add, a rotate (SHF)
+// and a xor (LOP3); the rotate and the xor can only issue on the ALU pipe,
+// so tf_draw puts every add and key injection on the FMA pipe, as kernel A
+// does (csrc/probe_alu.cu): IMAD with a runtime multiplier `one` (the
+// wrapper passes 1), which ptxas cannot fold back into an IADD3.  Left to
+// itself ptxas issued about half the adds as IADD3, 46.5 ALU-pipe
+// instructions a draw against 42.5.  kFmaAdds, kFmaRotates and
+// kFmaInjections choose each round's forms (a rotate as IMAD.SHL and IMAD.HI
+// by a runtime 2^r was slower on the card).  mcq::hash in threefry.cuh,
+// which the scan samplers call, is unchanged.  Every count, offset and
+// width is a runtime argument; all arithmetic is uint32_t.
 // The strips' fill and drain unroll 8 rows, so each thread keeps 8 loads in
 // flight (one at a time left the fill at 7 warps per SM latency-bound, a
 // fixed cost as large as 500 steps of the loop), and the row loops over a
@@ -199,13 +215,18 @@ __global__ void __launch_bounds__(kLoopCols) slice_loop_probe_kernel(
   }
 }
 
-// s + x + acc: one IADD3 that LLVM cannot reassociate.
+// s + x + acc: one IADD3 that LLVM cannot reassociate.  (Host C++, as the
+// emulation builds this file, has no PTX: there it is the plain sum.)
 __device__ __forceinline__ uint32_t add_row(uint32_t s, uint32_t x,
                                            uint32_t acc) {
+#ifdef __CUDA_ARCH__
   asm volatile("add.u32 %0, %0, %1;\n\tadd.u32 %0, %0, %2;"
                : "+r"(s)
                : "r"(x), "r"(acc));
   return s;
+#else
+  return s + x + acc;
+#endif
 }
 
 // ROWS = S in 1..kReduceRegRows: the column in registers; ROWS = 0: x's
@@ -284,14 +305,138 @@ __device__ __forceinline__ uint32_t lowbias32(uint32_t z) {
   return z ^ (z >> 16);
 }
 
+// a * b + c, b a runtime value: one IMAD (FMA pipe).
+__device__ __forceinline__ uint32_t mad_lo(uint32_t a, uint32_t b,
+                                          uint32_t c) {
+#ifdef __CUDA_ARCH__
+  uint32_t d;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+#else
+  return a * b + c;
+#endif
+}
+
+// rotl(x, r) as x * 2^r | umulhi(x, 2^r), pow2 = 2^r a runtime value: IMAD.SHL
+// and IMAD.HI (FMA pipe); the | folds into the round's xor (one LOP3).
+__device__ __forceinline__ uint32_t rotl_mul(uint32_t x, uint32_t pow2) {
+#ifdef __CUDA_ARCH__
+  uint32_t lo, hi;
+  asm("mul.lo.u32 %0, %1, %2;" : "=r"(lo) : "r"(x), "r"(pow2));
+  asm("mul.hi.u32 %0, %1, %2;" : "=r"(hi) : "r"(x), "r"(pow2));
+  return lo | hi;
+#else
+  return x * pow2 | __umulhi(x, pow2);
+#endif
+}
+
+// The rounds of the threefry draws whose add (kFmaAdds) or rotate
+// (kFmaRotates) issues on the FMA pipe, bit r for round r; a clear bit
+// leaves it to ptxas (an add as IADD3 or IMAD, a rotate as SHF on the ALU
+// pipe).  kFmaInjections puts the key injections on the FMA pipe too, x0's
+// apart from the next round's add; else x0 += k and that add are one IADD3.
+// On the card every rotate put on the FMA pipe (IMAD.SHL + IMAD.HI) made
+// the draws slower, whatever it took off the ALU pipe (`pair_scan_slice.py
+// --only prng_variants`), so the rotates stay SHF.
+constexpr uint32_t kFmaAdds = 0xFFFFFu;
+constexpr uint32_t kFmaRotates = 0u;
+constexpr bool kFmaInjections = true;
+constexpr int kDrawWords = 4;  // threefry words a thread
+constexpr int kKeyChunk = kPrngThreads;  // steps whose keys a block hashes
+
+// The rotation of round r (threefry.cuh's MCQ_TF_ROUND amounts).
+__host__ __device__ constexpr int tf_rot(int r) {
+  return r % 8 == 0   ? 13
+         : r % 8 == 1 ? 15
+         : r % 8 == 2 ? 26
+         : r % 8 == 3 ? 6
+         : r % 8 == 4 ? 17
+         : r % 8 == 5 ? 29
+         : r % 8 == 6 ? 16
+                      : 24;
+}
+
+__device__ __forceinline__ uint32_t add_fma(uint32_t a, uint32_t b, bool fma,
+                                           uint32_t one) {
+  return fma ? mad_lo(a, one, b) : a + b;
+}
+
+// x0 + k + x1 at an injection round: one IADD3, or with kFmaInjections
+// x0 + k as IMAD and the round's add as its kFmaAdds bit says.
+__device__ __forceinline__ uint32_t inject(uint32_t x0, uint32_t k,
+                                          uint32_t x1, bool fma_add,
+                                          uint32_t one) {
+  return kFmaInjections ? add_fma(mad_lo(x0, one, k), x1, fma_add, one)
+                        : x0 + k + x1;
+}
+
+// Round R of the 20: x0 += x1; x1 = rotl(x1, r) ^ x0.
+template <int R>
+__device__ __forceinline__ void tf_round(uint32_t& x0, uint32_t& x1,
+                                         uint32_t one, const uint32_t* pow2) {
+  constexpr bool fma_add = kFmaAdds >> R & 1;
+  constexpr bool fma_rot = kFmaRotates >> R & 1;
+  x0 = add_fma(x0, x1, fma_add, one);
+  const uint32_t r =
+      fma_rot ? rotl_mul(x1, pow2[R % 8]) : mcq::rotl(x1, tf_rot(R));
+  x1 = r ^ x0;
+}
+
+// Rounds 4 g + 1 .. 4 g + 3 after the first of group g.
+template <int G>
+__device__ __forceinline__ void tf_group_tail(uint32_t& x0, uint32_t& x1,
+                                              uint32_t one,
+                                              const uint32_t* pow2) {
+  tf_round<4 * G + 1>(x0, x1, one, pow2);
+  tf_round<4 * G + 2>(x0, x1, one, pow2);
+  tf_round<4 * G + 3>(x0, x1, one, pow2);
+}
+
+// x0 ^ x1 of threefry2x32 of the counter (0, e) under a step's key, from its
+// words a = (k0, k1, k2, k2 + 1) and b = (k0 + 2, k1 + 3, k2 + 4, k0 + 5):
+// mcq::hash(k, e), with each round's pipe chosen as above.
+__device__ __forceinline__ uint32_t tf_draw(uint32_t e, const uint4& a,
+                                           const uint4& b, uint32_t one,
+                                           const uint32_t* pow2) {
+  constexpr bool fi = kFmaInjections;
+  uint32_t x1 = e + a.y;
+  uint32_t x0 = add_fma(x1, a.x, kFmaAdds & 1, one);  // round 0: k0 + x1
+  uint32_t r = (kFmaRotates & 1) ? rotl_mul(x1, pow2[0]) : mcq::rotl(x1, 13);
+  x1 = r ^ x0;
+  tf_group_tail<0>(x0, x1, one, pow2);
+  // each injection: x1 += its addend; x0 += k and the next round's add
+  x1 = add_fma(x1, a.w, fi, one);
+  x0 = inject(x0, a.y, x1, kFmaAdds >> 4 & 1, one);
+  x1 = (kFmaRotates >> 4 & 1 ? rotl_mul(x1, pow2[4]) : mcq::rotl(x1, 17)) ^ x0;
+  tf_group_tail<1>(x0, x1, one, pow2);
+  x1 = add_fma(x1, b.x, fi, one);
+  x0 = inject(x0, a.z, x1, kFmaAdds >> 8 & 1, one);
+  x1 = (kFmaRotates >> 8 & 1 ? rotl_mul(x1, pow2[0]) : mcq::rotl(x1, 13)) ^ x0;
+  tf_group_tail<2>(x0, x1, one, pow2);
+  x1 = add_fma(x1, b.y, fi, one);
+  x0 = inject(x0, a.x, x1, kFmaAdds >> 12 & 1, one);
+  x1 = (kFmaRotates >> 12 & 1 ? rotl_mul(x1, pow2[4]) : mcq::rotl(x1, 17)) ^
+       x0;
+  tf_group_tail<3>(x0, x1, one, pow2);
+  x1 = add_fma(x1, b.z, fi, one);
+  x0 = inject(x0, a.y, x1, kFmaAdds >> 16 & 1, one);
+  x1 = (kFmaRotates >> 16 & 1 ? rotl_mul(x1, pow2[0]) : mcq::rotl(x1, 13)) ^
+       x0;
+  tf_group_tail<4>(x0, x1, one, pow2);
+  return add_fma(x0, a.z, fi, one) ^ add_fma(x1, b.w, fi, one);
+}
+
+// MODE 0 (lowbias32): one thread per word.  MODE 1 (threefry): kDrawWords
+// words a thread, w = block base + threadIdx.x + j * kPrngThreads; the
+// steps' keys a chunk at a time in shared memory (two uint4 a step).
 template <int MODE>
 __global__ void __launch_bounds__(kPrngThreads) prng_probe_kernel(
     int32_t* __restrict__ out, int n, int n_iter, uint32_t seed,
-    uint32_t step0) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  uint32_t acc = 0;
-  if (MODE == 0) {
+    uint32_t step0, uint32_t one) {
+  if constexpr (MODE == 0) {
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= n) return;
+    uint32_t acc = 0;
     const uint32_t s = seed + (uint32_t)e;
     const uint32_t g = s * kChainK + lowbias32(s);
 #pragma unroll 1
@@ -301,16 +446,42 @@ __global__ void __launch_bounds__(kPrngThreads) prng_probe_kernel(
       const uint32_t w1 = lowbias32(base + kW1K);
       acc += w0 + w1;
     }
+    out[e] = (int32_t)acc;
   } else {
+    extern __shared__ uint4 step_keys[];  // (kKeyChunk, 2)
+    const int tid = threadIdx.x;
+    const uint32_t e0 = blockIdx.x * (kPrngThreads * kDrawWords) + tid;
+    uint32_t pow2[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) pow2[i] = one << tf_rot(i);
+    uint32_t acc[kDrawWords] = {};
     const mcq::Key root = {0u, seed};
+    for (int c0 = 0; c0 < n_iter; c0 += kKeyChunk) {
+      if (c0 > 0) __syncthreads();  // the last chunk's keys are read
+      if (c0 + tid < n_iter) {
+        const mcq::Key k = mcq::hash(root, step0 + (uint32_t)(c0 + tid));
+        const uint32_t k2 = k.k0 ^ k.k1 ^ 0x1BD11BDAu;
+        step_keys[2 * tid] = make_uint4(k.k0, k.k1, k2, k2 + 1u);
+        step_keys[2 * tid + 1] =
+            make_uint4(k.k0 + 2u, k.k1 + 3u, k2 + 4u, k.k0 + 5u);
+      }
+      __syncthreads();
+      const int steps = min(kKeyChunk, n_iter - c0);
 #pragma unroll 1
-    for (int t = 0; t < n_iter; ++t) {
-      const mcq::Key k = mcq::hash(root, step0 + (uint32_t)t);
-      const mcq::Key b = mcq::hash(k, (uint32_t)e);
-      acc += b.k0 ^ b.k1;
+      for (int s = 0; s < steps; ++s) {
+        const uint4 a = step_keys[2 * s], b = step_keys[2 * s + 1];
+#pragma unroll
+        for (int j = 0; j < kDrawWords; ++j) {
+          acc[j] += tf_draw(e0 + j * kPrngThreads, a, b, one, pow2);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kDrawWords; ++j) {
+      const uint32_t e = e0 + j * kPrngThreads;
+      if (e < (uint32_t)n) out[e] = (int32_t)acc[j];
     }
   }
-  out[e] = (int32_t)acc;
 }
 
 int set_smem(const void* kernel, int bytes) {
@@ -381,16 +552,27 @@ extern "C" int mcq_probe_reduce(const void* x, void* out, int S, int C,
 }
 
 // The PRNG draws on `stream`: out holds n int32 words; mode 0 lowbias32,
-// 1 threefry; returns cudaErrorInvalidValue for another mode.
+// 1 threefry; one must be 1 (the FMA-pipe rounds' runtime multiplier);
+// returns cudaErrorInvalidValue for another mode.
 extern "C" int mcq_probe_prng(void* out, int n, int mode, int n_iter,
-                              int seed, int step0, void* stream) {
-  const int blocks = (n + kPrngThreads - 1) / kPrngThreads;
+                              int seed, int step0, int one, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   int32_t* o = (int32_t*)out;
   switch (mode) {
-    case 0: prng_probe_kernel<0><<<blocks, kPrngThreads, 0, s>>>(o, n, n_iter, (uint32_t)seed, (uint32_t)step0); break;
-    case 1: prng_probe_kernel<1><<<blocks, kPrngThreads, 0, s>>>(o, n, n_iter, (uint32_t)seed, (uint32_t)step0); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 0:
+      prng_probe_kernel<0><<<(n + kPrngThreads - 1) / kPrngThreads,
+                             kPrngThreads, 0, s>>>(
+          o, n, n_iter, (uint32_t)seed, (uint32_t)step0, (uint32_t)one);
+      break;
+    case 1: {
+      constexpr int words = kPrngThreads * kDrawWords;
+      prng_probe_kernel<1><<<(n + words - 1) / words, kPrngThreads,
+                             2 * kKeyChunk * (int)sizeof(uint4), s>>>(
+          o, n, n_iter, (uint32_t)seed, (uint32_t)step0, (uint32_t)one);
+      break;
+    }
+    default:
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Host emulation of the CUDA runtime and warp intrinsics that the warp
 // kernels use (board_scan.cu, full3d_scan.cu, board_shared.cu,
-// full3d_shared.cu, metropolis.cu, full3d_pallas.cu), so that a kernel's
+// full3d_shared.cu, metropolis.cu, full3d_pallas.cu) and the gather and
+// slice probes (probe_gather.cu, probe_slice.cu), so that a kernel's
 // logic can be run and checked on a machine without a GPU or nvcc.  Built
 // with g++ -std=c++20 -pthread by mcqueens_torch/kernels/host_emulation.py,
 // which puts this directory first on the include path (so the sources'
@@ -40,9 +41,13 @@
 // that reads what another thread stored after the last such barrier they
 // share sees the old value every time, and two threads that store
 // different values to one byte between barriers are a race, which the
-// launch reports (cudaGetLastError, and a line on stderr).  Not emulated:
-// warp masks other than the full one, the device's expf rounding (the
-// host's expf is used).
+// launch reports (cudaGetLastError, and a line on stderr).  A 32-bit
+// atomicAdd or atomicOr on shared memory acts on the block's memory at once
+// in both models (as the card's shared-memory atomics do), and in the
+// delayed one also on the calling thread's copy; another thread sees it
+// after their next common barrier.  Not emulated: warp masks other than
+// the full one, the device's expf rounding (the host's expf is used), the
+// cache hints of __ldcs and __stcs.
 
 #pragma once
 
@@ -96,10 +101,32 @@ inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline long long min(long long a, long long b) { return a < b ? a : b; }
 inline long long max(long long a, long long b) { return a > b ? a : b; }
+inline unsigned min(unsigned a, unsigned b) { return a < b ? a : b; }
+inline unsigned max(unsigned a, unsigned b) { return a > b ? a : b; }
 
 struct uint4 {
   unsigned x, y, z, w;
 };
+
+struct int4 {
+  int x, y, z, w;
+};
+
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return {x, y, z, w};
+}
+
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+
+template <typename T>
+T __ldcs(const T* p) {
+  return *p;
+}
+
+template <typename T>
+void __stcs(T* p, T v) {
+  *p = v;
+}
 
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return (unsigned)(((unsigned long long)a * b) >> 32);
@@ -227,6 +254,30 @@ inline void publish(unsigned lo, unsigned hi) {
 }
 
 inline Warp& my_warp() { return *block->warps[threadIdx.x / 32]; }
+
+// *p = f(*p) for a word of shared (or device) memory; returns the old
+// word.  In the delayed model p lies in the calling thread's copy: the
+// block's word is the one updated, and the copy and its base take it.
+template <typename F>
+unsigned atomic_rmw(unsigned* p, F f) {
+  Block* b = block;
+  if (b && !b->views.empty()) {
+    uint8_t* view = b->views[threadIdx.x].data();
+    const size_t k = (size_t)((uint8_t*)p - view);
+    if ((uint8_t*)p >= view && k + 4 <= b->smem.size()) {
+      unsigned old, nu;
+      memcpy(&old, &b->smem[k], 4);
+      nu = f(old);
+      memcpy(&b->smem[k], &nu, 4);
+      memcpy(view + k, &nu, 4);
+      memcpy(b->bases[threadIdx.x].data() + k, &nu, 4);
+      return old;
+    }
+  }
+  const unsigned old = *p;
+  *p = f(old);
+  return old;
+}
 
 // Publish this lane's word, wait for the warp; returns the bank to read.
 inline uint64_t* exchange(uint64_t bits) {
@@ -409,6 +460,12 @@ inline int __reduce_max_sync(unsigned, int v) { return emu::reduce_max(v); }
 inline int __any_sync(unsigned, int p) { return emu::any(p != 0); }
 inline unsigned __ballot_sync(unsigned, int p) { return emu::ballot(p != 0); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return emu::atomic_rmw(p, [v](unsigned o) { return o + v; });
+}
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return emu::atomic_rmw(p, [v](unsigned o) { return o | v; });
+}
 inline void __syncthreads() {
   emu::block->bar.wait(emu::publish, 0, blockDim.x);
 }

@@ -2,8 +2,9 @@
 GPU.
 
 :func:`load` compiles ``csrc/board_scan.cu``, ``csrc/full3d_scan.cu``,
-``csrc/board_shared.cu``, ``csrc/full3d_shared.cu``, ``csrc/metropolis.cu``
-and ``csrc/full3d_pallas.cu`` with ``g++ -std=c++20 -pthread`` against
+``csrc/board_shared.cu``, ``csrc/full3d_shared.cu``, ``csrc/metropolis.cu``,
+``csrc/full3d_pallas.cu``, ``csrc/probe_gather.cu`` and
+``csrc/probe_slice.cu`` with ``g++ -std=c++20 -pthread`` against
 ``emu/cuda_runtime.h`` (one OS thread per CUDA thread, the warp intrinsics
 and ``__syncthreads`` over barriers) into one shared library with the same
 C entry points as the CUDA library, and loads it with ``ctypes``.  The
@@ -18,16 +19,20 @@ same argument checks and layout rule as a launch on the card::
     metropolis_pallas.launch_segment(lib, st, step0, n_inner, spec, beta,
                                      n_sm=2)
     full3d_pallas.launch_segment(lib, st, step0, n_inner, spec, beta, n_sm=2)
+    probes_mem.launch_chain(lib, x, idx, out, axis, n_iter=n_iter)
+    probes_mem.launch_prng(lib, out, mode, n_iter=n_iter)
 
 The library goes to ``build/mcqueens_torch/host/``, named by a hash of the
 sources, the header and the flags.  A source is the ``.cu`` file with its
 kernel launches and ``extern __shared__`` arrays rewritten (the only CUDA
-syntax g++ cannot parse).  ``tests/test_torch_scan_emulation.py``,
+syntax g++ cannot parse; inline PTX stands under ``#ifdef __CUDA_ARCH__``
+with its plain C++ beside it).  ``tests/test_torch_scan_emulation.py``,
 ``tests/test_torch_shared_emulation.py``,
 ``tests/test_torch_full3d_shared_emulation.py``,
-``tests/test_torch_metropolis_emulation.py`` and
-``tests/test_torch_full3d_pallas_emulation.py`` hold the emulated kernels
-bitwise against their plain-torch twins.
+``tests/test_torch_metropolis_emulation.py``,
+``tests/test_torch_full3d_pallas_emulation.py`` and
+``tests/test_torch_probes_emulation.py`` hold the emulated kernels bitwise
+against their plain-torch twins.
 """
 
 from __future__ import annotations
@@ -45,15 +50,17 @@ from mcqueens_torch.kernels import _build
 EMU_DIR = _build._PKG / "emu"
 SOURCES = tuple(_build._PKG / "csrc" / f"{name}.cu"
                 for name in ("board_scan", "full3d_scan", "board_shared",
-                             "full3d_shared", "metropolis", "full3d_pallas"))
+                             "full3d_shared", "metropolis", "full3d_pallas",
+                             "probe_gather", "probe_slice"))
 BUILD_DIR = _build.BUILD_DIR / "host"
 CXX_FLAGS = ("-std=c++20", "-O1", "-pthread", "-fPIC", "-shared",
              "-ffp-contract=off", "-w")
 ENTRY_POINTS = ("mcq_board_scan_segment", "mcq_full3d_scan_segment",
                 "mcq_board_shared_segment", "mcq_full3d_shared_segment",
-                "mcq_metropolis_segment", "mcq_full3d_pallas_segment")
+                "mcq_metropolis_segment", "mcq_full3d_pallas_segment",
+                "mcq_probe_gather_chain", "mcq_probe_prng")
 
-_LAUNCH = re.compile(r"(\w+)<<<([^>]*)>>>\(([^;]*)\);")
+_LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<([^>]*)>>>\(([^;]*)\);")
 _SHARED = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
 
 

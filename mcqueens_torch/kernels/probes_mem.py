@@ -33,7 +33,8 @@ int32 wrap-around arithmetic:
       - ``"threefry"``: ``rng.random_bits(rng.fold_in(rng.key(7), 9 + t),
         shape)[e]`` (:mod:`mcqueens_torch.core.rng`, ``csrc/threefry.cuh``),
 
-    7 and 9 being the TPU kernel's ``prng_seed(7, 9)``.
+    7 and 9 being the TPU kernel's ``prng_seed(7, 9)``; the steps ``9 + t``
+    wrap modulo 2^32, and a caller may start them elsewhere (``step0``).
 
 The other three, ``add_cost``, ``pass_cost`` and ``independent_pass_cost``,
 compute kernel A's function: the tools call :func:`.probes.vpu_doubling`
@@ -41,7 +42,10 @@ with every doubling in its unrolled inner loop (``n_iter=1, inner=n``).
 
 Each wrapper takes the plain-torch twin (``*_reference``) for CPU tensors and
 launches the CUDA kernel (``*_cuda``) for CUDA tensors, with no fallback
-between them, and counts its launches in :data:`LAUNCHES`.  The wrappers
+between them, and counts its launches in :data:`LAUNCHES`.
+:func:`launch_chain` and :func:`launch_prng` call a kernel library's entry
+point, the CUDA one or its host emulation
+(:mod:`mcqueens_torch.kernels.host_emulation`, CPU tensors).  The wrappers
 refuse what the JAX tools never make and the kernels do not take: an index
 outside the gathered axis, an offset or width that runs past the rows.
 Checking an
@@ -51,6 +55,7 @@ device; the ``*_cuda`` functions launch without them.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -68,12 +73,17 @@ CHAIN_THREADS = 256
 CHAIN_ES = (1, 2, 4, 8, 16, 32)  # the gather chain's template instances
 CHAIN_MAX_TILE = CHAIN_THREADS * CHAIN_ES[-1]
 CHAIN_STRIP = 32  # columns of an axis-0 tile
+# Words of whole rows an axis-1 tile takes at most: the bank schedule packs
+# a larger tile closer to 32 distinct banks an instruction.
+CHAIN_ROW_TILE = 1024
 LOOP_COLS = 32  # the slice loop's columns per block
 REDUCE_COLS = 128  # the reduce's columns per block
 REDUCE_REG_ROWS = 64  # rows of a column the reduce holds in registers
 SLICE_STRIDE = 16  # the TPU loop's row step
 PRNG_MODES = ("lowbias32", "threefry")
 PRNG_SEED, PRNG_STEP0 = 7, 9  # the TPU kernel's prng_seed(7, 9)
+# Words a thread draws under each step's key (threefry; lowbias32 draws 1).
+PRNG_WORDS = {"lowbias32": 1, "threefry": 4}
 # Draws the PRNG twin makes at once (steps x words), which bounds its memory.
 _TWIN_BLOCK_WORDS = 1 << 24
 
@@ -142,10 +152,10 @@ def gather(x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
 
 def chain_tile(S: int, L: int, axis: int) -> tuple[int, int, int]:
     """(tile rows, tile columns, elements per thread) of a gather-chain
-    block: whole rows on axis 1 (as many as fill 256 threads), all ``S`` rows
-    of up to 32 columns on axis 0."""
+    block: whole rows on axis 1 (as many as fit :data:`CHAIN_ROW_TILE`
+    words), all ``S`` rows of up to 32 columns on axis 0."""
     if axis == 1:
-        rows, cols = min(S, max(1, CHAIN_THREADS // L)), L
+        rows, cols = min(S, max(1, CHAIN_ROW_TILE // L)), L
     else:
         rows, cols = S, min(CHAIN_STRIP, L, max(1, CHAIN_MAX_TILE // S))
     e = next((e for e in CHAIN_ES if e * CHAIN_THREADS >= rows * cols), None)
@@ -166,14 +176,40 @@ def gather_chain_reference(x: torch.Tensor, idx: torch.Tensor, axis: int, *,
     return acc.reshape(x.shape).clone()
 
 
+def chain_instructions(e: int) -> int:
+    """Instructions a step of an axis-1 block of instance ``e`` holds at
+    most: 8 warps of ``e + ceil(e / 4)`` slots."""
+    return (CHAIN_THREADS // 32) * (e + -(-e // 4))
+
+
+def launch_chain(lib, x: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
+                 axis: int, *, n_iter: int, schedule: torch.Tensor | None = None,
+                 stream: int = 0) -> None:
+    """The gather chain through ``lib.mcq_probe_gather_chain`` on
+    ``stream`` into ``out``; on axis 1, ``schedule`` (int32, blocks x
+    :func:`chain_instructions` x 32), unless None, receives each block's
+    bank schedule: each (instruction, lane)'s element as its source's buffer
+    position | its own position << 16, or -1.  Raises if the entry point
+    returns an error."""
+    S, L = x.shape
+    rows, cols, e = chain_tile(S, L, axis)
+    ptrs = [ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+            for t in (x, idx, out, schedule)]
+    err = lib.mcq_probe_gather_chain(*ptrs, S, L, axis, rows, cols, e,
+                                     n_iter, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"probe kernel 'gather_chain' launch failed "
+                           f"(cudaError {err})")
+
+
 def gather_chain_cuda(x: torch.Tensor, idx: torch.Tensor, axis: int, *,
                       n_iter: int) -> torch.Tensor:
     """The gather chain on the card (asynchronous; counts the launch)."""
-    S, L = x.shape
-    rows, cols, e = chain_tile(S, L, axis)
     out = torch.empty_like(x)
-    _launch("gather_chain", probes._lib().mcq_probe_gather_chain, x, idx,
-            out, S, L, axis, rows, cols, e, n_iter)
+    with torch.cuda.device(x.device):
+        launch_chain(probes._lib(), x, idx, out, axis, n_iter=n_iter,
+                     stream=torch.cuda.current_stream(x.device).cuda_stream)
+    LAUNCHES["gather_chain"] += 1
     return out
 
 
@@ -351,8 +387,8 @@ def _step_blocks(n_words: int, n_iter: int):
         yield t0, min(n_iter, t0 + block)
 
 
-def prng_draws_reference(shape, mode: str, *, n_iter: int,
-                         device) -> torch.Tensor:
+def prng_draws_reference(shape, mode: str, *, n_iter: int, device,
+                         step0: int = PRNG_STEP0) -> torch.Tensor:
     """Plain-torch twin of the PRNG draws (the composition in the module
     docstring), computed a block of steps at a time."""
     n = math.prod(shape)
@@ -363,8 +399,8 @@ def prng_draws_reference(shape, mode: str, *, n_iter: int,
     else:
         root = rng.key(PRNG_SEED, device)
     for t0, t1 in _step_blocks(n, n_iter):
-        steps = torch.arange(PRNG_STEP0 + t0, PRNG_STEP0 + t1,
-                             dtype=torch.int32, device=device)
+        steps = rng.as_int32((torch.arange(t0, t1, device=device) + step0)
+                             & 0xFFFFFFFF)
         if mode == "lowbias32":
             w0, w1 = prng.step_words(g, steps.unsqueeze(1))
             draws = (w0 + w1).to(torch.int64)
@@ -374,26 +410,43 @@ def prng_draws_reference(shape, mode: str, *, n_iter: int,
     return rng.as_int32(acc).reshape(shape)
 
 
-def prng_draws_cuda(shape, mode: str, *, n_iter: int,
-                    device) -> torch.Tensor:
+def launch_prng(lib, out: torch.Tensor, mode: str, *, n_iter: int,
+                step0: int = PRNG_STEP0, stream: int = 0) -> None:
+    """The PRNG draws through ``lib.mcq_probe_prng`` on ``stream`` into the
+    int32 ``out``; raises if the entry point returns an error."""
+    err = lib.mcq_probe_prng(ctypes.c_void_p(out.data_ptr()), out.numel(),
+                             PRNG_MODES.index(mode), n_iter, PRNG_SEED,
+                             probes._i32(step0), 1, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"probe kernel 'prng_{mode}' launch failed "
+                           f"(cudaError {err})")
+
+
+def prng_draws_cuda(shape, mode: str, *, n_iter: int, device,
+                    step0: int = PRNG_STEP0) -> torch.Tensor:
     """The PRNG draws on the card (asynchronous; counts the launch)."""
     out = torch.empty(shape, dtype=torch.int32, device=device)
-    _launch(f"prng_{mode}", probes._lib().mcq_probe_prng, out, out.numel(),
-            PRNG_MODES.index(mode), n_iter, PRNG_SEED, PRNG_STEP0)
+    with torch.cuda.device(out.device):
+        launch_prng(probes._lib(), out, mode, n_iter=n_iter, step0=step0,
+                    stream=torch.cuda.current_stream(out.device).cuda_stream)
+    LAUNCHES[f"prng_{mode}"] += 1
     return out
 
 
-def prng_draws(shape, mode: str, *, n_iter: int, device) -> torch.Tensor:
+def prng_draws(shape, mode: str, *, n_iter: int, device,
+               step0: int = PRNG_STEP0) -> torch.Tensor:
     """An int32 tensor of ``shape``: the wrapping sum of ``n_iter`` draws
-    of generator ``mode`` per word (the composition in the module
-    docstring); not the TPU's hardware generator."""
+    of generator ``mode`` per word, steps from ``step0`` (the composition in
+    the module docstring); not the TPU's hardware generator."""
     if mode not in PRNG_MODES:
         raise ValueError(f"mode must be one of {PRNG_MODES}, got {mode!r}")
     shape = tuple(shape)
     if not 0 < math.prod(shape) < 2 ** 31:
         raise ValueError(f"shape {shape}: want 1 to 2^31 - 1 words")
     _check_count("n_iter", n_iter)
+    if not 0 <= step0 < 2 ** 32:
+        raise ValueError(f"step0={step0}: want 0 <= step0 < 2^32")
     dev = torch.device(device)
     return segment.on_device("prng_draws", dev, prng_draws_reference,
                              prng_draws_cuda, shape, mode, n_iter=n_iter,
-                             device=dev)
+                             device=dev, step0=step0)

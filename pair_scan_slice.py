@@ -99,9 +99,15 @@ public functions that both sides have are called.  Phases:
     timing shape ((8, 135168) ones, 8 chains x 2048 x 16 doublings) and the
     pass cost's ((8, 135168) ones, one chain of 8192 doublings), the reduce
     at the slice tool's card-filling shape ((64, 1081344) ones, 512 steps):
-    ms, with a digest of the words; and ``mcqueens_torch.tools.roofline``
-    and ``probe_slice`` ``--quick`` as wall time, with the roofline's int32
-    add rate and the slice tool's reduce costs.
+    ms, with a digest of the words; the PRNG draws (``prng_draws``) at the
+    slice tool's timing shape ((8, 135168), 512 draws) in both generators
+    and the gather chain (``gather_chain``) at the gather tool's shapes
+    ((4224, 256) axis 1 and (256, 135168) axis 0, 512 steps and none, a
+    random index from a seeded generator), the same way; a digest of the scan samplers'
+    SASS (``chip_smoke.scan_sass_digest``), which include ``threefry.cuh``;
+    and ``mcqueens_torch.tools.roofline``, ``probe_gather`` and
+    ``probe_slice`` ``--quick`` as wall time, with the roofline's int32 add
+    rate and the slice tool's reduce and draw costs.
 
 ``--only full3d`` runs the full-3D shared kernel's items alone, ``--only
 metropolis`` the per-chain board kernel's, ``--only full3d_pallas`` the
@@ -120,7 +126,15 @@ builds the variants of kernel A's ``csrc/probe_alu.cu`` in
 launches and the pass cost's, in the order committed, variants, variants
 reversed, committed, each launch's words equal to the committed kernel's
 (and on random words under 32 doublings), with each instance's hot-loop
-opcodes.  Prints one JSON line with the card's name and power limit; exits
+opcodes.  ``--only prng_variants`` and ``--only gather_variants`` (never
+run by default) do the same for the threefry draws
+(``csrc/probe_slice.cu``, :data:`PRNG_VARIANTS`: each round's pipe, the
+words a thread) at the slice tool's timing shape and for the gather chain
+(``csrc/probe_gather.cu``, :data:`GATHER_VARIANTS`: the tile's size, no
+layout, no schedule; and at 0 steps :data:`GATHER_PROLOGUE_VARIANTS`, the
+prologue's parts) at the gather tool's axis-1 shape, each launch's words
+equal to the committed kernel's, with each instance's hot-loop opcodes by
+pipe.  Prints one JSON line with the card's name and power limit; exits
 non-zero without a CUDA GPU.
 """
 
@@ -459,8 +473,9 @@ def full3d_pallas_phases():
     return out
 
 
-def probes_phases():
-    """Kernel A and the reduce alone, and two tools' walls (module
+def probes_phases(root):
+    """Kernel A, the reduce, the PRNG draws and the gather chain alone, the
+    scan samplers' SASS digest, and three tools' walls (module
     docstring)."""
     import hashlib
 
@@ -468,7 +483,7 @@ def probes_phases():
 
     from mcqueens_torch import tools
     from mcqueens_torch.kernels import probes, probes_mem
-    from mcqueens_torch.tools import probe_slice, roofline
+    from mcqueens_torch.tools import probe_gather, probe_slice, roofline
 
     def events_ms(fn):
         start = torch.cuda.Event(enable_timing=True)
@@ -496,6 +511,25 @@ def probes_phases():
             torch.ones((64, T), dtype=torch.int32, device="cuda"),
             dict(n_iter=512)),
     }
+    for mode in probes_mem.PRNG_MODES:
+        launches[f"prng_{mode}_(8,{W})_512_draws"] = (
+            probes_mem.prng_draws_cuda, probes_mem.prng_draws_reference,
+            (8, W), dict(mode=mode, n_iter=512, device="cuda"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    for S, L, axis in ((T // 256, 256, 1), (256, T // 8, 0)):
+        idx = torch.randint(0, L if axis == 1 else S, (S, L),
+                            dtype=torch.int32, device="cuda", generator=gen)
+        x = torch.arange(S * L, dtype=torch.int32,
+                         device="cuda").reshape(S, L) % 7
+        # 0 steps: the fill, the drain and (axis 1) the schedule's prologue
+        for n in (512, 0):
+            launches[f"gather_chain_({S},{L})_axis{axis}_{n}_steps"] = (
+                lambda x, idx=idx, axis=axis, **kw:
+                    probes_mem.gather_chain_cuda(x, idx, axis, **kw),
+                lambda x, idx=idx, axis=axis, **kw:
+                    probes_mem.gather_chain_reference(x, idx, axis, **kw),
+                x, dict(n_iter=n))
     out = {"probe_launch_ms": {}, "probe_words_sha256": {}}
     for key, (launcher, twin, x, kw) in launches.items():
         want = twin(x, **kw)
@@ -510,8 +544,15 @@ def probes_phases():
         out["probe_launch_ms"][key] = times
         out["probe_words_sha256"][key] = hashlib.sha256(
             want.cpu().numpy().tobytes()).hexdigest()[:16]
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import chip_smoke
+
+    out["scan_sass_sha256"], out["scan_sass_instances"] = (
+        chip_smoke.scan_sass_digest(chip_smoke.sass_text()))
+    if not chip_smoke._build.__file__.startswith(root):
+        raise AssertionError("the SASS digest read another checkout")
     with tempfile.TemporaryDirectory() as d:
-        for mod in (roofline, probe_slice):
+        for mod in (roofline, probe_gather, probe_slice):
             name = mod.__name__.rsplit(".", 1)[1]
             path = os.path.join(d, f"{name}.json")
             torch.cuda.synchronize()
@@ -526,10 +567,14 @@ def probes_phases():
             if mod is roofline:
                 out["roofline_int32_add_ops_per_s"] = res[
                     "int32_add_ops_per_s"]
-            else:
-                out["probe_slice_reduce"] = {
+            elif mod is probe_gather:
+                out["probe_gather_chain"] = {
                     k: v["result"] for k, v in res["probes"].items()
-                    if "reduce" in k}
+                    if "gather cost" in k}
+            else:
+                out["probe_slice_reduce_and_draws"] = {
+                    k: v["result"] for k, v in res["probes"].items()
+                    if "reduce" in k or "prng" in k}
     return out
 
 
@@ -584,7 +629,8 @@ __device__ __forceinline__ int hits(const Cell& q, const Cell& t) {
 _PIPES = {"FADD": "FP32", "FMUL": "FP32", "FFMA": "FP32", "IMAD": "IMAD",
           "LDS": "MIO", "STS": "MIO", "SHFL": "MIO", "BRA": "branch",
           "BSSY": "branch", "BSYNC": "branch", "WARPSYNC": "branch",
-          "NOP": "branch"}
+          "NOP": "branch", "BAR": "branch", "EXIT": "branch",
+          "ATOMS": "MIO"}
 
 
 def f3p_variant_source(text, attack=None, self_row=None, min_ctas=None):
@@ -847,28 +893,9 @@ def vpu_variants():
     from mcqueens_torch import tools
     from mcqueens_torch.kernels import _build
 
-    src = (_build.SOURCES[0].parent / "probe_alu.cu").read_text()
-    out_dir = _build.BUILD_DIR.parent / "vpu_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, swaps) in enumerate(VPU_VARIANTS.items()):
-        text = src
-        for old, new in swaps.items():
-            if text.count(old) != 1:
-                raise AssertionError(f"variant {name}: {old!r} not found "
-                                     f"once")
-            text = text.replace(old, new)
-        cu, so = out_dir / f"v{i}.cu", out_dir / f"v{i}.so"
-        cu.write_text(text)
-        procs[name] = so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
     fns, out = {}, {"vpu_variants": {}}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+    for name, so in build_variants("probe_alu.cu", VPU_VARIANTS,
+                                   "vpu_variants").items():
         fn = ctypes.CDLL(str(so)).mcq_probe_vpu
         fn.argtypes = _build.ENTRY_POINTS["mcq_probe_vpu"]
         fn.restype = ctypes.c_int
@@ -900,36 +927,301 @@ def vpu_variants():
 
     W = tools.ALU_WIDTH
     x = torch.ones((8, W), dtype=torch.int32, device="cuda")
-    # name -> (chains, iterations, doublings an iteration), as
-    # probes.vpu_doubling_cuda passes them
-    launches = {f"roofline_(8,{W})_k8_2048x16": (8, 2048, 16),
-                f"roofline_dependent_(8,{W})_16384x16": (1, 16384, 16),
-                f"pass_cost_(8,{W})_one_chain_8192": (1, 1, 8192)}
-    order = [*VPU_VARIANTS, *reversed(VPU_VARIANTS)]
-    times = out["vpu_variant_ms"] = {}
-    for key, (k, n_iter, inner) in launches.items():
-        row = times[key] = {name: [] for name in VPU_VARIANTS}
+    holder = {}
+
+    def args(k, n_iter, inner):
+        # (chains, iterations, doublings an iteration), as
+        # probes.vpu_doubling_cuda passes them
+        def make():
+            holder["out"] = torch.empty_like(x)
+            return (x.data_ptr(), holder["out"].data_ptr(), x.numel(), k,
+                    n_iter, inner, 2, 0, stream)
+        return make
+
+    def check(name, key, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"variant {name} on {key}: words differ "
+                                 f"from the committed kernel's")
+
+    out["vpu_variant_ms"] = time_variants(
+        fns, {f"roofline_(8,{W})_k8_2048x16": args(8, 2048, 16),
+              f"roofline_dependent_(8,{W})_16384x16": args(1, 16384, 16),
+              f"pass_cost_(8,{W})_one_chain_8192": args(1, 1, 8192)},
+        lambda: holder["out"], check)
+    return out
+
+
+def variant_sources(source, variants):
+    """``{name: text}``: ``csrc/<source>`` with each ``{name: {old text:
+    new text}}`` variant's substitutions (each old text must occur once)."""
+    from mcqueens_torch.kernels import _build
+
+    src = (_build.SOURCES[0].parent / source).read_text()
+    texts = {}
+    for name, swaps in variants.items():
+        text = src
+        for old, new in swaps.items():
+            if text.count(old) != 1:
+                raise AssertionError(f"variant {name}: {old!r} not found "
+                                     f"once")
+            text = text.replace(old, new)
+        texts[name] = text
+    return texts
+
+
+def build_variants(source, variants, out_name):
+    """Build each variant of ``csrc/<source>`` (:func:`variant_sources`)
+    into a library of its own under ``build/<out_name>`` (one nvcc each,
+    all started together); returns ``{name: path}``."""
+    from mcqueens_torch.kernels import _build
+
+    texts = variant_sources(source, variants)
+    out_dir = _build.BUILD_DIR.parent / out_name
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, text) in enumerate(texts.items()):
+        cu, so = out_dir / f"v{i}.cu", out_dir / f"v{i}.so"
+        cu.write_text(text)
+        procs[name] = so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+             str(_build.SOURCES[0].parent), "-shared", "-o", str(so),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    out = {}
+    for name, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+        out[name] = so
+    return out
+
+
+def pipe_opcodes(body):
+    """``{pipe: count}`` and ``{opcode: count}`` of a hot loop's opcodes."""
+    import collections
+
+    ops = collections.Counter(op.split(".")[0] for op in body)
+    pipes = collections.Counter(_PIPES.get(op, "ALU") for op in ops.elements())
+    return dict(pipes), dict(ops)
+
+
+def time_variants(fns, launches, out_of, check):
+    """Time ``fns[name](*args)`` for each launch in the order committed,
+    variants, variants reversed, committed, after one untimed launch of
+    each, behind a spin kernel; ``out_of(args)`` is the output ``check``
+    compares with the committed kernel's.  Returns ``{launch: {name:
+    [ms, ms]}}``."""
+    import torch
+
+    names = list(fns)
+    order = [*names, *reversed(names)]
+    times = {}
+    for key, args in launches.items():
+        row = times[key] = {name: [] for name in names}
         want = None
-        # One untimed launch of each first: it loads the kernel.
-        for i, name in enumerate([*VPU_VARIANTS, *order]):
-            got = torch.empty_like(x)
+        for i, name in enumerate([*names, *order]):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            call_args = args()
             torch.cuda.synchronize()
             torch.cuda._sleep(5_000_000)
             start.record()
-            err = fns[name](x.data_ptr(), got.data_ptr(), x.numel(), k,
-                            n_iter, inner, 2, 0, stream)
+            err = fns[name](*call_args)
             end.record()
             torch.cuda.synchronize()
             if err:
                 raise RuntimeError(f"variant {name}: cudaError {err}")
+            got = out_of().clone()
             want = got if want is None else want
-            if not torch.equal(got, want):
-                raise AssertionError(f"variant {name} on {key}: words "
-                                     f"differ from the committed kernel's")
-            if i >= len(VPU_VARIANTS):
+            check(name, key, got, want)
+            if i >= len(names):
                 row[name].append(start.elapsed_time(end))
+    return times
+
+
+# Variants of the threefry draws (csrc/probe_slice.cu, prng_probe_kernel<1>)
+# timed beside it (--only prng_variants): which rounds' adds, rotates and
+# key injections issue on the FMA pipe as IMAD, and the words a thread.
+# Each is the same function.
+_FMA_LINES = ("constexpr uint32_t kFmaAdds = 0xFFFFFu;\n"
+              "constexpr uint32_t kFmaRotates = 0u;\n"
+              "constexpr bool kFmaInjections = true;\n")
+
+
+def _fma(adds, rotates, injections):
+    return {_FMA_LINES: f"constexpr uint32_t kFmaAdds = {adds:#x}u;\n"
+                        f"constexpr uint32_t kFmaRotates = {rotates:#x}u;\n"
+                        f"constexpr bool kFmaInjections = "
+                        f"{'true' if injections else 'false'};\n"}
+
+
+def _words(n):
+    return {"constexpr int kDrawWords = 4;": f"constexpr int kDrawWords = {n};"}
+
+
+PRNG_VARIANTS = {
+    "committed": {},
+    "every pipe left to ptxas": _fma(0, 0, False),
+    "x0 injections in the round's IADD3": _fma(0xFFFFF, 0, False),
+    "1 in 4 rotates on the FMA pipe": _fma(0xFFFFF, 0x88888, True),
+    "every other rotate on the FMA pipe": _fma(0xFFFFF, 0xAAAAA, True),
+    "2 words a thread": _words(2),
+    "8 words a thread": _words(8),
+}
+PRNG_VARIANT_WORDS = {"2 words a thread": 2, "8 words a thread": 8}
+
+
+def prng_variants():
+    """The threefry draws' variants (module docstring)."""
+    import ctypes
+
+    import torch
+
+    from mcqueens_torch import tools
+    from mcqueens_torch.kernels import _build, probes_mem
+
+    libs = build_variants("probe_slice.cu", PRNG_VARIANTS, "prng_variants")
+    fns, out = {}, {"prng_variants": {}}
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, so in libs.items():
+        fn = ctypes.CDLL(str(so)).mcq_probe_prng
+        fn.argtypes = _build.ENTRY_POINTS["mcq_probe_prng"]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+        body = hot_loops(so, "prng_probe_kernel")[1]
+        pipes, ops = pipe_opcodes(body)
+        out["prng_variants"][name] = {"pipes_per_draw": {
+            k: v / PRNG_VARIANT_WORDS.get(name, 4) for k, v in pipes.items()},
+            "opcodes": ops}
+    holder = {}
+
+    def args(n, n_iter, step0):
+        def make():
+            holder["out"] = torch.empty(n, dtype=torch.int32, device="cuda")
+            return (holder["out"].data_ptr(), n, 1, n_iter,
+                    probes_mem.PRNG_SEED, step0, 1, stream)
+        return make
+
+    def check(name, key, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"variant {name} on {key}: words differ "
+                                 f"from the committed kernel's")
+
+    # every variant on a ragged count and steps wrapping past 2^32, then
+    # the slice tool's timing shape, timed
+    W = tools.ALU_WIDTH
+    time_variants(fns, {"ragged": args(3 * 333, 130, -100)},
+                  lambda: holder["out"], check)
+    out["prng_variant_ms"] = time_variants(
+        fns, {f"threefry_(8,{W})_512_draws": args(8 * W, 512,
+                                                  probes_mem.PRNG_STEP0)},
+        lambda: holder["out"], check)
+    return out
+
+
+# Variants of the gather chain (csrc/probe_gather.cu, axis 1) timed beside it
+# (--only gather_variants): tiles of 256 and 2048 words (the wrapper's rule
+# passes the tile), words left at their own positions (no layout), and
+# elements in their own order (no schedule: the parent's order on the
+# committed layout).  Each is the same function.
+GATHER_VARIANTS = {
+    "committed": {},
+    "no layout (words at their own positions)": {
+        "      mypos[j] = q * 32 + b;": "      mypos[j] = w;"},
+    "no schedule (elements in order)": {
+        "    const uint32_t v = sched[(j * kChainWarps + warp) * 32 + lane];":
+        "    const int w = (j * kChainWarps + warp) * 32 + lane;\n"
+        "    const uint32_t v = j < E && w < T ? pos[src[j < E ? j : 0]] | "
+        "(uint32_t)pos[w] << 16 : kNoElement;"},
+}
+# Timed at 0 steps only (the prologue, fill and drain), where every
+# variant's words are x: the prologue without the assignment, and without
+# anything but the fill.
+GATHER_PROLOGUE_VARIANTS = {
+    "no assignment (0 steps only)": {
+        "  if (warp == 0) {\n    // in rounds":
+        "  if (false) {\n    // in rounds"},
+    "fill only (0 steps only)": {
+        "    build_schedule<E>(buf, x, idx, g0, L, T, ld, st, live, mypos);":
+        "    for (int j = 0; j < E; ++j) {\n"
+        "      const int w = tid + j * kChainThreads;\n"
+        "      mypos[j] = w;\n"
+        "      if (w < T) buf[w] = (uint32_t)x[g0 + w];\n"
+        "    }\n"
+        "    __syncthreads();\n"
+        "    live = 0;"},
+}
+GATHER_TILES = {"committed": 1024, "tile of 256 words": 256,
+                "tile of 2048 words": 2048}
+
+
+def gather_variants():
+    """The gather chain's variants (module docstring)."""
+    import ctypes
+
+    import torch
+
+    from mcqueens_torch import tools
+    from mcqueens_torch.kernels import _build, probes_mem
+
+    libs = build_variants("probe_gather.cu", {**GATHER_VARIANTS,
+                                              **GATHER_PROLOGUE_VARIANTS},
+                          "gather_variants")
+    stream = torch.cuda.current_stream().cuda_stream
+    fns, out = {}, {"gather_variants": {}}
+    for name, so in libs.items():
+        fn = ctypes.CDLL(str(so)).mcq_probe_gather_chain
+        fn.argtypes = _build.ENTRY_POINTS["mcq_probe_gather_chain"]
+        fn.restype = ctypes.c_int
+        for tile_name, tile in GATHER_TILES.items():
+            if name != "committed" and tile_name != "committed":
+                continue
+            key = name if tile_name == "committed" else tile_name
+            fns[key] = (fn, tile)
+        loops = hot_loops(so, "gather_chain_probe_kernel")
+        out["gather_variants"][name] = {
+            f"E={e}": pipe_opcodes(body) for e, body in loops.items()}
+    T = tools.TIMING_THREADS
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    S, L = T // 256, 256
+    idx = torch.randint(0, L, (S, L), dtype=torch.int32, device="cuda",
+                        generator=gen)
+    x = torch.arange(S * L, dtype=torch.int32, device="cuda").reshape(S, L)
+    got = torch.empty_like(x)
+
+    def launcher(fn, tile):
+        rows = tile // L
+        e = next(e for e in probes_mem.CHAIN_ES if 256 * e >= tile)
+        return lambda n_iter: fn(x.data_ptr(), idx.data_ptr(),
+                                 got.data_ptr(), None, S, L, 1, rows, L, e,
+                                 n_iter, stream)
+
+    calls = {name: launcher(*ft) for name, ft in fns.items()}
+    stepped = {n: c for n, c in calls.items()
+               if n not in GATHER_PROLOGUE_VARIANTS}
+    want = probes_mem.gather_chain_reference(x, idx, 1, n_iter=5)
+    for name, call in stepped.items():
+        err = call(5)
+        torch.cuda.synchronize()
+        if err or not torch.equal(got, want):
+            raise AssertionError(f"gather variant {name}: cudaError {err} "
+                                 f"or words that differ from the twin's")
+
+    def check(name, key, g, w):
+        if not torch.equal(g, w):
+            raise AssertionError(f"variant {name} on {key}: words differ "
+                                 f"from the committed kernel's")
+
+    out["gather_variant_ms"] = {
+        **time_variants({name: (lambda call=call: call(512))
+                         for name, call in stepped.items()},
+                        {f"({S},{L})_axis1_512_steps": lambda: ()},
+                        lambda: got, check),
+        **time_variants({name: (lambda call=call: call(0))
+                         for name, call in calls.items()},
+                        {f"({S},{L})_axis1_0_steps": lambda: ()},
+                        lambda: got, check)}
     return out
 
 
@@ -942,7 +1234,8 @@ def main(argv=None):
     ap.add_argument("--only", choices=["full3d", "metropolis",
                                        "full3d_pallas",
                                        "full3d_pallas_variants", "probes",
-                                       "vpu_variants"],
+                                       "vpu_variants", "prng_variants",
+                                       "gather_variants"],
                     default=None,
                     help="time only one kernel's phases")
     args = ap.parse_args(argv)
@@ -1231,9 +1524,13 @@ def main(argv=None):
     if args.only == "full3d_pallas_variants":
         out.update(full3d_pallas_variants())
     if args.only == "probes":
-        out.update(probes_phases())
+        out.update(probes_phases(root))
     if args.only == "vpu_variants":
         out.update(vpu_variants())
+    if args.only == "prng_variants":
+        out.update(prng_variants())
+    if args.only == "gather_variants":
+        out.update(gather_variants())
     line = json.dumps(out)
     print(line)
     if args.json:

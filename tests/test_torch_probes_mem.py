@@ -143,13 +143,13 @@ def test_gather_chain_is_repeated_gather(axis):
 
 
 @pytest.mark.parametrize("S,L,axis,want", [
-    (8, 128, 1, (2, 128, 1)), (64, 256, 1, (1, 256, 1)),
-    (4224, 256, 1, (1, 256, 1)), (256, 1024, 0, (256, 32, 32)),
+    (8, 128, 1, (8, 128, 4)), (64, 256, 1, (4, 256, 4)),
+    (4224, 256, 1, (4, 256, 4)), (256, 1024, 0, (256, 32, 32)),
     (32, 128, 0, (32, 32, 4)), (8, 128, 0, (8, 32, 1)),
     (9000, 64, 0, None), (8, 9000, 1, None)])
 def test_gather_chain_tiles(S, L, axis, want):
-    # Whole rows on axis 1, a 32-column strip of all rows on axis 0; a
-    # segment past the 8192-word tile is refused.
+    # Whole rows on axis 1 (up to 1024 words a tile), a 32-column strip of
+    # all rows on axis 0; a segment past the 8192-word tile is refused.
     if want is None:
         with pytest.raises(ValueError, match="does not fit"):
             probes_mem.chain_tile(S, L, axis)
