@@ -154,9 +154,30 @@ and the script exits non-zero without printing a result:
    the board CLI (N=16, 32768 runs, 50000 steps); the board tempered CLI
    (16 levels); the full-3D floors-campaign search cut to 125000 steps (N=15,
    65536 runs, 16 levels 0.8->7, stride 62500); the Q_max certificate
-   search of ``tools/qmax.py`` (N=8, Q=48, 4096 chains, 2^18 steps), which
-   must reach energy 0; ``configs/pod_scale.yaml``'s run (N=20, 4096 runs,
-   kernel pallas) cut to 2^19 steps; ``configs/beyond_reference.yaml``'s
+   search through the port's ``tools.qmax.search`` (N=8, Q=48, 4096 chains,
+   2^18 steps), which must reach energy 0, and ``tools.qmax_frontier.main``
+   from Q=48 (its root a temporary directory), which must bank a lower
+   bound >= 48 whose certificate ``tools.verify_board`` and
+   ``core.energy`` on the card both score 0; the tempered certificate push
+   of ``tools.qmax_push.push`` at its full width (N=24, Q=403, 65536
+   chains, 16 levels 0.8->9, stride 62500, warm from the committed Q=402
+   certificate, re-scored first) cut to 125000 steps (two rounds), run
+   uninterrupted, killed right after round 1's checkpoint and resumed from
+   it: the resumed result must equal the uninterrupted one in every array,
+   launch only round 2 and leave no checkpoint behind (each run prints the
+   checkpoint's npz bytes and save and restore seconds); the floors
+   campaign ``tools.full3d_floors_campaign.main`` (its root a temporary
+   directory) at N=15 (65536 chains, Q=225, fresh, confirm and one
+   refinement of 125000 steps) and the board refinement at N=14 from the
+   committed board floor, every exported board re-scored by
+   ``verify_board`` and each floor equal to the least re-score; every
+   committed ``artifacts/qmax/qmax_N*_Q*.txt`` scored 0 on the card with Q
+   distinct cells; ``configs/pod_scale.yaml``'s run (N=20, 4096 runs,
+   kernel pallas) cut to 2^19 steps, then again with its
+   ``checkpoint_dir`` (a temporary directory) through
+   ``drivers.run_single_n``, killed right after 5 of its 10 segments and
+   resumed: equal to the first run in every array, the resume launching
+   only the 5 remaining segments; ``configs/beyond_reference.yaml``'s
    sweep through ``drivers.measure_min_energy_vs_n`` (10 N, random and
    klarner, 128 runs) cut to 62500 steps, where klarner at N = 17, 19, 23,
    29, 31 must report 0; and ``config.yaml``'s beta_start_end_pairs section
@@ -218,6 +239,7 @@ import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
 import re  # noqa: E402
+import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
 import time  # noqa: E402
@@ -243,7 +265,11 @@ from mcqueens_torch.kernels import (_build, board_shared, full3d_pallas,  # noqa
 from mcqueens_torch.tools import (probe_full3d_alternatives,  # noqa: E402
                                   probe_full3d_cap, probe_gather,
                                   probe_slice, probe_swar_sweep, roofline)
+from mcqueens_torch.tools import (full3d_floors_campaign,  # noqa: E402
+                                  qmax_frontier, qmax_push, verify_board)
+from mcqueens_torch.tools import qmax as qmax_tool  # noqa: E402
 from mcqueens_torch.search.tempering import geometric_ladder  # noqa: E402
+from mcqueens_torch.utils.checkpoint import Checkpointer  # noqa: E402
 
 KERNELS = {
     board_shared: dict(
@@ -1100,26 +1126,316 @@ def full3d_slice():
 
 
 def qmax_search():
-    """tools/qmax.py's first budget at N=8, Q=48 (the TPU run certified
-    Q_max(8,3) >= 48 with it): energy 0 must be reached."""
+    """tools/qmax.py's first budget at N=8, Q=48 through the port's
+    ``tools.qmax.search`` (the TPU run certified Q_max(8,3) >= 48 with it):
+    energy 0 must be reached.  Then ``qmax_frontier.main`` from Q=48 with its
+    root in a temporary directory: it must bank a lower bound >= 48 whose
+    certificate both oracles score 0."""
     N, Q, n_steps = 8, 48, 1 << 18
-    spec = spec_of(N, n_steps, max(1, n_steps // 64), lin(n_steps, 0.5, 5.0),
-                   mcmc_type="full_3d", Q=Q)
+    n_outer = 64  # history_stride = n_steps // 64
     zero_launches()
-    res = runner.run_chains(np.arange(4096, dtype=np.uint32), spec,
-                            device="cuda")
-    got = check_launches("qmax search", {full3d_shared: spec.n_outer})
-    r = int(np.argmin(res.best_energy))
-    best = res.best_state[r]
-    e = int(res.best_energy[r])
-    rescored = int(full3d_energy(torch.from_numpy(best)))
+    t0 = time.perf_counter()
+    e, best, wall, props = qmax_tool.search(N, Q, n_steps, 5.0)
+    got = check_launches("qmax search", {full3d_shared: n_outer})
+    rescored = int(full3d_energy(torch.from_numpy(best).cuda()))
     if e != 0 or rescored != 0 or len({tuple(q) for q in best.tolist()}) != Q:
         raise AssertionError(f"Q_max search N={N} Q={Q}: best energy {e}, "
                              f"oracle {rescored}: no certificate")
-    phase("slice", f"Q_max search N={N} Q={Q} 4096 chains {n_steps} steps: "
-          f"best energy 0 (oracle re-score 0, {Q} distinct cells) on chain "
-          f"{r}; {got[full3d_shared]} kernel launches; "
-          f"{res.moves_per_sec:.4e} moves/s")
+    phase("slice", f"Q_max search N={N} Q={Q} 4096 chains {n_steps} steps "
+          f"(tools.qmax.search): best energy 0 (oracle re-score 0, {Q} "
+          f"distinct cells); {got[full3d_shared]} kernel launches; "
+          f"{props / wall:.4e} moves/s; wall "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    searches, real_search = [], qmax_frontier.search
+
+    def counted(*args, **kw):
+        searches.append(args[:4])
+        return real_search(*args, **kw)
+
+    with tempfile.TemporaryDirectory() as root:
+        qmax_frontier.OUTDIR, qmax_frontier.search = root, counted
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as log:
+                qmax_frontier.main(["--n", str(N), "--start", str(Q)])
+            wall = time.perf_counter() - t0
+            got = check_launches("qmax frontier",
+                                 {full3d_shared: n_outer * len(searches)})
+            with open(os.path.join(root, f"qmax_frontier_N{N}.json")) as f:
+                out = json.load(f)
+            bound = out["lower_bound"]
+            if bound is None or bound < Q:
+                raise AssertionError(f"qmax frontier N={N} banked "
+                                     f"{bound}, not >= {Q}")
+            cert = os.path.join(root, f"qmax_N{N}_Q{bound}.txt")
+            rec = verify_board.verify(cert)
+            rows = np.loadtxt(cert, delimiter=",", dtype=np.int64, ndmin=2)
+            on_card = int(full3d_energy(torch.from_numpy(rows).cuda()))
+            if (rec["oracle_energy"], on_card, rec["queens"]) != (0, 0, bound) \
+                    or not rec["distinct_cells"]:
+                raise AssertionError(f"qmax frontier certificate {rec}, "
+                                     f"card re-score {on_card}")
+        finally:
+            qmax_frontier.OUTDIR, qmax_frontier.search = (qmax_tool.OUTDIR,
+                                                          real_search)
+    phase("slice", f"Q_max frontier N={N} from Q={Q}: lower_bound {bound}, "
+          f"probes_complete {out['probes_complete']}; {len(searches)} "
+          f"searches {[a[1:3] for a in searches]}; {got[full3d_shared]} "
+          f"kernel launches; certificate re-scored 0 by verify_board and by "
+          f"core.energy on the card; wall {wall:.3f} s; "
+          f"{log.getvalue().strip().splitlines()[-1]}")
+
+
+class Killed(Exception):
+    """A run stopped on purpose right after a checkpoint was written."""
+
+
+@contextlib.contextmanager
+def checkpoint_probe(kill_at=None):
+    """Time every ``Checkpointer`` save that writes (with the npz's bytes)
+    and every restore (with the segment it returned, None if refused); with
+    ``kill_at``, raise :class:`Killed` right after that segment's save."""
+    log = {"saves": [], "restores": []}
+    real_save, real_restore = Checkpointer.save, Checkpointer.restore
+
+    def save(self, carry, segments_done, chunks, **kw):
+        before = self._last_save_t
+        t0 = time.perf_counter()
+        real_save(self, carry, segments_done, chunks, **kw)
+        if self._last_save_t != before:
+            log["saves"].append((segments_done, time.perf_counter() - t0,
+                                 os.path.getsize(self.path)))
+        if segments_done == kill_at:
+            raise Killed(f"killed after segment {segments_done}")
+
+    def restore(self, template, *args, **kw):
+        t0 = time.perf_counter()
+        out = real_restore(self, template, *args, **kw)
+        log["restores"].append((None if out is None else out[1],
+                                time.perf_counter() - t0))
+        return out
+
+    Checkpointer.save, Checkpointer.restore = save, restore
+    try:
+        yield log
+    finally:
+        Checkpointer.save, Checkpointer.restore = real_save, real_restore
+
+
+def ckpt_note(log):
+    saves = ", ".join(f"segment {seg}: {nbytes} B in {dt:.3f} s"
+                      for seg, dt, nbytes in log["saves"]) or "none"
+    restores = ", ".join(f"{'refused' if seg is None else f'segment {seg}'} "
+                         f"in {dt:.3f} s" for seg, dt in log["restores"])
+    return f"saves [{saves}]; restores [{restores or 'none'}]"
+
+
+def qmax_push_slice():
+    """tools/qmax_push.py at its full width (N=24, Q=403, 65536 chains, 16
+    levels 0.8->9, stride 62500, warm from the committed Q=402 certificate),
+    cut only in steps: 8M -> 125000, two rounds.  Run uninterrupted, killed
+    right after round 1's checkpoint, and resumed from it: the resumed
+    search must equal the uninterrupted one in every array and launch only
+    round 2."""
+    N, Q, n_steps = 24, 403, 125000
+    cert = os.path.join(REPO, "artifacts", "qmax", f"qmax_N{N}_Q{Q - 1}.txt")
+    rec = verify_board.verify(cert)
+    if (rec["oracle_energy"], rec["queens"]) != (0, Q - 1):
+        raise AssertionError(f"committed certificate {rec}")
+    outs, real_run = [], qmax_push.tempering_mod.run_tempered
+    rounds, real_round = [], full3d_shared.run_segment_tempered
+
+    def recorded(*args, **kw):
+        outs.append(real_run(*args, **kw))
+        return outs[-1]
+
+    def timed_round(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_round(*args, **kw)
+        torch.cuda.synchronize()
+        rounds.append(time.perf_counter() - t0)
+        return out
+
+    saved = (qmax_push.OUTDIR, qmax_push.N_STEPS)
+    walls, launches, logs = {}, {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        shutil.copy(cert, root)
+        qmax_push.OUTDIR, qmax_push.N_STEPS = root, n_steps
+        qmax_push.tempering_mod.run_tempered = recorded
+        full3d_shared.run_segment_tempered = timed_round
+        try:
+            for run, ckdir, kill_at in (("a", "ck_a", None),
+                                        ("b", "ck_b", 1), ("c", "ck_b", None)):
+                zero_launches()
+                rounds.clear()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with checkpoint_probe(kill_at) as log, \
+                        contextlib.redirect_stdout(io.StringIO()):
+                    try:
+                        e = qmax_push.push(N, Q, warm=True, checkpoint_dir=(
+                            os.path.join(root, ckdir)))[0]
+                    except Killed:
+                        e = None
+                walls[run] = time.perf_counter() - t0
+                launches[run] = full3d_shared.KERNEL_LAUNCHES
+                logs[run] = log
+                phase("slice", f"Q_max push ({run}) N={N} Q={Q} 65536 "
+                      f"chains {n_steps} steps: "
+                      f"{'killed' if e is None else f'best energy {e}'}; "
+                      f"{launches[run]} kernel launches (rounds of "
+                      f"{', '.join(f'{t:.3f}' for t in rounds)} s: "
+                      f"run_segment_tempered between synchronizes); wall "
+                      f"{walls[run]:.3f} s; peak device memory "
+                      f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+                      f"GiB; checkpoint {ckpt_note(log)}")
+            left = sorted(os.listdir(os.path.join(root, "ck_b")))
+        finally:
+            qmax_push.OUTDIR, qmax_push.N_STEPS = saved
+            qmax_push.tempering_mod.run_tempered = real_run
+            full3d_shared.run_segment_tempered = real_round
+    want, got = outs  # (b) was killed inside run_tempered
+    if want["energy_history"].shape[1] != 3:
+        raise AssertionError("the uninterrupted push stopped after round 1: "
+                             f"energy {int(want['best_energy'].min())} at "
+                             f"Q={Q}, the committed closed edge; the resume "
+                             "check cannot run")
+    if launches != {"a": 2, "b": 1, "c": 1}:
+        raise AssertionError(f"push launches {launches}, want a 2, b 1, c 1")
+    if [r[0] for r in logs["c"]["restores"]] != [1]:
+        raise AssertionError(f"(c) restored {logs['c']['restores']}, not "
+                             "round 1")
+    if left:
+        raise AssertionError(f"(c) left {left} behind: no clear()")
+    for key in want:
+        if key != "wall_time" and not np.array_equal(got[key], want[key]):
+            raise AssertionError(f"resumed push: {key} differs from the "
+                                 "uninterrupted push")
+    best = int(want["best_energy"].min())
+    phase("slice", f"Q_max push resumed after round 1 == uninterrupted in "
+          f"every array ({', '.join(k for k in want if k != 'wall_time')}); "
+          f"best energy {best} (Q={Q} stays the closed edge); walls "
+          f"a {walls['a']:.3f} s, b+c {walls['b'] + walls['c']:.3f} s")
+    return sum(launches.values())
+
+
+def pod_scale_resume(want):
+    """configs/pod_scale.yaml's run with its checkpoint_dir (in a temporary
+    directory; mesh dropped) through drivers.run_single_n, killed right
+    after 5 of its 10 segments and resumed: the same arrays as the
+    uninterrupted run, and only the 5 remaining segments launched."""
+    with tempfile.TemporaryDirectory() as ckdir:
+        cfg = parse_config({**POD_SCALE, "tpu": {
+            **POD_SCALE["tpu"], "checkpoint_dir": ckdir}})
+        got, logs = {}, {}
+        for run, kill_at in (("killed", 5), ("resumed", None)):
+            zero_launches()
+            t0 = time.perf_counter()
+            with checkpoint_probe(kill_at) as log, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                try:
+                    res = drivers.run_single_n(cfg, device="cuda",
+                                               plot=False)["result"]
+                except Killed:
+                    res = None
+            wall = time.perf_counter() - t0
+            got[run] = check_launches(f"pod-scale {run}",
+                                      {metropolis_pallas: 5 * 4})
+            logs[run] = log
+            tags = sorted(f for f in os.listdir(ckdir) if f.endswith(".npz"))
+            phase("slice", f"pod scale {run} (tpu.checkpoint_dir, {tags}): "
+                  f"{got[run][metropolis_pallas]} "
+                  f"kernel launches; wall {wall:.3f} s; checkpoint "
+                  f"{ckpt_note(log)}")
+    if [r[0] for r in logs["resumed"]["restores"]] != [5]:
+        raise AssertionError("pod-scale resume did not restore segment 5")
+    for field in ("energy_history", "history_steps", "history_len",
+                  "final_energy", "final_state", "best_energy", "best_state",
+                  "steps_to_best", "stop_step", "accept_bins", "total_bins"):
+        if not np.array_equal(getattr(res, field), getattr(want, field)):
+            raise AssertionError(f"pod-scale resume: {field} differs")
+    phase("slice", "pod scale resumed after 5 of 10 segments == "
+          "uninterrupted in every ChainResult array")
+    return sum(g[metropolis_pallas] for g in got.values())
+
+
+def floors_campaign_slice():
+    """tools/full3d_floors_campaign.py with its root in a temporary
+    directory: full-3D N=15 (65536 chains, Q=225) fresh, confirm and one
+    refinement, cut to 125000 steps each; then the board refinement at N=14
+    from the committed board floor.  Every exported board is re-scored by
+    verify_board, and each campaign.json floor is the least re-score."""
+    board14 = os.path.join(REPO, "artifacts", "board_floors",
+                           "competition_results",
+                           "best_heights_14_20260819_2259.txt")
+    runs = ((["--sizes", "15", "--n-steps", "125000", "--max-refines", "1"],
+             "full_3d", {full3d_shared: 3 * 2}),
+            (["--mcmc-type", "board", "--sizes", "14", "--n-steps", "125000",
+              "--max-refines", "1", "--refine-from", board14],
+             "board", {board_shared: 2}))
+    real_outdir = full3d_floors_campaign._outdir
+    total = collections.Counter()
+    with tempfile.TemporaryDirectory() as root:
+        full3d_floors_campaign._outdir = lambda m: os.path.join(root, m)
+        try:
+            for argv, kind, want in runs:
+                zero_launches()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    full3d_floors_campaign.main(argv)
+                wall = time.perf_counter() - t0
+                got = check_launches(f"floors campaign {kind}", want)
+                with open(os.path.join(root, kind, "campaign.json")) as f:
+                    log = json.load(f)
+                (rec,) = log.values()
+                scores = []
+                for s in rec["searches"]:
+                    path = s["board"] if os.path.isabs(s["board"]) else \
+                        os.path.join(root, kind, "competition_results",
+                                     s["board"])
+                    v = verify_board.verify(path)
+                    if v["oracle_energy"] != s["energy"] or \
+                            not v["distinct_cells"]:
+                        raise AssertionError(f"floors {kind}: {s} re-scores "
+                                             f"{v}")
+                    scores.append(v["oracle_energy"])
+                if rec["floor"] != min(scores):
+                    raise AssertionError(f"floors {kind}: floor "
+                                         f"{rec['floor']} != {min(scores)}")
+                n_launch = sum(got[m] for m in want)
+                total.update({m: got[m] for m in want})
+                phase("slice", f"floors campaign {kind} "
+                      f"{' '.join(argv[:-2] if kind == 'board' else argv)}: "
+                      f"searches {[(s['kind'], s['energy']) for s in rec['searches']]}"
+                      f", floor {rec['floor']} (every board re-scored by "
+                      f"verify_board); {n_launch} kernel launches; wall "
+                      f"{wall:.3f} s")
+        finally:
+            full3d_floors_campaign._outdir = real_outdir
+    return total
+
+
+def committed_certificates():
+    """Every committed artifacts/qmax/qmax_N*_Q*.txt scores 0 on the card
+    with Q distinct cells (read, not timed)."""
+    names = sorted(f for f in os.listdir(os.path.join(REPO, "artifacts",
+                                                      "qmax"))
+                   if re.fullmatch(r"qmax_N\d+_Q\d+\.txt", f))
+    for name in names:
+        Q = int(re.search(r"_Q(\d+)", name).group(1))
+        rows = np.loadtxt(os.path.join(REPO, "artifacts", "qmax", name),
+                          delimiter=",", dtype=np.int64, ndmin=2)
+        e = int(full3d_energy(torch.from_numpy(rows).cuda()))
+        if e != 0 or rows.shape != (Q, 3) or \
+                len({tuple(r) for r in rows.tolist()}) != Q:
+            raise AssertionError(f"{name}: energy {e} on the card, "
+                                 f"{rows.shape[0]} queens")
+    phase("slice", f"{len(names)} committed certificates "
+          f"(artifacts/qmax/qmax_N*_Q*.txt) score 0 on the card with Q "
+          f"distinct cells")
 
 
 def rescore(energy_fn, states, per_call=2 ** 25):
@@ -1173,21 +1489,26 @@ def optional_modules():
           + ", ".join(have))
 
 
+# configs/pod_scale.yaml cut to 2^19 of 5M steps, its mesh dropped (and its
+# checkpoint_dir, which pod_scale_resume points into a temporary directory).
+POD_SCALE = {
+    "experiment_type": "single_N",
+    "common": {"n_steps": 1 << 19, "n_runs": 4096, "verbose": True,
+               "initialization": "random", "mcmc_type": "board",
+               "early_stop_patience": None,
+               "betta_scheduling": {"type": "linear_annealing",
+                                    "base_seed": 42, "beta_const": 5.0,
+                                    "beta_start": 1.0, "beta_end": 5.0},
+               "output_path": "figures/pod_energy_history.png"},
+    "single_N": {"N": 20},
+    "tpu": {"kernel": "pallas", "history_stride": 16384}}
+
+
 def pod_scale_slice():
-    """configs/pod_scale.yaml's run as drivers.run_single_n makes it, cut to
-    2^19 of 5M steps, its mesh and checkpoint_dir dropped."""
-    n_steps = 1 << 19
-    cfg = parse_config({
-        "experiment_type": "single_N",
-        "common": {"n_steps": n_steps, "n_runs": 4096, "verbose": True,
-                   "initialization": "random", "mcmc_type": "board",
-                   "early_stop_patience": None,
-                   "betta_scheduling": {"type": "linear_annealing",
-                                        "base_seed": 42, "beta_const": 5.0,
-                                        "beta_start": 1.0, "beta_end": 5.0},
-                   "output_path": "figures/pod_energy_history.png"},
-        "single_N": {"N": 20},
-        "tpu": {"kernel": "pallas", "history_stride": 16384}})
+    """configs/pod_scale.yaml's run as drivers.run_single_n makes it
+    (``POD_SCALE``); returns its launches and result."""
+    cfg = parse_config(POD_SCALE)
+    n_steps = cfg.n_steps
     N, stride = cfg.section("single_N")["N"], cfg.tpu.history_stride
     n_segs, seg_outer = runner.plan_segments(-(-n_steps // stride),
                                              cfg.n_runs, stride,
@@ -1217,7 +1538,7 @@ def pod_scale_slice():
           f"boards equal); {got[metropolis_pallas]} kernel launches; "
           f"{res.moves_per_sec:.4e} moves/s; last progress line: "
           f"{log.getvalue().strip().splitlines()[-2]}")
-    return got[metropolis_pallas]
+    return got[metropolis_pallas], res
 
 
 def beyond_reference_slice():
@@ -3325,9 +3646,19 @@ def main():
         full3d_launches = full3d_slice()
     with timed("slice qmax"):
         qmax_search()
+    with timed("slice qmax push killed and resumed"):
+        full3d_launches += qmax_push_slice()
+    with timed("slice floors campaign"):
+        floors = floors_campaign_slice()
+        full3d_launches += floors[full3d_shared]
+        board_launches += floors[board_shared]
+    with timed("slice committed certificates"):
+        committed_certificates()
     optional_modules()
     with timed("slice pod scale"):
-        metropolis_launches = pod_scale_slice()
+        metropolis_launches, pod_result = pod_scale_slice()
+    with timed("slice pod scale killed and resumed"):
+        metropolis_launches += pod_scale_resume(pod_result)
     with timed("slice beyond reference"):
         metropolis_launches += beyond_reference_slice()
     with timed("slice full3d pairs"):

@@ -19,8 +19,9 @@ Layers (bottom-up):
     search/   parallel tempering (replica exchange)
     dist/     run_chains / run_experiment on one device
     experiments/  config-driven experiment drivers, plots and CSVs
-    cli/      the competition and experiments CLIs
-    utils/    throughput reporting
+    cli/      the competition and experiments CLIs, the schedules figure
+    utils/    checkpoint/resume, throughput reporting
+    tools/    measurement tools and the Q_max and floors campaign tools
 
 Every function that allocates takes an explicit ``device``; the CPU path is
 the kernels' plain-torch twins and is taken only when ``device="cpu"`` is

@@ -7,14 +7,16 @@ CLI's four samplers and its default ``tables``: ``tables`` and ``naive`` (the
 scan samplers, independent chains with full history for <= 64 runs),
 ``pallas`` (independent chains) and ``pallas_shared`` (shared sites, the
 throughput tier).  ``--mcmc-type board|full_3d``, ``--q`` and ``--tempering``
-(``pallas_shared`` only) with ``--exchange-interval`` run as in the JAX CLI;
-``--mesh`` and ``--checkpoint-dir`` are not ported yet and are refused.
+(``pallas_shared`` only) with ``--exchange-interval`` run as in the JAX CLI.
+``--checkpoint-dir DIR`` saves the search's state there (at most every 30
+s) and a rerun with the same flags resumes it; ``--mesh`` is not ported yet
+(ROADMAP.md queue 1 item 7) and is refused.
 
     python -m mcqueens_torch.cli.competition [--n 15] [--n-runs 10]
         [--n-steps 100000] [--beta-start 1.0] [--beta-end 3.0] [--seed 42]
         [--kernel tables|naive|pallas|pallas_shared]
         [--mcmc-type board|full_3d] [--q Q] [--tempering L] [--device cuda]
-        [--outdir .]
+        [--checkpoint-dir DIR] [--outdir .]
 """
 
 from __future__ import annotations
@@ -76,14 +78,9 @@ def main(argv=None) -> int:
                              "(their plain-torch twins)")
     args = parser.parse_args(argv)
 
-    not_ported = {
-        "--mesh": args.mesh,
-        "--checkpoint-dir": args.checkpoint_dir is not None,
-    }
-    refused = [flag for flag, given in not_ported.items() if given]
-    if refused:
-        parser.error(f"{', '.join(refused)}: not ported to mcqueens_torch "
-                     "yet (ROADMAP.md queue 1); use python -m "
+    if args.mesh:
+        parser.error("--mesh: not ported to mcqueens_torch yet (ROADMAP.md "
+                     "queue 1 item 7); use python -m "
                      "mcqueens.cli.competition")
     if args.q is not None:
         if args.mcmc_type != "full_3d":
@@ -109,6 +106,26 @@ def main(argv=None) -> int:
     n_bins = args.n_bins
     if n_bins is None:
         n_bins = max(1, min(100, (2 ** 31 - 1) // max(args.n_steps, 1)))
+
+    checkpointer = None
+    if args.checkpoint_dir:
+        from mcqueens_torch.utils.checkpoint import Checkpointer
+
+        # The tag carries every run-shaping flag so two different searches
+        # sharing a --checkpoint-dir never clobber (or silently ignore)
+        # each other's file; the spec fingerprint inside the checkpoint
+        # still guards against anything the tag misses.
+        tag = (f"competition_{args.mcmc_type}_N{args.n}"
+               + (f"_Q{args.q}" if args.q is not None else "")
+               + f"_r{args.n_runs}"
+               f"_st{args.n_steps}_b{args.beta_start:g}-{args.beta_end:g}"
+               f"_s{args.seed}_{args.kernel}"
+               + (f"_T{args.tempering}" if args.tempering else ""))
+        # History chunks are written once each, so a save costs the carry;
+        # a 30 s floor between writes keeps large searches from spending
+        # their time serializing state and bounds a kill's loss to ~30 s.
+        checkpointer = Checkpointer(args.checkpoint_dir, tag=tag,
+                                    min_interval_s=30.0)
 
     initial_states = None
     if args.resume_from:
@@ -143,6 +160,7 @@ def main(argv=None) -> int:
             ladder, device=args.device, swap_seed=args.seed,
             initial_states=initial_states, verbose=True,
             exchange_interval=args.exchange_interval,
+            checkpointer=checkpointer,
         )
         order = np.argsort(out["best_energy"], kind="stable")
         shown = [int(out["best_energy"][r]) for r in order[:20]]
@@ -174,6 +192,7 @@ def main(argv=None) -> int:
         res = runner.run_chains(
             args.seed + np.arange(args.n_runs, dtype=np.uint32), spec,
             device=args.device, verbose=True, initial_states=initial_states,
+            checkpointer=checkpointer,
         )
     else:
         res = runner.run_experiment(
@@ -182,7 +201,7 @@ def main(argv=None) -> int:
             device=args.device, mcmc_type=args.mcmc_type,
             early_stop_patience=args.early_stop_patience,
             verbose=True, history_stride=stride, kernel=args.kernel,
-            n_bins=n_bins, Q=args.q,
+            n_bins=n_bins, checkpointer=checkpointer, Q=args.q,
         )
 
     order = np.argsort(res.best_energy, kind="stable")

@@ -4,8 +4,9 @@ Same config schema, drivers and outputs (``figures/``, ``results/*.csv``
 under ``--outdir``) as ``python -m mcqueens.cli.experiments``; the runs go
 through the port's kernels on ``--device`` (default ``cuda``; ``cpu`` runs
 the kernels' plain-torch twins).  ``--mesh`` and ``--profile-dir`` are not
-ported yet and are refused, as are the config's ``tpu.mesh``,
-``tpu.checkpoint_dir`` and ``tpu.profile_dir``.
+ported yet (ROADMAP.md queue 1 item 7) and are refused, as are the
+config's ``tpu.mesh`` and ``tpu.profile_dir``; ``tpu.checkpoint_dir`` makes
+the sweep resumable (one checkpoint a cell).
 
     python -m mcqueens_torch.cli.experiments [--config config.yaml]
         [--outdir .] [--device cuda]
@@ -33,7 +34,7 @@ def main(argv=None) -> int:
     refused = [flag for flag, given in not_ported.items() if given]
     if refused:
         parser.error(f"{', '.join(refused)}: not ported to mcqueens_torch "
-                     "yet (ROADMAP.md queue 1); use python -m "
+                     "yet (ROADMAP.md queue 1 item 7); use python -m "
                      "mcqueens.cli.experiments")
 
     from mcqueens_torch.experiments import drivers

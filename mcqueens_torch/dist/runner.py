@@ -27,6 +27,7 @@ from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.core import rng as rng_mod
 from mcqueens_torch.kernels import (board_shared, full3d_pallas,
                                    full3d_shared, metropolis_pallas)
+from mcqueens_torch.utils import checkpoint
 
 _MAX_SEGMENT_ELEMS = 64 * 1024 * 1024
 _MAX_SEGMENT_PROPOSALS = 2 ** 31
@@ -116,9 +117,11 @@ def validate_initial_states(initial_states, spec: ChainSpec, n_runs: int):
         what = "heights" if board else "coordinates"
         raise ValueError(f"All {what} must be in [0, {spec.N - 1}]")
     if not board:
-        for r in range(n_runs):
-            if len({tuple(q) for q in arr[r].tolist()}) != spec.q_eff:
-                raise ValueError("Two queens occupy the same (i,j,k) cell.")
+        N = spec.N
+        cells = np.sort((arr[..., 0].astype(np.int64) * N + arr[..., 1]) * N
+                        + arr[..., 2], axis=1)
+        if (np.diff(cells, axis=1) == 0).any():
+            raise ValueError("Two queens occupy the same (i,j,k) cell.")
     return arr.astype(np.int32)
 
 
@@ -165,16 +168,15 @@ def run_chains(
 ) -> ChainResult:
     """Run one chain per seed as one batch on ``device`` ("cpu" or "cuda").
 
-    ``mesh``, ``checkpointer`` and ``profile_dir`` are not ported yet
-    (ROADMAP.md queue 1 items 3 and 7) and raise if set.
+    ``checkpointer`` (a :class:`mcqueens_torch.utils.checkpoint.Checkpointer`)
+    saves the carry after every segment and resumes from a saved segment
+    when one matches this run.  ``mesh`` and ``profile_dir`` are not ported
+    yet (ROADMAP.md queue 1 item 7) and raise if set.
     """
     dev = _device(device)
     if mesh is not None:
         raise NotImplementedError("multi-device chain sharding is not "
                                   "ported yet (ROADMAP.md queue 1 item 7)")
-    if checkpointer is not None:
-        raise NotImplementedError("checkpointing is not ported yet "
-                                  "(ROADMAP.md queue 1 item 3)")
     if profile_dir is not None:
         raise NotImplementedError("profiler traces are not ported yet "
                                   "(ROADMAP.md queue 1 item 7)")
@@ -187,6 +189,8 @@ def run_chains(
     n_outer = spec.n_outer
     if verbose:
         min_segments = max(min_segments, 10)
+    if checkpointer is not None:
+        min_segments = max(min_segments, checkpointer.min_segments)
     n_segs, seg_outer = plan_segments(
         n_outer, n_runs, spec.history_stride, min_segments)
 
@@ -199,7 +203,14 @@ def run_chains(
                                  initial_states=initial_states, device=dev)
     e0 = carry.energy.reshape(-1).cpu().numpy()
     history_chunks = []
-    for seg in range(n_segs):
+    start_seg = 0
+    if checkpointer is not None:
+        ckpt_fp = checkpoint.spec_fingerprint(spec, seeds)
+        resumed = checkpointer.restore(carry, seg_outer=seg_outer,
+                                       fingerprint=ckpt_fp)
+        if resumed is not None:
+            carry, start_seg, history_chunks = resumed
+    for seg in range(start_seg, n_segs):
         carry, ys = mod.run_segment(carry, seg * seg_outer, spec, seg_outer)
         history_chunks.append(ys.cpu().numpy())  # (seg_outer, C)
         if verbose:
@@ -208,6 +219,9 @@ def run_chains(
             e = carry.energy[:n_runs].cpu().numpy()
             print(f"[mcqueens] step {done_steps}/{spec.n_steps}: "
                   f"mean E={e.mean():.2f} min E={e.min()}")
+        if checkpointer is not None:
+            checkpointer.save(carry, seg + 1, history_chunks,
+                              seg_outer=seg_outer, fingerprint=ckpt_fp)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.time() - t0

@@ -10,13 +10,14 @@ use it:
       history_stride: int
       n_bins: int
       mesh: false                 # multi-GPU sharding: not ported yet
-      checkpoint_dir: null        # checkpoint/resume: not ported yet
+      checkpoint_dir: null        # one resumable checkpoint a sweep cell
       profile_dir: null           # profiler traces: not ported yet
       allow_correlated_runs: bool # required (true) for pallas_shared
 
-``mesh``, ``checkpoint_dir`` and ``profile_dir`` set to anything but off
-raise ``NotImplementedError``.  ``yaml`` is imported only by
-:func:`load_config`, so a config built as a dict needs no YAML package.
+``mesh`` and ``profile_dir`` set to anything but off raise
+``NotImplementedError`` (ROADMAP.md queue 1 item 7).  ``yaml`` is imported
+only by :func:`load_config`, so a config built as a dict needs no YAML
+package.
 """
 
 from __future__ import annotations
@@ -133,12 +134,11 @@ def parse_config(raw: dict) -> Config:
             "statistically independent (the reference's n_runs contract). "
             "Use kernel 'pallas' or 'tables', or set "
             "tpu.allow_correlated_runs: true to accept correlated runs.")
-    for key, item in (("mesh", "item 7"), ("checkpoint_dir", "item 3"),
-                      ("profile_dir", "item 7")):
+    for key in ("mesh", "profile_dir"):
         if getattr(tpu, key):
             raise NotImplementedError(
                 f"tpu.{key}: not ported to mcqueens_torch yet (ROADMAP.md "
-                f"queue 1 {item}); leave it off or use python -m "
+                f"queue 1 item 7); leave it off or use python -m "
                 f"mcqueens.cli.experiments")
     return Config(raw=raw, experiment_type=experiment_type,
                   common=raw["common"], tpu=tpu)

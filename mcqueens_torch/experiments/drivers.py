@@ -13,6 +13,8 @@ JAX package's seed derivations exactly:
     ``base_seed + 10 * idx + sum(ord(c) for c in init_mode) % 1000``.
 
 ``device`` ("cuda" unless the caller asks for "cpu") goes to every run.
+With ``tpu.checkpoint_dir`` every cell saves its run there under its own
+tag and a rerun resumes it.
 :mod:`mcqueens_torch.experiments.plotting` is imported only where a figure
 is drawn; ``plot=False`` (every driver, :func:`run_from_config` included)
 draws none, for hosts without matplotlib.
@@ -25,17 +27,23 @@ import numpy as np
 from mcqueens_torch.core import schedules as sched_mod
 from mcqueens_torch.dist import runner
 from mcqueens_torch.experiments.config import Config, TpuConfig
+from mcqueens_torch.utils.checkpoint import Checkpointer
 
 
 def _run(tpu, N, n_steps, init_mode, schedule, n_runs, base_seed,
          mcmc_type, early_stop_patience, verbose, device):
     """One batched experiment with the tpu-section knobs applied."""
+    checkpointer = None
+    if tpu.checkpoint_dir:
+        # one checkpoint per sweep cell: resumable sweeps never collide
+        tag = f"{mcmc_type}_N{N}_{init_mode}_{schedule.kind}_s{base_seed}"
+        checkpointer = Checkpointer(tpu.checkpoint_dir, tag=tag)
     return runner.run_experiment(
         N=N, n_steps=n_steps, init_mode=init_mode, schedule=schedule,
         n_runs=n_runs, base_seed=base_seed, device=device,
         mcmc_type=mcmc_type, early_stop_patience=early_stop_patience,
         verbose=verbose, history_stride=tpu.history_stride,
-        kernel=tpu.kernel, n_bins=tpu.n_bins)
+        kernel=tpu.kernel, n_bins=tpu.n_bins, checkpointer=checkpointer)
 
 
 def run_single_n(cfg: Config, outdir: str = ".", *, device="cuda",

@@ -22,6 +22,7 @@ import torch
 from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.dist import runner as runner_mod
 from mcqueens_torch.kernels import prng
+from mcqueens_torch.utils import checkpoint
 
 _GROUP_K = prng._i32(0xB5297A4D)  # group-id stride
 _PAIR_K = prng._i32(0x1B873593)   # pair-id stride
@@ -102,16 +103,16 @@ def run_tempered(
     multiplies the ladder, an exchange sweep runs every
     ``exchange_interval`` segments, ``stop_at_energy`` ends the search after
     the first round whose best energy is at or below it, and
-    ``record_betas`` adds the per-round beta assignments.  ``mesh`` and
-    ``checkpointer`` are not ported yet and raise.
+    ``record_betas`` adds the per-round beta assignments.  ``checkpointer``
+    saves (carry, betas) after each round at its cadence and resumes a
+    killed search bit for bit; no RNG state is stored, since the swap stream
+    is a pure function of (swap_seed, round).  ``mesh`` is not ported yet
+    and raises.
     """
     dev = runner_mod._device(device)
     if mesh is not None:
         raise NotImplementedError("multi-device chain sharding is not "
                                   "ported yet (ROADMAP.md queue 1 item 7)")
-    if checkpointer is not None:
-        raise NotImplementedError("checkpointing is not ported yet "
-                                  "(ROADMAP.md queue 1 item 3)")
     if spec.kernel != "pallas_shared":
         raise ValueError("run_tempered requires kernel='pallas_shared'")
     kmod = runner_mod._modules(spec)
@@ -134,8 +135,26 @@ def run_tempered(
     history = [carry.energy.reshape(1, -1).cpu().numpy()]
     betas_hist = []
     n_rounds = -(-spec.n_outer // exchange_interval)
+    start_round = 0
+    if checkpointer is not None:
+        fp = checkpoint.spec_fingerprint(spec, seeds)
+        # record_betas changes the checkpoint payload (the beta history
+        # rides in the extras), so it is part of the run identity.
+        fp = checkpoint.extend_fingerprint(
+            fp, ladder, np.uint32(swap_seed), np.int64(exchange_interval),
+            np.bool_(record_betas))
+        resumed = checkpointer.restore(carry, seg_outer=exchange_interval,
+                                       fingerprint=fp,
+                                       n_extras=2 if record_betas else 1)
+        if resumed is not None:
+            carry, start_round, chunks, extras = resumed
+            betas = torch.from_numpy(
+                np.asarray(extras[0], np.float32)).to(dev)
+            if record_betas:
+                betas_hist = list(extras[1])
+            history = list(chunks)
     t0 = time.time()
-    for r in range(n_rounds):
+    for r in range(start_round, n_rounds):
         seg0 = r * exchange_interval
         n_seg = min(exchange_interval, spec.n_outer - seg0)
         carry, ys = kmod.run_segment_tempered(carry, betas, seg0, spec,
@@ -147,6 +166,14 @@ def run_tempered(
         if r + 1 < n_rounds:
             betas = exchange(betas, carry.energy.reshape(-1),
                              round_key(swap_seed, r), n_levels, r % 2)
+        if checkpointer is not None:
+            extras = (betas.cpu().numpy(),)
+            if record_betas:
+                extras += (np.stack(betas_hist) if betas_hist
+                           else np.zeros((0, C), np.float32),)
+            checkpointer.save(carry, r + 1, history,
+                              seg_outer=exchange_interval, fingerprint=fp,
+                              extras=extras)
         if verbose and (r + 1) % max(1, n_rounds // 10) == 0:
             e = carry.energy.reshape(-1)[:n_runs].cpu().numpy()
             be = carry.best_energy.reshape(-1)[:n_runs].cpu().numpy()

@@ -15,9 +15,23 @@
 
 Each runs on the card unless given ``--device cpu`` (the kernels' plain
 twins; no number of such a run is a device measurement) and writes its
-JSON under ``artifacts/h100/``, with the card's name and power limit.  The
-TPU's files in ``artifacts/`` are never read or written.  This module holds
-what they share: timing, the card's description and the output paths.
+JSON under ``artifacts/h100/``, with the card's name and power limit.
+
+The campaign tools, ports of the tools that produced the certificates and
+floors in ``artifacts/``:
+
+  * :mod:`.verify_board`: re-score exported boards with a straight-loop
+    oracle;
+  * :mod:`.qmax`, :mod:`.qmax_frontier`, :mod:`.qmax_push`,
+    :mod:`.qmax_campaign`: Q_max(N, 3) certificates, under
+    ``artifacts/h100/qmax/``;
+  * :mod:`.full3d_floors_campaign`: the tempered floors protocol, under
+    ``artifacts/h100/full3d_floors/`` and ``artifacts/h100/board_floors/``.
+
+The TPU's measurements in ``artifacts/`` are never read or written, at any
+depth; board files given to a tool as a warm start or to re-score may come
+from anywhere.  This module holds what the tools share: timing, the card's
+description and the output paths.
 """
 
 from __future__ import annotations
@@ -136,16 +150,20 @@ def card(dev: torch.device) -> dict:
 
 
 def output_path(path) -> Path:
-    """``path`` as a Path, refused if it lies in the TPU's ``artifacts/``
-    directory itself (the port's results go to ``artifacts/h100/``)."""
+    """``path`` as a Path, refused if it lies anywhere under the TPU's
+    ``artifacts/`` directory, at any depth, other than under
+    ``artifacts/h100/`` (the port's results; the campaign tools' roots are
+    its ``qmax/``, ``full3d_floors/`` and ``board_floors/``)."""
     p = Path(path)
-    if p.resolve().parent == _TPU_ARTIFACTS.resolve():
+    full = p.resolve()
+    if (full.is_relative_to(_TPU_ARTIFACTS.resolve())
+            and not full.is_relative_to(H100_ARTIFACTS.resolve())):
         raise ValueError(f"{p}: artifacts/ holds the TPU's results; the "
                          f"port reads and writes under {H100_ARTIFACTS}")
     return p
 
 
-input_path = output_path  # the same rule for the files a tool reads
+input_path = output_path  # the same rule for the measurements a tool reads
 
 
 def shown(path) -> str:

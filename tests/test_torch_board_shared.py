@@ -231,8 +231,12 @@ def test_competition_cli_parity(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--tempering", "4", "--mesh"], ["--mesh"], ["--checkpoint-dir", "ck"],
-    ["--mcmc-type", "full_3d", "--checkpoint-dir", "ck"], ["--q", "5"],
+    ["--tempering", "4", "--mesh"], ["--mesh"],
+    # --checkpoint-dir runs now (tests/test_torch_checkpoint.py); the mesh
+    # beside it is still refused
+    ["--checkpoint-dir", "ck", "--mesh"],
+    ["--mcmc-type", "full_3d", "--checkpoint-dir", "ck", "--mesh"],
+    ["--q", "5"],
     # the scan kernels run now (the default is tables); tempering still
     # needs pallas_shared, and the mesh is still refused
     ["--kernel", "tables", "--tempering", "4"],
@@ -246,9 +250,9 @@ def test_cli_refuses_unported_flags(flags, capsys):
 
 def test_runner_refuses_unported_paths():
     _, spec = _specs("n5")
-    for kw in (dict(mesh=object()), dict(checkpointer=object()),
-               dict(profile_dir="trace")):
-        with pytest.raises(NotImplementedError):
+    # checkpointer= runs now (tests/test_torch_checkpoint.py).
+    for kw in (dict(mesh=object()), dict(profile_dir="trace")):
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             runner.run_chains(SEEDS, spec, device="cpu", **kw)
     # Every sampler is ported: the per-chain kernel="pallas" and the scan
     # kernels "tables" and "naive" run, for boards and full-3D placements.

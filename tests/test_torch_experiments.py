@@ -179,17 +179,20 @@ def test_config_guards_match_jax():
         with pytest.raises(ValueError, match="'single_N' section"):
             parse({k: v for k, v in base.items()
                    if k != "single_N"}).section("single_N")
-    for tpu in ({"mesh": True}, {"mesh": 2}, {"checkpoint_dir": "ck"},
-                {"profile_dir": "trace"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for tpu in ({"mesh": True}, {"mesh": 2}, {"profile_dir": "trace"},
+                {"checkpoint_dir": "ck", "mesh": True}):
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             config.parse_config({**base, "tpu": tpu})
     assert config.parse_config({**base, "tpu": {
         "mesh": False, "checkpoint_dir": None, "profile_dir": None}})
+    # checkpoint_dir is ported (tests/test_torch_checkpoint.py)
+    assert config.parse_config({**base, "tpu": {
+        "checkpoint_dir": "ck"}}).tpu.checkpoint_dir == "ck"
 
 
 def test_repo_configs_load():
-    """The committed configs parse in the port; pod_scale's mesh and
-    checkpoint_dir are refused until they are ported."""
+    """The committed configs parse in the port; pod_scale's mesh is refused
+    until it is ported (its checkpoint_dir is ported)."""
     for name in ("config.yaml", "configs/reference_parity.yaml",
                  "configs/beyond_reference.yaml"):
         path = os.path.join(REPO, name)

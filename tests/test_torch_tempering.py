@@ -178,8 +178,8 @@ def test_run_tempered_stop_at_energy_and_warm_start():
 
 def test_run_tempered_refuses():
     _, spec = _specs("board")
+    # checkpointer= runs now (tests/test_torch_checkpoint.py).
     for kw, err in ((dict(mesh=object()), NotImplementedError),
-                    (dict(checkpointer=object()), NotImplementedError),
                     (dict(exchange_interval=0), ValueError)):
         with pytest.raises(err):
             tempering.run_tempered(SEEDS, spec, LADDER, device="cpu", **kw)
