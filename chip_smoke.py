@@ -10,7 +10,8 @@ and the script exits non-zero without printing a result:
    ``nvidia-smi``'s name and power limit, and the torch/CUDA versions.
 2. build: compiles every ``mcqueens_torch/kernels/csrc/*.cu`` (one nvcc per
    source, in parallel, linked into one library) and prints each kernel's
-   registers and spills.
+   registers and spills, the full-3D shared kernel's at each of its holds
+   (8, 16 and 32: a template parameter).
 3a. probes: the measurement tools' four probe kernels
    (``kernels/probes.py``: A int32 doublings, B the attack test in three
    forms, C mul/add chains, D the production-shaped sweep) against their
@@ -19,7 +20,9 @@ and the script exits non-zero without printing a result:
    of each template instance's hot loop (``cuobjdump -sass``), which must
    issue at least half as many int32 instructions per evaluation as the
    TPU source has operations; the time under twice the trip count (must be
-   1.8-2.2x).  Each probe's bound counts the TPU source's operations.
+   1.8-2.2x: the least of 5 alternated pairs of launches of each trip
+   count, each pair behind its own spin kernel, with the spread of each).
+   Each probe's bound counts the TPU source's operations.
    The gather and slice tools' kernels (``kernels/probes_mem.py``: the
    gather and the gather chain, ``csrc/probe_gather.cu``; the slice copy in
    load and store mode, the slice loop, the reduce and the PRNG draws in
@@ -47,7 +50,9 @@ and the script exits non-zero without printing a result:
    A's and the threefry draws' must issue at least 40% of their int32
    instructions on each (IADD3, SHF, LOP3 on the ALU pipe, IMAD on the FMA
    pipe).  The scan samplers' SASS digest is printed (the threefry probe
-   shares their header).
+   shares their header), and the digest of each of the full-3D shared
+   kernel's hold-8 instances (``pair_scan_slice.py --only sass`` prints the
+   same for a parent checkout).
    Kernel A runs at every instance in both modes, with odd and even inner
    counts, and the reduce at both its instances (the column in registers
    up to 64 rows, the staged strip above); the reduce's bound counts the
@@ -126,7 +131,11 @@ and the script exits non-zero without printing a result:
    may improve and no best plane may be written; and the campaign chunk's
    shape (N=15, Q=225, 65536 chains, one 62500-step launch from step 6.25M),
    held against the twin on a sample of 128 chains.  Each instance's
-   registers must stay within the 128 its layout rule reckons with.
+   registers must stay within the 128 its layout rule reckons with.  The
+   hold: one 1024-step launch (N=15, Q=225, 4096 chains, launch 2 of the
+   campaign's schedule) at each hold, ``_HOLD`` set as the probe of the
+   hold sets it, every field equal to the twin's, the kernel's time beside
+   its bound; a hold of 12, and hold 16 on a 44-step launch, must raise.
    Scan samplers (kernels/csrc/board_scan.cu, full3d_scan.cu), each shape
    in both modes (tables and naive) against the twin over a whole segment
    of several chunks, and tables == naive on the card: config.yaml's cells
@@ -195,27 +204,39 @@ and the script exits non-zero without printing a result:
    section as full_3d with kernel tables (N=12, 10 runs, 1M steps), both
    uncut.  Configs are dicts through ``parse_config`` (config.yaml through
    ``load_config``); every reported best state is re-scored by the oracle.
-5. throughput: proposed moves/s of the board kernel at ``bench.py``'s
-   configuration (N=16, linear 1->5 over 2^24 steps, 32768-step chunks) and
-   of the full-3D kernel at the campaign's (N=15, Q=225, linear 0.8->7 over
-   8M steps, 62500-step chunks), each at two chain counts; then the
-   per-chain kernels at the same board configuration and at N=15, Q=225
-   with 8192-step chunks, the per-chain board kernel first alone at the
-   main paths' launches (the pod-scale launch and the beyond-reference
+   Then the trace: ``runner.run_chains`` (board, pallas_shared, N=16, 4096
+   chains, two 2048-step chunks) without ``profile_dir`` and twice with it,
+   every result array equal; the trace must name the board kernel among the
+   card's kernels (its walls printed: the trace's cost).
+5. throughput: proposed moves/s of the board kernel by
+   ``mcqueens_torch.bench._measure`` (``bench.py``'s configuration: N=16,
+   linear 1->5 over 2^24 steps, 32768-step chunks, 3 s) at 32768 and 4096
+   chains, beside the kernel alone on a chunk (at 32768 chains the bench
+   must reach 0.95 of the rate the chunk implies), and of the full-3D
+   kernel at the campaign's (N=15, Q=225, linear 0.8->7 over 8M steps,
+   62500-step chunks), each at two chain counts; then the per-chain kernels
+   at the same board configuration (``bench._measure --kernel pallas``)
+   and at N=15, Q=225 with 8192-step chunks, the per-chain board kernel
+   first alone at the main paths' launches (the pod-scale launch and the beyond-reference
    launches at N=16 and N=32, three times each on a fresh state behind a
    spin kernel), each with its share of the bound; then each scan kernel alone at config.yaml's
    launch shape (10 chains, stride 1, 100000 steps, from step 0 and
    900000: microseconds per step; board N=12 and 18, full-3D the beta
    pairs' N=12/Q=144); then both scan kernels, in both
    modes, at 4096 chains (board N=16 over 2^24 steps, full-3D N=12/Q=144
-   over 1M).
+   over 1M).  Then ``python -m mcqueens_torch.bench --quick`` for each
+   ``--kernel``, a process each, the four at once: each last line must
+   parse, with a positive rate.
 6. the measurement tools: ``main(["--quick", "--json", tmp])`` of
    ``mcqueens_torch.tools.probe_full3d_cap``, ``probe_full3d_alternatives``,
    ``probe_swar_sweep`` (both reading this run's fit), ``roofline``,
    ``probe_gather`` and ``probe_slice`` (every probe must say OK and
    correct), the probe launch counts zeroed before and read after; prints
    each JSON.  The memory bandwidth and int32 rates they measured must stay
-   below the constants the bounds divide by.
+   below the constants the bounds divide by.  Then ``probe_hold.main`` at
+   holds 8, 16 and 32 (1 s each; every hold's energies exact) and
+   ``probe_largeN.main`` at N=24 and N=32 (2 s each; the oracle checks), the
+   launches counted.
 
 Then one JSON line describing the kernels (the six, the board kernel's
 freeze mode on a row of its own, and thirteen probe rows: kernel A's split
@@ -247,6 +268,7 @@ import time  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from mcqueens_torch import bench  # noqa: E402
 from mcqueens_torch.chain import board as board_chain  # noqa: E402
 from mcqueens_torch.chain import full3d as full3d_chain  # noqa: E402
 from mcqueens_torch.chain.spec import ChainSpec  # noqa: E402
@@ -267,9 +289,11 @@ from mcqueens_torch.tools import (probe_full3d_alternatives,  # noqa: E402
                                   probe_slice, probe_swar_sweep, roofline)
 from mcqueens_torch.tools import (full3d_floors_campaign,  # noqa: E402
                                   qmax_frontier, qmax_push, verify_board)
+from mcqueens_torch.tools import probe_hold, probe_largeN  # noqa: E402
 from mcqueens_torch.tools import qmax as qmax_tool  # noqa: E402
 from mcqueens_torch.search.tempering import geometric_ladder  # noqa: E402
 from mcqueens_torch.utils.checkpoint import Checkpointer  # noqa: E402
+from pair_scan_slice import full3d_sass_digests  # noqa: E402
 
 KERNELS = {
     board_shared: dict(
@@ -568,11 +592,11 @@ def full3d_pallas_jax_ops(ln):
 def full3d_work(ln):
     """(int32 ops, bytes) of one shared-site full-3D launch: ~22 int32 ops
     per (queen, target) pair, with the targets of a chain the candidates of
-    its active steps plus the mover's cell once per 8-step chunk (the JAX
-    kernel's count, ``docs/DESIGN.md``); occupancy is read off the
-    coordinates."""
-    a = ln.active
-    targets = int((a + (a + 7) // 8).sum())
+    its active steps plus the mover's cell once per chunk of the hold's
+    steps (``full3d_shared._HOLD`` as the launch ran; the JAX kernel's
+    count, ``docs/DESIGN.md``); occupancy is read off the coordinates."""
+    a, hold = ln.active, full3d_shared._HOLD
+    targets = int((a + (a + hold - 1) // hold).sum())
     return targets * ln.spec.q_eff * 22, full3d_bytes(ln, 0)
 
 
@@ -969,6 +993,19 @@ def reported_best(text):
     return int(re.search(r"Best energies: \[(-?\d+)", text).group(1))
 
 
+@contextlib.contextmanager
+def held(hold):
+    """``full3d_shared._HOLD`` set to ``hold`` in the body (the launcher
+    and the twin read it at each launch, as the probe of the hold sets
+    it)."""
+    before = full3d_shared._HOLD
+    full3d_shared._HOLD = hold
+    try:
+        yield
+    finally:
+        full3d_shared._HOLD = before
+
+
 def zero_launches():
     for mod in KERNELS:
         mod.KERNEL_LAUNCHES = 0
@@ -1030,6 +1067,22 @@ def warm_up():
             full3d_shared.segment_cuda(
                 st, 0, 8, spec, beta,
                 forced=full3d_shared.Layout(lanes, cpb, smem))
+    # and one a team size at each longer hold, on a launch long enough for
+    # it
+    n = full3d_shared.LONG_LAUNCH
+    spec = spec_of(4, n, n, const(n, 1.0), mcmc_type="full_3d")
+    st = full3d_shared.segment_state(full3d_shared.init_carry_batch(
+        np.arange(4, dtype=np.uint32), spec, device="cuda"))
+    beta = chunk_betas(spec.schedule, 0, n, "cuda")
+    for hold in full3d_shared.HOLDS[1:]:
+        with held(hold):
+            for lanes in full3d_shared.LANES:
+                cpb = max(1, 32 // lanes)
+                for smem in (full3d_shared.cta_smem_bytes(spec.q_eff, lanes,
+                                                          cpb), 0):
+                    full3d_shared.segment_cuda(
+                        st, 0, n, spec, beta,
+                        forced=full3d_shared.Layout(lanes, cpb, smem))
     torch.cuda.synchronize()
     zero_launches()
     phase("build", f"one warm-up launch of every kernel: "
@@ -2927,10 +2980,33 @@ def probe_compare(cases):
     return rows
 
 
+SCALING_PAIRS = 5
+
+
+def pair_ms(fn1, fn2, reps=3):
+    """Milliseconds per call of ``fn1`` and then of ``fn2``, ``reps`` calls
+    each, behind one spin kernel (as :func:`device_ms`), so that neither
+    waits for the host."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(5_000_000)
+    events[0].record()
+    for fn, end in ((fn1, events[1]), (fn2, events[2])):
+        for _ in range(reps):
+            fn()
+        end.record()
+    torch.cuda.synchronize()
+    return (events[0].elapsed_time(events[1]) / reps,
+            events[1].elapsed_time(events[2]) / reps)
+
+
 def probe_scaling(rows):
     """Time each loop kernel at its timing shape with its trip count and
-    with twice it: the ratio must lie in [1.8, 2.2], else the compiler cut
-    the loop."""
+    with twice it, in :data:`SCALING_PAIRS` alternated pairs, each behind
+    its own spin kernel: the ratio of the two least times must lie in [1.8,
+    2.2], else the compiler cut the loop.  The least of several pairs, not
+    the mean of one run each, so that one slow reading (a clock dip) cannot
+    fail an honest kernel."""
     saved = dict(probes.LAUNCHES), dict(probes_mem.LAUNCHES)
     for key, row in rows.items():
         meta = PROBES[key]
@@ -2940,11 +3016,16 @@ def probe_scaling(rows):
         kw1 = dict(row["kw"])
         kw2 = dict(kw1, **{trip: 2 * kw1[trip]})
         launcher(*inputs, **kw2)
-        t1 = device_ms(lambda: launcher(*inputs, **kw1), reps=3)
-        t2 = device_ms(lambda: launcher(*inputs, **kw2), reps=3)
+        pairs = [pair_ms(lambda: launcher(*inputs, **kw1),
+                         lambda: launcher(*inputs, **kw2))
+                 for _ in range(SCALING_PAIRS)]
+        t1s, t2s = zip(*pairs)
+        t1, t2 = min(t1s), min(t2s)
         row["scaling"] = t2 / t1
         phase("probes", f"{row['label']}: {trip} x2 -> time x{t2 / t1:.3f} "
-              f"({t1:.4f} -> {t2:.4f} ms)")
+              f"(least of {SCALING_PAIRS} alternated pairs: {t1:.4f} -> "
+              f"{t2:.4f} ms; spread {max(t1s) / t1 - 1:.2%} and "
+              f"{max(t2s) / t2 - 1:.2%})")
         if not 1.8 <= t2 / t1 <= 2.2:
             raise AssertionError(f"{row['label']}: time scales x{t2 / t1:.3f}"
                                  f" under 2x {trip}, not 1.8-2.2")
@@ -3083,6 +3164,207 @@ def check_rates(outs, bounds):
                                  f"constant {limit:.4e}")
 
 
+def hold_cases(bounds):
+    """The full-3D shared kernel at each hold (``_HOLD`` set as the probe
+    of the hold sets it) on one launch of 1024 steps, the least a hold
+    above 8 takes (N=15, Q=225, 4096 chains, launch 2 of the campaign's
+    linear 0.8 -> 7 over 8M steps), against the twin: every state field
+    equal, the kernel's time beside its bound.  Then the refusals: a hold
+    outside (8, 16, 32), and hold 16 on a 44-step launch, must raise."""
+    n, horizon = full3d_shared.LONG_LAUNCH, 8_000_000
+    spec = spec_of(15, horizon, n, lin(horizon, 0.8, 7.0),
+                   mcmc_type="full_3d")
+    out = {}
+    for hold in full3d_shared.HOLDS:
+        name = f"full3d hold {hold} N=15 Q=225 C=4096 {n} steps"
+        with held(hold):
+            res = compare_case(full3d_shared, name, spec, 4096, 2, 77)
+            bound_ms, bound_by = bounds.of(*res["work"])
+        phase("hold", f"{name}: kernel {res['kernel_ms']:.3f} ms = "
+              f"{res['ln'].proposals / res['kernel_ms'] * 1e3:.4e} proposed "
+              f"moves/s; bound {bound_ms:.3f} ms ({bound_by}) = "
+              f"{bound_ms / res['kernel_ms']:.3f} of the kernel's time"
+              f"{shared_note(res['layout'])}")
+        out[name] = dict(res, mod=full3d_shared)
+    st = full3d_shared.segment_state(res["init"])
+    for hold, steps in ((12, n), (16, 44)):
+        beta = chunk_betas(spec.schedule, 0, steps, "cuda")
+        with held(hold):
+            try:
+                full3d_shared.segment_cuda(st, 0, steps, spec, beta)
+            except ValueError as e:
+                phase("hold", f"hold {hold} on a {steps}-step launch "
+                      f"refused: {e}")
+            else:
+                raise AssertionError(f"hold {hold} on a {steps}-step launch "
+                                     f"ran")
+    return out
+
+
+RESULT_ARRAYS = ("energy_history", "history_steps", "history_len",
+                 "final_energy", "final_state", "best_energy", "best_state",
+                 "steps_to_best", "stop_step", "accept_bins", "total_bins")
+
+
+def trace_slice():
+    """``runner.run_chains`` (board, pallas_shared, N=16, 4096 chains, two
+    2048-step chunks) without ``profile_dir`` and twice with it (the first
+    traced run of a process also starts the profiler): every result array
+    equal, and the trace must name the board kernel among the card's
+    kernels.  Prints the walls (init, the final synchronise and the trace's
+    export included) and the kernel time the trace holds.  Returns the
+    board kernel's launches, all three runs."""
+    spec = spec_of(16, 4096, 2048, lin(4096, 1.0, 5.0))
+    seeds = np.arange(4096, dtype=np.uint32)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = runner.run_chains(seeds, spec, device="cuda")
+    plain_s = time.perf_counter() - t0
+    traced_s = []
+    for _ in range(2):
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            got = runner.run_chains(seeds, spec, device="cuda",
+                                    profile_dir=d)
+            traced_s.append(time.perf_counter() - t0)
+            (name,) = [f for f in os.listdir(d)
+                       if f.endswith(".pt.trace.json")]
+            size = os.path.getsize(os.path.join(d, name))
+            with open(os.path.join(d, name)) as f:
+                events = json.load(f)["traceEvents"]
+        for field in RESULT_ARRAYS:
+            if not np.array_equal(getattr(got, field), getattr(want, field)):
+                raise AssertionError(f"trace: {field} differs from the "
+                                     f"untraced run")
+    launches = check_launches("trace", {board_shared: 6})
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ours = [e for e in kernels if "board_shared_kernel" in e["name"]]
+    if len(ours) != 2:
+        raise AssertionError(f"trace: {len(ours)} board_shared_kernel events"
+                             f" of {len(kernels)} kernel events, expected 2: "
+                             f"{sorted({e['name'] for e in kernels})}")
+    phase("trace", f"run_chains N=16 C=4096 2 x 2048 steps: untraced "
+          f"{plain_s:.3f} s, traced {traced_s[0]:.3f} s (the profiler's "
+          f"start included) and {traced_s[1]:.3f} s (trace written: {size} "
+          f"bytes, {len(events)} events); result arrays equal; the trace's "
+          f"{len(kernels)} kernel events name {ours[0]['name']!r}, "
+          f"{sum(e['dur'] for e in ours) / 1e3:.3f} ms of it in 2 launches")
+    return launches[board_shared]
+
+
+def bench_throughput(mod, bounds):
+    """``bench._measure`` of the board kernel (``pallas_shared``) or the
+    per-chain one (``pallas``) at 32768 and 4096 chains, 3 s each, the
+    launches counted; then the kernel alone on the second chunk of a fresh
+    state of the same configuration (CUDA events), its implied rate and
+    share of its bound.  At 32768 chains the shared-site kernel's bench
+    rate must reach 0.95 of the rate its chunk time implies."""
+    kernel = "pallas_shared" if mod is board_shared else "pallas"
+    seg = 32768
+    for chains in (32768, 4096):
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        rate = bench._measure(16, chains, seg, 3.0, kernel)
+        n = mod.KERNEL_LAUNCHES
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _, spec, carry = bench._setup(16, chains, seg, kernel)
+        carry, _ = mod.run_segment(carry, 0, spec, 1)
+        st = mod.segment_state(carry)
+        beta = chunk_betas(spec.schedule, seg, seg, "cuda")
+        before = snapshot(st, mod in PER_CHAIN)
+        k_ms = cuda_ms(lambda: mod.segment_cuda(st, seg, seg, spec, beta))
+        ln = launch_of(spec, before, snapshot(st, mod in PER_CHAIN), seg,
+                       seg)
+        bound_ms, bound_by = bounds.of(*WORK[mod](ln))
+        implied = seg * chains / k_ms * 1e3
+        phase("throughput", f"bench._measure N=16 {kernel} chains={chains}:"
+              f" {rate:.4e} proposed moves/s ({n} launches, peak device "
+              f"memory {peak:.3f} GiB); kernel alone {k_ms:.1f} ms per "
+              f"{seg}-step chunk = {implied:.4e} moves/s; bench / kernel "
+              f"alone = {rate / implied:.4f}; bound {bound_ms:.1f} ms "
+              f"({bound_by}) = {bound_ms / k_ms:.3f} of the kernel's time")
+        if n < 2:
+            raise AssertionError(f"bench {kernel}: {n} kernel launches")
+        if mod is board_shared and chains == 32768 and rate < 0.95 * implied:
+            raise AssertionError(f"bench {kernel}: {rate:.4e} moves/s is "
+                                 f"under 0.95 of the kernel alone's "
+                                 f"{implied:.4e}")
+    phase("throughput", "nvidia-smi clocks.sm,power.draw,temperature.gpu: "
+          + nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
+
+
+def bench_cli():
+    """``python -m mcqueens_torch.bench --quick`` for each kernel, each in
+    a process of its own, the four at once (a smoke check: the rates share
+    the card): the last line must be the bench's JSON, with a positive rate
+    on the card."""
+    t0 = time.perf_counter()
+    procs = {kernel: subprocess.Popen(
+        [sys.executable, "-m", "mcqueens_torch.bench", "--quick", "--kernel",
+         kernel], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for kernel in bench.KERNELS}
+    try:
+        for kernel, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"bench --quick --kernel {kernel}: rc "
+                                     f"{proc.returncode}\n{err[-2000:]}")
+            record = json.loads(out.strip().splitlines()[-1])
+            if not (record["value"] > 0
+                    and record["unit"] == "moves/s/chip"):
+                raise AssertionError(f"bench --quick --kernel {kernel}: "
+                                     f"{record}")
+            phase("bench", f"python -m mcqueens_torch.bench --quick "
+                  f"--kernel {kernel}: {json.dumps(record)}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    phase("bench", f"four processes at once: {time.perf_counter() - t0:.1f} s")
+
+
+def probe_tools_slice():
+    """``probe_hold.main`` at each hold for 1 s, and ``probe_largeN.main``
+    at N=24 and N=32 for 2 s, on the card, JSON into a temporary directory,
+    the launch counts zeroed before each and read after: every hold's
+    energies exact, every size's oracle checks passed.  Returns the launches
+    of each tool's kernel."""
+    launches = {}
+    with tempfile.TemporaryDirectory() as d:
+        zero_launches()
+        for hold in full3d_shared.HOLDS:
+            path = os.path.join(d, f"hold{hold}.json")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = probe_hold.main(["--hold", str(hold), "--seconds", "1",
+                                      "--json", path])
+            with open(path) as f:
+                out = json.load(f)
+            if rc or not out["energy_exact"] or out["device"] != "cuda":
+                raise AssertionError(f"probe_hold --hold {hold}: {out}")
+            phase("tools", f"probe_hold --hold {hold} --seconds 1: "
+                  f"{json.dumps(out)}")
+        launches[full3d_shared] = full3d_shared.KERNEL_LAUNCHES
+        if full3d_shared._HOLD != 8:
+            raise AssertionError("probe_hold left _HOLD patched")
+        zero_launches()
+        path = os.path.join(d, "largeN.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = probe_largeN.main(["--seconds", "2", "--json", path])
+        with open(path) as f:
+            out = json.load(f)
+        if rc or set(out["sizes"]) != {"N24", "N32"} or not all(
+                row["oracle_checked"] for row in out["sizes"].values()):
+            raise AssertionError(f"probe_largeN: {out}")
+        launches[board_shared] = board_shared.KERNEL_LAUNCHES
+        phase("tools", f"probe_largeN --seconds 2: {json.dumps(out)}")
+    phase("tools", f"launches: full3d_shared_kernel {launches[full3d_shared]}"
+          f" (probe_hold), board_shared_kernel {launches[board_shared]} "
+          f"(probe_largeN)")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     # 1. device -----------------------------------------------------------
@@ -3105,44 +3387,45 @@ def main():
               f"{len(_build.SOURCES)} sources in {build_s:.2f} s")
         log = _build.library_path().with_suffix(".log")
         names = [k["name"] for k in KERNELS.values()] + PROBE_FUNCS
-        kernel, shared_instances = None, []
+        shared_instances = []
         regs, spills = collections.defaultdict(list), collections.Counter()
-        for ln in (log.read_text().splitlines() if log.exists() else []):
-            if "Compiling entry function" in ln:
-                kernel = next(n for n in names if mangled(n) in ln)
-                inst = re.search(r"(board|full3d)_shared_kernelILi(\d+)"
-                                 r"ELb([01])E", ln)
-                if inst:
-                    kernel = (f"{inst[1]}_shared_kernel<L={inst[2]}, "
-                              f"{'shared' if inst[3] == '1' else 'device'}"
-                              f" memory>")
-                    shared_instances.append(kernel)
-                inst = re.search(r"(metropolis|full3d_pallas)_kernelILi(\d+)EE",
-                                 ln)
-                if inst:
-                    kernel = f"{inst[1]}_kernel<L={inst[2]}>"
-                    shared_instances.append(kernel)
-            elif kernel in PROBE_FUNCS:
-                # one line per template instance: summarised below
-                regs[kernel] += map(int, re.findall(r"Used (\d+) reg", ln))
-                spills[kernel] += sum(map(int, re.findall(
-                    r"(\d+) bytes spill", ln)))
-            elif kernel and ("registers" in ln or "spill" in ln):
-                phase("build", f"{kernel}: {ln.strip()}")
-                used = re.search(r"Used (\d+) reg", ln)
-                mod = (full3d_pallas if kernel.startswith("full3d_pallas")
-                       else full3d_shared if kernel.startswith("full3d")
-                       else metropolis_pallas
-                       if kernel.startswith("metropolis") else board_shared)
-                if (kernel in shared_instances and used
-                        and int(used[1]) > mod.REGISTERS):
-                    raise AssertionError(
-                        f"{kernel} uses {used[1]} registers; its layout "
-                        f"rule reckons with {mod.REGISTERS}")
+        usage = _build.ptxas_usage() if log.exists() else {}
+        for entry, use in usage.items():
+            kernel = next(n for n in names if mangled(n) in entry)
+            if kernel in PROBE_FUNCS:
+                # one entry per template instance: summarised below
+                regs[kernel].append(use["registers"])
+                spills[kernel] += use["spill_bytes"]
+                continue
+            inst = re.search(r"(board|full3d)_shared_kernelILi(\d+)"
+                             r"ELb([01])E(?:Li(\d+)E)?", entry)
+            if inst:
+                hold = f", H={inst[4]}" if inst[4] else ""
+                kernel = (f"{inst[1]}_shared_kernel<L={inst[2]}, "
+                          f"{'shared' if inst[3] == '1' else 'device'}"
+                          f" memory{hold}>")
+                shared_instances.append(kernel)
+            inst = re.search(r"(metropolis|full3d_pallas)_kernelILi(\d+)EE",
+                             entry)
+            if inst:
+                kernel = f"{inst[1]}_kernel<L={inst[2]}>"
+                shared_instances.append(kernel)
+            phase("build", f"{kernel}: {use['registers']} registers, "
+                  f"{use['spill_bytes']} bytes of spill stores and loads")
+            mod = (full3d_pallas if kernel.startswith("full3d_pallas")
+                   else full3d_shared if kernel.startswith("full3d")
+                   else metropolis_pallas
+                   if kernel.startswith("metropolis") else board_shared)
+            if (kernel in shared_instances
+                    and use["registers"] > mod.REGISTERS):
+                raise AssertionError(
+                    f"{kernel} uses {use['registers']} registers; its layout "
+                    f"rule reckons with {mod.REGISTERS}")
         built = collections.Counter(k.split("_kernel<")[0]
                                     for k in shared_instances)
         want = {"board_shared": 2 * len(board_shared.LANES),
-                "full3d_shared": 2 * len(full3d_shared.LANES),
+                "full3d_shared": 2 * len(full3d_shared.LANES)
+                * len(full3d_shared.HOLDS),
                 "metropolis": len(metropolis_pallas.LANES),
                 "full3d_pallas": len(full3d_pallas.LANES)}
         if log.exists() and built != want:
@@ -3161,6 +3444,14 @@ def main():
         digest, n_scan = scan_sass_digest(text)
         phase("sass", f"scan samplers ({', '.join(SCAN_KERNELS)}): "
               f"{n_scan} instances, SASS sha256 {digest}")
+        hold8 = full3d_sass_digests(text)
+        if len(hold8) != 2 * len(full3d_shared.LANES):
+            raise AssertionError(f"full3d_shared hold-8 instances in the "
+                                 f"SASS: {sorted(hold8)}")
+        phase("sass", "full3d_shared_kernel at hold 8, SASS sha256 by "
+              "instance: " + ", ".join(
+                  f"L={lanes} {'shared' if smem else 'device'} {d}"
+                  for (lanes, smem), d in hold8.items()))
         check_sass(sass_loops(text))
         probe_rows = probe_compare(probe_cases(np.random.default_rng(11))
                                    + mem_cases(np.random.default_rng(13)))
@@ -3559,6 +3850,8 @@ def main():
             check_full3d_case(name, res, kw)
         campaign = campaign_chunk_case(bounds)
         results["full3d campaign chunk"] = dict(campaign, mod=full3d_shared)
+    with timed("compare full3d holds"):
+        results.update(hold_cases(bounds))
     with timed("compare metropolis design"):
         for name, spec, n_chains, step0, seed0, kw in metropolis_design_cases:
             res = per_chain_case(metropolis_pallas, name, spec, n_chains,
@@ -3670,13 +3963,12 @@ def main():
         board_scan_launches = config_yaml_slice()
     with timed("slice config.yaml pairs as full_3d"):
         full3d_scan_launches = full3d_tables_pairs_slice()
+    with timed("slice trace"):
+        board_launches += trace_slice()
 
     # 5. throughput -------------------------------------------------------
     with timed("throughput board"):
-        horizon = 2 ** 24
-        throughput(board_shared, "board N=16 (bench.py configuration)",
-                   spec_of(16, horizon, 32768, lin(horizon, 1.0, 5.0)),
-                   (32768, 4096), bounds)
+        bench_throughput(board_shared, bounds)
     with timed("throughput full3d"):
         horizon = 8_000_000
         throughput(full3d_shared, "full_3d N=15 Q=225 (campaign chunks)",
@@ -3685,11 +3977,9 @@ def main():
                    (65536, 4096), bounds)
     with timed("throughput metropolis"):
         metropolis_table(bounds)
-        horizon = 2 ** 24
-        throughput(metropolis_pallas, "metropolis N=16 (bench.py --kernel "
-                   "pallas configuration)",
-                   pspec_of(16, horizon, 32768, lin(horizon, 1.0, 5.0)),
-                   (32768, 4096), bounds)
+        bench_throughput(metropolis_pallas, bounds)
+    with timed("bench --quick"):
+        bench_cli()
     with timed("throughput full3d_pallas"):
         horizon = 8_000_000
         throughput(full3d_pallas, "full3d_pallas N=15 Q=225",
@@ -3714,6 +4004,8 @@ def main():
     with timed("slice tools"):
         tool_launches, tool_outs = tools_slice()
         check_rates(tool_outs, bounds)
+    with timed("slice probe tools"):
+        probe_tools_slice()
 
     leaked = sorted(m for m in set(sys.modules) - _PRELOADED
                     if m == "jax" or m.startswith(("jax.", "mcqueens.",

@@ -3,13 +3,14 @@
 Same config schema, drivers and outputs (``figures/``, ``results/*.csv``
 under ``--outdir``) as ``python -m mcqueens.cli.experiments``; the runs go
 through the port's kernels on ``--device`` (default ``cuda``; ``cpu`` runs
-the kernels' plain-torch twins).  ``--mesh`` and ``--profile-dir`` are not
-ported yet (ROADMAP.md queue 1 item 7) and are refused, as are the
-config's ``tpu.mesh`` and ``tpu.profile_dir``; ``tpu.checkpoint_dir`` makes
-the sweep resumable (one checkpoint a cell).
+the kernels' plain-torch twins).  ``--profile-dir`` (or the config's
+``tpu.profile_dir``) writes a ``torch.profiler`` trace of the sweep there;
+``tpu.checkpoint_dir`` makes the sweep resumable (one checkpoint a cell).
+``--mesh`` is not ported yet (ROADMAP.md queue 1 item 7) and is refused, as
+is the config's ``tpu.mesh``.
 
     python -m mcqueens_torch.cli.experiments [--config config.yaml]
-        [--outdir .] [--device cuda]
+        [--outdir .] [--device cuda] [--profile-dir DIR]
 """
 
 from __future__ import annotations
@@ -26,15 +27,13 @@ def main(argv=None) -> int:
                         help="torch device: cuda (the CUDA kernels) or cpu "
                              "(their plain-torch twins)")
     parser.add_argument("--mesh", action="store_true")
-    parser.add_argument("--profile-dir", default=None)
+    parser.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler trace here")
     args = parser.parse_args(argv)
 
-    not_ported = {"--mesh": args.mesh,
-                  "--profile-dir": args.profile_dir is not None}
-    refused = [flag for flag, given in not_ported.items() if given]
-    if refused:
-        parser.error(f"{', '.join(refused)}: not ported to mcqueens_torch "
-                     "yet (ROADMAP.md queue 1 item 7); use python -m "
+    if args.mesh:
+        parser.error("--mesh: not ported to mcqueens_torch yet (ROADMAP.md "
+                     "queue 1 item 7); use python -m "
                      "mcqueens.cli.experiments")
 
     from mcqueens_torch.experiments import drivers
@@ -42,8 +41,10 @@ def main(argv=None) -> int:
     from mcqueens_torch.utils import profiling
 
     cfg = load_config(args.config)
-    with profiling.timed(f"experiment {cfg.experiment_type}"):
-        drivers.run_from_config(cfg, outdir=args.outdir, device=args.device)
+    with profiling.trace(args.profile_dir or cfg.tpu.profile_dir):
+        with profiling.timed(f"experiment {cfg.experiment_type}"):
+            drivers.run_from_config(cfg, outdir=args.outdir,
+                                    device=args.device)
     return 0
 
 

@@ -27,7 +27,7 @@ from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.core import rng as rng_mod
 from mcqueens_torch.kernels import (board_shared, full3d_pallas,
                                    full3d_shared, metropolis_pallas)
-from mcqueens_torch.utils import checkpoint
+from mcqueens_torch.utils import checkpoint, profiling
 
 _MAX_SEGMENT_ELEMS = 64 * 1024 * 1024
 _MAX_SEGMENT_PROPOSALS = 2 ** 31
@@ -170,16 +170,15 @@ def run_chains(
 
     ``checkpointer`` (a :class:`mcqueens_torch.utils.checkpoint.Checkpointer`)
     saves the carry after every segment and resumes from a saved segment
-    when one matches this run.  ``mesh`` and ``profile_dir`` are not ported
-    yet (ROADMAP.md queue 1 item 7) and raise if set.
+    when one matches this run.  ``profile_dir`` writes a ``torch.profiler``
+    trace of the run there (:func:`mcqueens_torch.utils.profiling.trace`:
+    init, segments and the final synchronise).  ``mesh`` is not ported yet
+    (ROADMAP.md queue 1 item 7) and raises if set.
     """
     dev = _device(device)
     if mesh is not None:
         raise NotImplementedError("multi-device chain sharding is not "
                                   "ported yet (ROADMAP.md queue 1 item 7)")
-    if profile_dir is not None:
-        raise NotImplementedError("profiler traces are not ported yet "
-                                  "(ROADMAP.md queue 1 item 7)")
     mod = _modules(spec)
     seeds = np.asarray(seeds, dtype=np.uint32)
     n_runs = seeds.shape[0]
@@ -195,35 +194,37 @@ def run_chains(
         n_outer, n_runs, spec.history_stride, min_segments)
 
     t0 = time.time()
-    # The scan samplers take one threefry key per chain, the Pallas samplers
-    # the seeds themselves (mcqueens/dist/runner.py:199-205).
-    init_arg = (rng_mod.chain_keys_from_seeds(seeds, dev) if _scan(spec)
-                else seeds)
-    carry = mod.init_carry_batch(init_arg, spec,
-                                 initial_states=initial_states, device=dev)
-    e0 = carry.energy.reshape(-1).cpu().numpy()
-    history_chunks = []
-    start_seg = 0
-    if checkpointer is not None:
-        ckpt_fp = checkpoint.spec_fingerprint(spec, seeds)
-        resumed = checkpointer.restore(carry, seg_outer=seg_outer,
-                                       fingerprint=ckpt_fp)
-        if resumed is not None:
-            carry, start_seg, history_chunks = resumed
-    for seg in range(start_seg, n_segs):
-        carry, ys = mod.run_segment(carry, seg * seg_outer, spec, seg_outer)
-        history_chunks.append(ys.cpu().numpy())  # (seg_outer, C)
-        if verbose:
-            done_steps = min((seg + 1) * seg_outer * spec.history_stride,
-                             spec.n_steps)
-            e = carry.energy[:n_runs].cpu().numpy()
-            print(f"[mcqueens] step {done_steps}/{spec.n_steps}: "
-                  f"mean E={e.mean():.2f} min E={e.min()}")
+    with profiling.trace(profile_dir):
+        # The scan samplers take one threefry key per chain, the Pallas
+        # samplers the seeds themselves (mcqueens/dist/runner.py:199-205).
+        init_arg = (rng_mod.chain_keys_from_seeds(seeds, dev) if _scan(spec)
+                    else seeds)
+        carry = mod.init_carry_batch(init_arg, spec,
+                                     initial_states=initial_states, device=dev)
+        e0 = carry.energy.reshape(-1).cpu().numpy()
+        history_chunks = []
+        start_seg = 0
         if checkpointer is not None:
-            checkpointer.save(carry, seg + 1, history_chunks,
-                              seg_outer=seg_outer, fingerprint=ckpt_fp)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+            ckpt_fp = checkpoint.spec_fingerprint(spec, seeds)
+            resumed = checkpointer.restore(carry, seg_outer=seg_outer,
+                                           fingerprint=ckpt_fp)
+            if resumed is not None:
+                carry, start_seg, history_chunks = resumed
+        for seg in range(start_seg, n_segs):
+            carry, ys = mod.run_segment(carry, seg * seg_outer, spec,
+                                        seg_outer)
+            history_chunks.append(ys.cpu().numpy())  # (seg_outer, C)
+            if verbose:
+                done_steps = min((seg + 1) * seg_outer * spec.history_stride,
+                                 spec.n_steps)
+                e = carry.energy[:n_runs].cpu().numpy()
+                print(f"[mcqueens] step {done_steps}/{spec.n_steps}: "
+                      f"mean E={e.mean():.2f} min E={e.min()}")
+            if checkpointer is not None:
+                checkpointer.save(carry, seg + 1, history_chunks,
+                                  seg_outer=seg_outer, fingerprint=ckpt_fp)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     wall = time.time() - t0
     host = {name: getattr(carry, name).cpu().numpy()
             for name in state_fields(spec)}

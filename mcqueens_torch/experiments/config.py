@@ -11,11 +11,11 @@ use it:
       n_bins: int
       mesh: false                 # multi-GPU sharding: not ported yet
       checkpoint_dir: null        # one resumable checkpoint a sweep cell
-      profile_dir: null           # profiler traces: not ported yet
+      profile_dir: null           # torch.profiler trace of the sweep
       allow_correlated_runs: bool # required (true) for pallas_shared
 
-``mesh`` and ``profile_dir`` set to anything but off raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 7).  ``yaml`` is imported
+``mesh`` set to anything but off raises ``NotImplementedError`` (ROADMAP.md
+queue 1 item 7).  ``yaml`` is imported
 only by :func:`load_config`, so a config built as a dict needs no YAML
 package.
 """
@@ -134,11 +134,9 @@ def parse_config(raw: dict) -> Config:
             "statistically independent (the reference's n_runs contract). "
             "Use kernel 'pallas' or 'tables', or set "
             "tpu.allow_correlated_runs: true to accept correlated runs.")
-    for key in ("mesh", "profile_dir"):
-        if getattr(tpu, key):
-            raise NotImplementedError(
-                f"tpu.{key}: not ported to mcqueens_torch yet (ROADMAP.md "
-                f"queue 1 item 7); leave it off or use python -m "
-                f"mcqueens.cli.experiments")
+    if tpu.mesh:
+        raise NotImplementedError(
+            "tpu.mesh: not ported to mcqueens_torch yet (ROADMAP.md queue 1 "
+            "item 7); leave it off or use python -m mcqueens.cli.experiments")
     return Config(raw=raw, experiment_type=experiment_type,
                   common=raw["common"], tpu=tpu)

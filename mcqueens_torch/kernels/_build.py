@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 
@@ -33,7 +34,7 @@ ENTRY_POINTS = {
     "mcq_board_shared_segment": [_P] * 14 + [_I] * 12 + [_P],
     "mcq_board_scan_segment": [_P] * 14 + [_I] * 10 + [_P],
     "mcq_full3d_scan_segment": [_P] * 15 + [_I] * 11 + [_P],
-    "mcq_full3d_shared_segment": [_P] * 17 + [_I] * 12 + [_P],
+    "mcq_full3d_shared_segment": [_P] * 17 + [_I] * 13 + [_P],
     "mcq_metropolis_segment": [_P] * 11 + [_I] * 10 + [_P],
     "mcq_full3d_pallas_segment": [_P] * 16 + [_I] * 11 + [_P],
     "mcq_probe_vpu": [_P] * 2 + [_I] * 6 + [_P],
@@ -121,6 +122,34 @@ def build() -> Path:
     os.replace(tmp, out)
     for obj in objs:
         obj.unlink()
+    return out
+
+
+def ptxas_usage(text: str | None = None) -> dict[str, dict[str, int]]:
+    """``{mangled kernel: {"registers": n, "spill_bytes": n}}`` from
+    ``-Xptxas=-v`` output (``text``, or the built library's ``.log``):
+    each entry function's registers and its spill stores plus loads."""
+    if text is None:
+        text = library_path().with_suffix(".log").read_text()
+    out, entry, props = {}, None, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry = m[1]
+            out[entry] = {"registers": 0, "spill_bytes": 0}
+            continue
+        m = re.search(r"Function properties for (\w+)", ln)
+        if m:
+            props = m[1]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and props in out:
+            out[props]["spill_bytes"] = int(m[1]) + int(m[2])
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry is not None:
+            out[entry]["registers"] = int(m[1])
     return out
 
 

@@ -6,13 +6,19 @@
 //
 // Chains [b*c_blk, (b+1)*c_blk) form semantic block b: they share each
 // step's candidate cell (hashed from the block seed and the step) and each
-// 8-step chunk's mover queen (hashed from the block seed and the chunk's
+// H-step chunk's mover queen (hashed from the block seed and the chunk's
 // first step).  All queens but the mover stay put for a chunk, so one pass
-// over the other Q-1 queens scores them against the chunk's 8 candidates
-// and the mover's chunk-start cell: 9 attack counts and an 8-bit occupancy
-// mask.  The chunk's steps then run from those counts: dE = conf[k] -
-// old_conf; an occupied candidate (another queen there, or the live mover)
-// makes the step lazy; on accept the mover moves and old_conf <- conf[k].
+// over the other Q-1 queens scores them against the chunk's H candidates
+// and the mover's chunk-start cell: H + 1 attack counts and an H-bit
+// occupancy mask.  The chunk's steps then run from those counts: dE =
+// conf[k] - old_conf; an occupied candidate (another queen there, or the
+// live mover) makes the step lazy; on accept the mover moves and old_conf
+// <- conf[k].  The hold H is a template parameter, 8 (the JAX package's
+// _HOLD, every main path's) or 16 or 32 (tools/probe_hold.py's other
+// lengths); the numbers below are at H = 8.  A longer hold costs
+// (1 + 1/H) pass targets a step in place of 9/8, but holds H candidates'
+// counts in registers: at H = 32 and L = 1, five int[32] arrays a lane,
+// past the 128 registers __launch_bounds__ leaves, so it spills.
 //
 // What bounds it: int32 instructions.  The pass issues ~170 a queen (nine
 // attack tests and eight occupancy tests, ~19 a (queen, target) pair; ~96
@@ -29,7 +35,8 @@
 //     sums its counts with __shfl_xor_sync, two 16-bit counts a word (Q <=
 //     65536, so no count carries into the next) and the occupancy mask in
 //     the high half of the old count's word (a cell holds at most one
-//     queen, so the sum is the union): five words, not ten.  The sums are
+//     queen, so the sum is the union): five words, not ten (at H = 32
+//     the mask takes a word of its own: 18).  The sums are
 //     integers, so every lane holds the same counts and reaches the same
 //     accept decision without a broadcast.  The layout rule
 //     (kernels/full3d_shared.py:layout) takes large teams when chains are
@@ -101,7 +108,6 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kHold = 8;
 constexpr int kMaxChainsPerCta = 128;
 constexpr int kMaxThreadsPerCta = 512;
 constexpr int kMaxQ = 65536;
@@ -139,8 +145,9 @@ __device__ __forceinline__ uint32_t pack(int x, int y, int z) {
 // attack iff a^2 + b^2 + c^2 == m * (a + b + c) (exact in int32 for |d| <=
 // 92); most of its instructions are IMADs, which only the FMA pipe issues.
 // hits_alu compares |d| with 0 and m, on the ALU pipe.  The pass takes
-// hits_fma for 5 of the 8 candidates and hits_alu for 3, the split of the
-// two that ran fastest on the card (PERF.md, section 6).
+// hits_fma for 5 of the 8 candidates and hits_alu for 3 (of each 8 at a
+// longer hold), the split of the two that ran fastest on the card (PERF.md,
+// section 6).
 __device__ __forceinline__ int hits_fma(int dx, int dy, int dz, int& m) {
   const int a = dx * dx, b = dy * dy, c = dz * dz;
   m = max(a, max(b, c));
@@ -229,10 +236,13 @@ struct Planes<false> {
 
 // One chain's launch, walked by its team's L lanes (lane r of the team) on
 // its planes.  Returns whether the chain improved.
-template <int L, bool SMEM>
+template <int L, bool SMEM, int H>
 __device__ __forceinline__ bool walk(const Args& a, int c, int r,
                                      const Planes<SMEM>& pl) {
-  constexpr int D = (kHold + L - 1) / L;  // steps a lane draws a chunk
+  constexpr int D = (H + L - 1) / L;  // steps a lane draws a chunk
+  // The team's sums: H / 2 words of two counts, then the old count with
+  // the occupancy mask in its high half, or beside it when H > 16.
+  constexpr int W = H / 2 + (H > 16 ? 2 : 1);
   const int lane0 = (threadIdx.x & 31) - r;
   const int N = a.N, NN = N * N, N3 = NN * N, Q = a.Q;
   const size_t sC = (size_t)a.C;
@@ -258,22 +268,22 @@ __device__ __forceinline__ bool walk(const Args& a, int c, int r,
   // proposals in it.
   int bin = 0, bin_end = -1, n_acc = 0, n_tot = 0;
 
-  for (int t0 = 0; t0 < T; t0 += kHold) {
+  for (int t0 = 0; t0 < T; t0 += H) {
     if (!__any_sync(kFull, t0 < t_end && st >= a.n_steps)) break;
     const uint32_t g0 = (uint32_t)a.step0 + (uint32_t)t0;
     const int mover =
         (int)((lowbias32(g0 ^ mover_base) & 0x7FFFFFFFu) % (uint32_t)Q);
-    // Candidate (lane % 8) of the chunk, one a lane; the warp takes all 8.
-    uint32_t cw[kHold];
+    // Candidate (lane % H) of the chunk, one a lane; the warp takes all H.
+    uint32_t cw[H];
     {
       const uint32_t hv =
-          lowbias32((g0 + (threadIdx.x & 7)) ^ cand_base) & 0x7FFFFFFFu;
+          lowbias32((g0 + (threadIdx.x & (H - 1))) ^ cand_base) & 0x7FFFFFFFu;
       const int cell = (int)(hv % (uint32_t)N3);
       const int x = cell / NN, rest = cell - x * NN;
       const int y = rest / N;
       const uint32_t mine = pack(x, y, rest - y * N);
 #pragma unroll
-      for (int k = 0; k < kHold; ++k) cw[k] = __shfl_sync(kFull, mine, k);
+      for (int k = 0; k < H; ++k) cw[k] = __shfl_sync(kFull, mine, k);
     }
     // Draws of steps r, r + L, ... of this chunk (past the warp's steps
     // they are not drawn, and never read).
@@ -283,7 +293,7 @@ __device__ __forceinline__ bool walk(const Args& a, int c, int r,
       const int tl = r + j * L;
       du[j] = 0.0f;
       dbt[j] = 0.0f;
-      if (tl < kHold && t0 + tl < T) {
+      if (tl < H && t0 + tl < T) {
         const uint32_t gs = g0 + tl;
         const uint32_t base = lowbias32(g ^ (gs * 0x9E3779B9u));
         const uint32_t w1 = lowbias32(base + 0x02E5BE93u);
@@ -299,12 +309,12 @@ __device__ __forceinline__ bool walk(const Args& a, int c, int r,
     const int ox = start & 0xFF, oy = (start >> 8) & 0xFF, oz = start >> 16;
 
     // The pass: this lane's queens but the mover against the mover's cell
-    // and the 8 candidates, as two runs of rows either side of the mover's
+    // and the H candidates, as two runs of rows either side of the mover's
     // (no test of the mover's row in the loop).  A candidate is occupied iff
     // some queen lies at distance 0 from it: least[k] ends 0.
-    int cx[kHold], cy[kHold], cz[kHold], conf[kHold], least[kHold];
+    int cx[H], cy[H], cz[H], conf[H], least[H];
 #pragma unroll
-    for (int k = 0; k < kHold; ++k) {
+    for (int k = 0; k < H; ++k) {
       cx[k] = cw[k] & 0xFF;
       cy[k] = (cw[k] >> 8) & 0xFF;
       cz[k] = cw[k] >> 16;
@@ -319,9 +329,10 @@ __device__ __forceinline__ bool walk(const Args& a, int c, int r,
         int m;
         old_hits += hits_fma(x - ox, y - oy, z - oz, m);
 #pragma unroll
-        for (int k = 0; k < kHold; ++k) {
+        for (int k = 0; k < H; ++k) {
           const int dx = x - cx[k], dy = y - cy[k], dz = z - cz[k];
-          conf[k] += k < 5 ? hits_fma(dx, dy, dz, m) : hits_alu(dx, dy, dz, m);
+          conf[k] += k % 8 < 5 ? hits_fma(dx, dy, dz, m)
+                               : hits_alu(dx, dy, dz, m);
           least[k] = min(least[k], m);
         }
       }
@@ -330,23 +341,28 @@ __device__ __forceinline__ bool walk(const Args& a, int c, int r,
     rows(mover + 1 + ((r - mover - 1) & (L - 1)), Q);
     uint32_t occupied = 0;
 #pragma unroll
-    for (int k = 0; k < kHold; ++k) {
+    for (int k = 0; k < H; ++k) {
       occupied |= (uint32_t)(least[k] == 0) << k;
     }
     // The team's sums, two counts a word.
-    uint32_t v[5];
+    uint32_t v[W];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < H / 2; ++i) {
       v[i] = (uint32_t)conf[2 * i] | (uint32_t)conf[2 * i + 1] << 16;
     }
-    v[4] = (uint32_t)old_hits | occupied << 16;
+    if (H > 16) {
+      v[H / 2] = (uint32_t)old_hits;
+      v[W - 1] = occupied;
+    } else {
+      v[H / 2] = (uint32_t)old_hits | occupied << 16;
+    }
 #pragma unroll
     for (int m = 1; m < L; m <<= 1) {
 #pragma unroll
-      for (int i = 0; i < 5; ++i) v[i] += __shfl_xor_sync(kFull, v[i], m);
+      for (int i = 0; i < W; ++i) v[i] += __shfl_xor_sync(kFull, v[i], m);
     }
-    int old_conf = (int)(v[4] & 0xFFFFu);
-    occupied = v[4] >> 16;
+    int old_conf = (int)(v[H / 2] & 0xFFFFu);
+    occupied = H > 16 ? v[W - 1] : v[H / 2] >> 16;
 
     // The chunk's steps, without a branch but where a bin turns.  Bins
     // follow the warp's steps, live or not (a chain adds only its live
@@ -356,7 +372,7 @@ __device__ __forceinline__ bool walk(const Args& a, int c, int r,
     bool improved_here = false;
     const auto steps = [&](auto turns) {
 #pragma unroll
-      for (int k = 0; k < kHold; ++k) {
+      for (int k = 0; k < H; ++k) {
         const float u =
             L > 1 ? __shfl_sync(kFull, du[k / L], lane0 + k % L) : du[k];
         const float bt =
@@ -397,7 +413,7 @@ __device__ __forceinline__ bool walk(const Args& a, int c, int r,
         n_tot += live;
       }
     };
-    if (t0 + kHold > bin_end - a.step0) {
+    if (t0 + H > bin_end - a.step0) {
       steps(std::true_type());
     } else {
       steps(std::false_type());
@@ -427,10 +443,10 @@ __device__ __forceinline__ bool walk(const Args& a, int c, int r,
   return improved;
 }
 
-// Launched with cpb * L threads a CTA, chains [blockIdx.x * cpb, + cpb).
-// SMEM: dynamic shared memory of cpb flag words (a chain improved in this
-// launch) and cpb slots of `slot` words.
-template <int L, bool SMEM>
+// Launched with cpb * L threads a CTA, chains [blockIdx.x * cpb, + cpb),
+// the mover held H steps.  SMEM: dynamic shared memory of cpb flag words (a
+// chain improved in this launch) and cpb slots of `slot` words.
+template <int L, bool SMEM, int H>
 __global__ void __launch_bounds__(kMaxThreadsPerCta, 1)
     full3d_shared_kernel(Args a, int cpb, int slot) {
   extern __shared__ uint32_t smem[];
@@ -440,7 +456,7 @@ __global__ void __launch_bounds__(kMaxThreadsPerCta, 1)
   if (!SMEM) {
     const Planes<false> pl = {a.qi + c,  a.qj + c,  a.qk + c, a.bqi + c,
                               a.bqj + c, a.bqk + c, sC};
-    walk<L, false>(a, c, r, pl);
+    walk<L, false, H>(a, c, r, pl);
     return;
   }
   const int Q = a.Q;
@@ -455,7 +471,7 @@ __global__ void __launch_bounds__(kMaxThreadsPerCta, 1)
   }
   __syncthreads();
   const Planes<true> pl = {slots + (size_t)team * slot, Q};
-  const bool improved = walk<L, true>(a, c, r, pl);
+  const bool improved = walk<L, true, H>(a, c, r, pl);
   if (r == 0) flags[team] = improved;
   __syncthreads();
   for (int idx = threadIdx.x; idx < Q * cpb; idx += blockDim.x) {
@@ -473,9 +489,9 @@ __global__ void __launch_bounds__(kMaxThreadsPerCta, 1)
   }
 }
 
-template <int L, bool SMEM>
+template <int L, bool SMEM, int H>
 int launch(const Args& a, int cpb, int smem, cudaStream_t stream) {
-  const auto kernel = full3d_shared_kernel<L, SMEM>;
+  const auto kernel = full3d_shared_kernel<L, SMEM, H>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -488,22 +504,35 @@ int launch(const Args& a, int cpb, int smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool SMEM>
+template <bool SMEM, int H>
 int launch_lanes(const Args& a, int lanes, int cpb, int smem,
                  cudaStream_t s) {
   switch (lanes) {
     case 1:
-      return launch<1, SMEM>(a, cpb, smem, s);
+      return launch<1, SMEM, H>(a, cpb, smem, s);
     case 2:
-      return launch<2, SMEM>(a, cpb, smem, s);
+      return launch<2, SMEM, H>(a, cpb, smem, s);
     case 4:
-      return launch<4, SMEM>(a, cpb, smem, s);
+      return launch<4, SMEM, H>(a, cpb, smem, s);
     case 8:
-      return launch<8, SMEM>(a, cpb, smem, s);
+      return launch<8, SMEM, H>(a, cpb, smem, s);
     case 16:
-      return launch<16, SMEM>(a, cpb, smem, s);
+      return launch<16, SMEM, H>(a, cpb, smem, s);
     default:
-      return launch<32, SMEM>(a, cpb, smem, s);
+      return launch<32, SMEM, H>(a, cpb, smem, s);
+  }
+}
+
+template <bool SMEM>
+int launch_hold(const Args& a, int hold, int lanes, int cpb, int smem,
+                cudaStream_t s) {
+  switch (hold) {
+    case 16:
+      return launch_lanes<SMEM, 16>(a, lanes, cpb, smem, s);
+    case 32:
+      return launch_lanes<SMEM, 32>(a, lanes, cpb, smem, s);
+    default:
+      return launch_lanes<SMEM, 8>(a, lanes, cpb, smem, s);
   }
 }
 
@@ -514,7 +543,10 @@ int launch_lanes(const Args& a, int lanes, int cpb, int smem,
 // (Q, C), every coordinate in [0, N); energy .. stop_step, chain_seeds (C);
 // accept_bins, total_bins (n_bins, C); block_seeds (C / c_blk); beta
 // (n_inner) float32; beta_scale (C) float32, or null for an untempered run.
-// patience < 0 disables early stopping.  N <= 93 and Q <= 65536.  The
+// patience < 0 disables early stopping.  hold (8, 16 or 32) is the steps
+// a mover is held (kernels/full3d_shared.py:_HOLD; the wrapper refuses a
+// hold above 8 on a launch of fewer than 1024 steps, where the JAX kernel
+// skips steps).  N <= 93 and Q <= 65536.  The
 // layout (kernels/full3d_shared.py:layout): `lanes` (1, 2, 4, 8, 16 or 32)
 // lanes a chain, `chains_per_cta` (a power of two, at most 128, dividing
 // c_blk, with lanes * chains_per_cta a multiple of 32 and at most 512)
@@ -527,7 +559,7 @@ extern "C" int mcq_full3d_shared_segment(
     void* stop_step, void* accept_bins, void* total_bins,
     const void* chain_seeds, const void* block_seeds, const void* beta,
     const void* beta_scale, int step0, int n_inner, int N, int Q, int C,
-    int c_blk, int n_steps, int n_bins, int patience, int lanes,
+    int c_blk, int n_steps, int n_bins, int patience, int hold, int lanes,
     int chains_per_cta, int smem_bytes, void* stream) {
   const Args a = {(int32_t*)qi,          (int32_t*)qj,
                   (int32_t*)qk,          (int32_t*)bqi,
@@ -548,13 +580,15 @@ extern "C" int mcq_full3d_shared_segment(
   const bool blocks_ok = C >= 1 && c_blk >= 1 && C % c_blk == 0 &&
                          c_blk % cpb == 0;
   const bool sizes_ok = N >= 1 && N <= kMaxN && Q >= 1 && Q <= kMaxQ;
+  const bool hold_ok = hold == 8 || hold == 16 || hold == 32;
   const bool smem_ok =
       smem_bytes == 0 ||
       (lanes_ok && smem_bytes == 4 * cpb * (1 + slot_words(Q, lanes)));
-  if (!lanes_ok || !cpb_ok || !blocks_ok || !sizes_ok || !smem_ok) {
+  if (!lanes_ok || !cpb_ok || !blocks_ok || !sizes_ok || !hold_ok ||
+      !smem_ok) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
-  return smem_bytes ? launch_lanes<true>(a, lanes, cpb, smem_bytes, s)
-                    : launch_lanes<false>(a, lanes, cpb, 0, s);
+  return smem_bytes ? launch_hold<true>(a, hold, lanes, cpb, smem_bytes, s)
+                    : launch_hold<false>(a, hold, lanes, cpb, 0, s);
 }

@@ -3,7 +3,9 @@
 
 Q queens sit on distinct cells of the N^3 cube.  Chains in a block of
 ``block_size`` chains share each step's candidate cell, uniform over all N^3
-cells, and share a mover queen that is redrawn every ``_HOLD`` = 8 steps.  A
+cells, and share a mover queen that is redrawn every ``_HOLD`` = 8 steps
+(16 or 32 where a caller patches :data:`_HOLD`, as ``tools/probe_hold.py``
+does; see :func:`hold`).  A
 chain whose candidate is occupied (by another queen, or by the mover itself)
 is lazy for that step: the step counts in its bins and is never accepted.
 Otherwise
@@ -15,9 +17,10 @@ and the chain accepts when ``u < exp(-beta * dE)`` with its own accept word
 ``step_words(chain_streams(seed), step)[1]``.  Two distinct cells attack iff
 every nonzero coordinate distance equals the largest one.
 
-Mover chunks start at ``step0 + 8m`` inside every launch, where ``step0`` is
-the launch's first step, so the last chunk of a launch is shorter when the
-history stride is not a multiple of 8 and trajectories depend on the stride;
+Mover chunks start at ``step0 + hold * m`` inside every launch, where
+``step0`` is the launch's first step, so the last chunk of a launch is
+shorter when the history stride is not a multiple of the hold and
+trajectories depend on the stride;
 the port therefore launches once per history chunk, as the JAX package does.
 Patience early-stop, exact best placements (``best_step = step + 1``) and the
 per-bin accept/total counts follow the JAX kernel step for step, so the same
@@ -43,6 +46,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import re
 
 import numpy as np
 import torch
@@ -54,7 +58,14 @@ from mcqueens_torch.kernels import (_build, full3d_pallas, prng, segment,
 from mcqueens_torch.kernels.carry import Full3DCarry
 
 DEFAULT_BLOCK = 2048
-_HOLD = 8  # steps the shared mover is held
+_HOLD = 8  # steps the shared mover is held; read at each launch
+# The holds the CUDA kernel is built for (a template parameter).
+HOLDS = (8, 16, 32)
+# Fewest steps a launch at a hold above 8 takes.  Below it the JAX kernel
+# walks 8-step groups (its _UNROLL_SMALL), runs range(8 // hold) chunks in
+# each, none at hold 16 or 32, and so skips every step but the tail's
+# (mcqueens/kernels/full3d_shared.py:354,385): there it is no reference.
+LONG_LAUNCH = 1024
 _SEED_MUL = prng._i32(0x2545F491)
 _CAND_SALT = prng._i32(0x7F4A7C15)   # candidate-cell stream
 _MOVER_SALT = prng._i32(0x3C6EF372)  # mover-index stream
@@ -77,6 +88,23 @@ def check_n(N: int) -> None:
             f"(3N+24)^4 < 2^33 for the a2*(a2-m) attack products to stay "
             f"exact in int32 arithmetic (got N={N}); use kernel='pallas' "
             f"for larger boards")
+
+
+def hold(n_inner: int) -> int:
+    """The mover hold of a launch of ``n_inner`` steps: :data:`_HOLD`, read
+    at call time, so that patching it selects the kernel's instance and the
+    twin's chunks alike.  Raises ``ValueError`` for a hold outside
+    :data:`HOLDS`, and for a hold above 8 on a launch of fewer than
+    :data:`LONG_LAUNCH` steps."""
+    if _HOLD not in HOLDS:
+        raise ValueError(f"full3d_shared: the mover hold must be one of "
+                         f"{HOLDS}, got {_HOLD}")
+    if _HOLD != 8 and n_inner < LONG_LAUNCH:
+        raise ValueError(
+            f"full3d_shared: a hold of {_HOLD} needs launches of at least "
+            f"{LONG_LAUNCH} steps (got {n_inner}); below that the JAX "
+            f"kernel skips the held chunks, so it is no reference")
+    return _HOLD
 
 
 def block_size(n_chains: int, spec=None) -> int:
@@ -186,9 +214,10 @@ def segment_reference(st: SegmentState, step0: int, n_inner: int,
     best_planes = (st.best_qi, st.best_qj, st.best_qk)
     e, be, bs = st.energy.clone(), st.best_energy.clone(), st.best_step.clone()
     ni, stp = st.no_improve.clone(), st.stop_step.clone()
+    H = hold(n_inner)
     # Steps at or past n_steps are inactive for every chain: nothing changes.
     t_end = max(0, min(n_inner, n_steps - step0))
-    for c0 in range(0, t_end, _HOLD):
+    for c0 in range(0, t_end, H):
         g0 = step0 + c0
         mover = ((prng.lowbias32(mover_base ^ g0) & 0x7FFFFFFF) % Q).long()
         other = rows != mover[None]
@@ -197,7 +226,7 @@ def segment_reference(st: SegmentState, step0: int, n_inner: int,
                     & other).sum(0, dtype=torch.int32)
         best_pos = list(pos)
         improved_here = torch.zeros_like(other[0])
-        for gstep in range(g0, min(g0 + _HOLD, step0 + t_end)):
+        for gstep in range(g0, min(g0 + H, step0 + t_end)):
             cand = (prng.lowbias32(cand_base ^ gstep) & 0x7FFFFFFF) % N3
             target = (cand // NN, (cand // N) % N, cand % N)
             d = [p - x for p, x in zip(planes, target)]
@@ -337,6 +366,7 @@ def launch_segment(lib, st: SegmentState, step0: int, n_inner: int,
     emulation (:mod:`mcqueens_torch.kernels.host_emulation`, CPU tensors).
     Returns the layout."""
     check_n(spec.N)
+    H = hold(n_inner)
     Q = spec.q_eff
     if Q > MAX_Q:
         raise ValueError(f"full3d_shared's CUDA kernel sums two counts a "
@@ -371,12 +401,25 @@ def launch_segment(lib, st: SegmentState, step0: int, n_inner: int,
     patience = spec.early_stop_patience
     err = lib.mcq_full3d_shared_segment(
         *ptrs, step0, n_inner, spec.N, Q, C, c_blk, spec.n_steps,
-        spec.n_bins, -1 if patience is None else patience, lay.lanes,
+        spec.n_bins, -1 if patience is None else patience, H, lay.lanes,
         lay.chains_per_cta, lay.smem_bytes, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"full3d_shared CUDA kernel launch failed "
-                           f"(cudaError {err}, {lay})")
+                           f"(cudaError {err}, {lay}, hold {H})")
     return lay
+
+
+def instances(usage: dict) -> dict:
+    """``{(lanes, shared, hold): {"registers": n, "spill_bytes": n}}`` of
+    the CUDA kernel's instances in a :func:`_build.ptxas_usage` map
+    (``shared``: the instance that keeps the queens in shared memory)."""
+    out = {}
+    for name, use in usage.items():
+        m = re.search(r"full3d_shared_kernelILi(\d+)ELb([01])ELi(\d+)EE",
+                      name)
+        if m:
+            out[int(m[1]), m[2] == "1", int(m[3])] = use
+    return out
 
 
 def segment_cuda(st: SegmentState, step0: int, n_inner: int,

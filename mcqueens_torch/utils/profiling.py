@@ -1,10 +1,18 @@
-"""Throughput reporting and wall-clock phases, port of
-:mod:`mcqueens.utils.profiling` (its ``jax.profiler`` trace is not ported)."""
+"""Throughput reporting, profiler traces and wall-clock phases, port of
+:mod:`mcqueens.utils.profiling`.
+
+:func:`trace` is the counterpart of its ``jax.profiler`` trace: a
+``torch.profiler`` trace (host activity, and the card's kernels where CUDA
+is available) written under a directory as a Chrome trace,
+``<host>_<pid>.<ns>.pt.trace.json``, which ``chrome://tracing``, Perfetto
+and TensorBoard's PyTorch profiler plugin read.
+"""
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 
 import torch
@@ -43,6 +51,29 @@ def throughput_of(result, n_devices: int | None = None) -> ThroughputReport:
         wall_time_s=result.wall_time,
         n_devices=n_devices,
     )
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None):
+    """``torch.profiler`` trace of the ``with`` body, written under
+    ``log_dir`` when the body ends; no-op when ``log_dir`` is None.
+
+    The port's kernels launch through ``ctypes``, not as torch operators, so
+    the host side of the trace shows the Python calls around them; the
+    card's side (CUDA activity, recorded by CUPTI) names each kernel."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, \
+        tensorboard_trace_handler
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
 
 
 @contextlib.contextmanager

@@ -134,12 +134,17 @@ words a thread) at the slice tool's timing shape and for the gather chain
 layout, no schedule; and at 0 steps :data:`GATHER_PROLOGUE_VARIANTS`, the
 prologue's parts) at the gather tool's axis-1 shape, each launch's words
 equal to the committed kernel's, with each instance's hot-loop opcodes by
-pipe.  Prints one JSON line with the card's name and power limit; exits
-non-zero without a CUDA GPU.
+pipe.  ``--only sass`` (never run by default) prints the SASS digest of
+each instance of the full-3D shared kernel at hold 8 in the checkout's
+build (:func:`full3d_sass_digests`; a checkout from before the hold was a
+template parameter has only those), so two checkouts' hold-8 kernels can
+be held to each other.  Prints one JSON line
+with the card's name and power limit; exits non-zero without a CUDA GPU.
 """
 
 import argparse
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -1225,6 +1230,49 @@ def gather_variants():
     return out
 
 
+def full3d_sass_digests(text, hold=8):
+    """{(lanes, shared memory): sha256 (16 hex digits) of the instructions}
+    of the full-3D shared kernel's instances at ``hold``; an instance named
+    without a hold (a checkout before the hold was a template parameter) is
+    hold 8.  Names are left out of the hash (nvcc names an anonymous
+    namespace after the source's path, which differs between checkouts),
+    so a pair run can hold the two checkouts' instances to each other."""
+    out, h = {}, None
+    pat = re.compile(r"full3d_shared_kernelILi(\d+)ELb([01])E(?:Li(\d+)E)?E")
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            inst = pat.search(m.group(1))
+            h = None
+            if inst and int(inst[3] or 8) == hold:
+                h = hashlib.sha256()
+                out[int(inst[1]), inst[2] == "1"] = h
+            continue
+        ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", line)
+        if h is not None and ins:
+            h.update(re.sub(r"_Z\w+", "_Z", ins.group(1)).encode())
+    return {k: v.hexdigest()[:16] for k, v in sorted(out.items())}
+
+
+def sass_digests(root):
+    """The full-3D shared kernel's hold-8 instances' SASS digests of the
+    checkout's build (module docstring); needs nothing of ``chip_smoke``,
+    whose imports a checkout from before them may lack."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from mcqueens_torch.kernels import _build
+
+    if not _build.__file__.startswith(root):
+        raise AssertionError("the SASS digest read another checkout")
+    text = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+         str(_build.build())], capture_output=True, text=True, check=True,
+        timeout=300).stdout
+    return {"full3d_hold8_sass_sha256": {
+        f"L={lanes} {'shared' if smem else 'device'}": d
+        for (lanes, smem), d in full3d_sass_digests(text).items()}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True,
@@ -1235,7 +1283,7 @@ def main(argv=None):
                                        "full3d_pallas",
                                        "full3d_pallas_variants", "probes",
                                        "vpu_variants", "prng_variants",
-                                       "gather_variants"],
+                                       "gather_variants", "sass"],
                     default=None,
                     help="time only one kernel's phases")
     args = ap.parse_args(argv)
@@ -1531,6 +1579,8 @@ def main(argv=None):
         out.update(prng_variants())
     if args.only == "gather_variants":
         out.update(gather_variants())
+    if args.only == "sass":
+        out.update(sass_digests(root))
     line = json.dumps(out)
     print(line)
     if args.json:

@@ -250,10 +250,10 @@ def test_cli_refuses_unported_flags(flags, capsys):
 
 def test_runner_refuses_unported_paths():
     _, spec = _specs("n5")
-    # checkpointer= runs now (tests/test_torch_checkpoint.py).
-    for kw in (dict(mesh=object()), dict(profile_dir="trace")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            runner.run_chains(SEEDS, spec, device="cpu", **kw)
+    # checkpointer= and profile_dir= run now (tests/test_torch_checkpoint.py,
+    # tests/test_torch_profiling.py).
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        runner.run_chains(SEEDS, spec, device="cpu", mesh=object())
     # Every sampler is ported: the per-chain kernel="pallas" and the scan
     # kernels "tables" and "naive" run, for boards and full-3D placements.
     for other in (dict(kernel="pallas"),

@@ -712,7 +712,8 @@ def test_schedules_fig_cli(tmp_path):
 
 
 def test_remaining_refusals_cite_item_7(monkeypatch):
-    """mesh and profile_dir are all that is left unported."""
+    """mesh is all that is left unported (profile_dir runs:
+    tests/test_torch_profiling.py)."""
     from mcqueens_torch.chain.spec import ChainSpec
     from mcqueens_torch.core.schedules import build_schedule
     from mcqueens_torch.dist import runner
@@ -722,19 +723,19 @@ def test_remaining_refusals_cite_item_7(monkeypatch):
     spec = ChainSpec(N=4, n_steps=8, kernel="pallas_shared",
                      schedule=build_schedule("constant", 8, beta_const=1.0))
     seeds = np.arange(4, dtype=np.uint32)
-    for kw in (dict(mesh=object()), dict(profile_dir="trace")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            runner.run_chains(seeds, spec, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        runner.run_chains(seeds, spec, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         tempering.run_tempered(seeds, spec, [0.5, 1.0], device="cpu",
                                mesh=object())
     base = {"experiment_type": "single_N", "common": {}}
-    for tpu in ({"mesh": True}, {"profile_dir": "trace"}):
+    for tpu in ({"mesh": True}, {"mesh": True, "profile_dir": "trace"}):
         with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             parse_config({**base, "tpu": tpu})
+    assert parse_config({**base, "tpu": {"profile_dir": "trace"}})
     for main, flags in ((competition.main, ["--mesh"]),
                         (exp_cli.main, ["--mesh"]),
-                        (exp_cli.main, ["--profile-dir", "trace"])):
+                        (exp_cli.main, ["--mesh", "--profile-dir", "trace"])):
         with pytest.raises(SystemExit) as exc:
             main(flags + ["--device", "cpu"])
         assert exc.value.code == 2

@@ -179,15 +179,19 @@ def test_config_guards_match_jax():
         with pytest.raises(ValueError, match="'single_N' section"):
             parse({k: v for k, v in base.items()
                    if k != "single_N"}).section("single_N")
-    for tpu in ({"mesh": True}, {"mesh": 2}, {"profile_dir": "trace"},
+    for tpu in ({"mesh": True}, {"mesh": 2}, {"profile_dir": "trace",
+                                               "mesh": True},
                 {"checkpoint_dir": "ck", "mesh": True}):
         with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             config.parse_config({**base, "tpu": tpu})
     assert config.parse_config({**base, "tpu": {
         "mesh": False, "checkpoint_dir": None, "profile_dir": None}})
-    # checkpoint_dir is ported (tests/test_torch_checkpoint.py)
+    # checkpoint_dir and profile_dir are ported
+    # (tests/test_torch_checkpoint.py, tests/test_torch_profiling.py)
     assert config.parse_config({**base, "tpu": {
         "checkpoint_dir": "ck"}}).tpu.checkpoint_dir == "ck"
+    assert config.parse_config({**base, "tpu": {
+        "profile_dir": "trace"}}).tpu.profile_dir == "trace"
 
 
 def test_repo_configs_load():
@@ -202,7 +206,10 @@ def test_repo_configs_load():
         config.load_config(os.path.join(REPO, "configs/pod_scale.yaml"))
 
 
-@pytest.mark.parametrize("flags", [["--mesh"], ["--profile-dir", "trace"]])
+# --profile-dir runs (tests/test_torch_profiling.py); --mesh is refused with
+# it or without it.
+@pytest.mark.parametrize("flags", [["--mesh"],
+                                   ["--mesh", "--profile-dir", "trace"]])
 def test_cli_refuses_unported_flags(flags):
     with pytest.raises(SystemExit) as exc:
         cli.main(["--config", "config.yaml", "--device", "cpu"] + flags)

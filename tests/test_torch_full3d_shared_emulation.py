@@ -209,3 +209,27 @@ def test_every_team_size_delayed_memory(lib, lanes, monkeypatch):
         lanes, cpb, full3d_shared.cta_smem_bytes(spec.q_eff, lanes, cpb))
     _emulated_equals_twin(lib, spec, _carry(spec, 64, seed0=11), 1,
                           forced=forced)
+
+
+@pytest.mark.parametrize("memory", ["ordered", "delayed"])
+@pytest.mark.parametrize("hold", [16, 32])
+@pytest.mark.parametrize("lanes,shared,mode", [
+    (1, True, "plain"), (4, True, "tempered"), (32, True, "plain"),
+    (8, False, "tempered")], ids=["1-shared", "4-shared", "32-shared",
+                                  "8-device"])
+def test_long_holds(lib, lanes, shared, mode, hold, memory, monkeypatch):
+    """The kernel's hold-16 and hold-32 instances (``_HOLD`` patched, as
+    the probe of the hold does) in both memory models: N=5, Q=13, 32
+    chains in one block, two 1100-step launches (each ends on a 12-step
+    chunk) with 20-step bins turning inside chunks and patience stopping
+    chains mid-chunk."""
+    monkeypatch.setenv("MCQ_EMU_MEMORY", memory)
+    monkeypatch.setattr(full3d_shared, "_HOLD", hold)
+    spec = _spec(5, 13, 2000, 1100, early_stop_patience=900)
+    cpb = max(1, 32 // lanes)
+    smem = full3d_shared.cta_smem_bytes(13, lanes, cpb)
+    forced = full3d_shared.Layout(lanes, cpb, smem if shared else 0)
+    carry = _carry(spec, 32, block=32, seed0=hold)
+    end, _ = _emulated_equals_twin(lib, spec, carry, 2, mode, forced)
+    stopped = int((end.stop_step < spec.n_steps).sum())
+    assert 0 < stopped < end.energy.shape[0]
