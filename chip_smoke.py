@@ -186,7 +186,24 @@ and the script exits non-zero without printing a result:
    ``checkpoint_dir`` (a temporary directory) through
    ``drivers.run_single_n``, killed right after 5 of its 10 segments and
    resumed: equal to the first run in every array, the resume launching
-   only the 5 remaining segments; ``configs/beyond_reference.yaml``'s
+   only the 5 remaining segments; then the mesh
+   (``mcqueens_torch/dist/mesh.py``), its launches counted apart:
+   ``configs/pod_scale.yaml`` as written (``mesh: true``: every visible
+   card; its ``checkpoint_dir`` a temporary directory) through
+   ``drivers.run_from_config``, cut to 2^19 steps, equal to the unsharded
+   run in every ChainResult array; and each sampler's path unsharded and
+   on 2 and 4 shards over ``cuda:0``, every sharded result equal to the
+   unsharded one and every shard's launches counted: the board CLI's main
+   path (N=16, 32768 runs, 50000 steps, stride 48), the board tempered
+   CLI's width cut to 4800 steps, the full-3D floors search as the floors
+   slice runs it (N=15, Q=225, 65536 chains, 16 levels, two 62500-step
+   chunks), the per-chain board at pod scale (N=20, 4096 runs, 2^17 steps),
+   the per-chain full-3D beta pair 0.5->3 (N=12, Q=144, 4096 runs, 2^17
+   steps) and config.yaml's first cell on each scan (10 chains, padded by
+   the 4-shard mesh to 12; 1M steps, stride 1); where more than one card is
+   visible, each path again over all of them, with each card's busy time
+   (CUDA events around its segments), else a line saying one card was
+   visible; ``configs/beyond_reference.yaml``'s
    sweep through ``drivers.measure_min_energy_vs_n`` (10 N, random and
    klarner, 128 runs) cut to 62500 steps, where klarner at N = 17, 19, 23,
    29, 31 must report 0; and ``config.yaml``'s beta_start_end_pairs section
@@ -277,6 +294,7 @@ from mcqueens_torch.core import fastinit, rng, tables  # noqa: E402
 from mcqueens_torch.core.energy import board_energy, full3d_energy  # noqa: E402
 from mcqueens_torch.core.schedules import (build_schedule,  # noqa: E402
                                            chunk_betas)
+from mcqueens_torch.dist import mesh as mesh_mod  # noqa: E402
 from mcqueens_torch.dist import runner  # noqa: E402
 from mcqueens_torch.experiments import drivers  # noqa: E402
 from mcqueens_torch.experiments.config import load_config, parse_config  # noqa: E402
@@ -291,7 +309,9 @@ from mcqueens_torch.tools import (full3d_floors_campaign,  # noqa: E402
                                   qmax_frontier, qmax_push, verify_board)
 from mcqueens_torch.tools import probe_hold, probe_largeN  # noqa: E402
 from mcqueens_torch.tools import qmax as qmax_tool  # noqa: E402
+from mcqueens_torch.search import tempering  # noqa: E402
 from mcqueens_torch.search.tempering import geometric_ladder  # noqa: E402
+from mcqueens_torch.utils import profiling  # noqa: E402
 from mcqueens_torch.utils.checkpoint import Checkpointer  # noqa: E402
 from pair_scan_slice import full3d_sass_digests  # noqa: E402
 
@@ -3365,6 +3385,228 @@ def probe_tools_slice():
     return launches
 
 
+# The mesh phase (dist/mesh.py): each sharded path against its unsharded
+# run.  A case is (label, the sampler module, a function of the mesh, None
+# for no mesh, returning what is compared bitwise).
+MESH_SHARDS = (2, 4)
+
+
+def result_arrays(res):
+    return {field: getattr(res, field) for field in RESULT_ARRAYS}
+
+
+def tempered_arrays(out):
+    return {k: v for k, v in out.items() if k != "wall_time"}
+
+
+def mesh_cases():
+    """The six samplers' paths at their widths: the board CLI's main path
+    (N=16, 32768 runs, 50000 steps, stride 48), the board tempered CLI's
+    (16 levels; 50000 -> 4800 steps), the floors search (N=15, Q=225,
+    65536 chains, 16 levels 0.8->7, two 62500-step chunks; the floors
+    slice's cut), the per-chain board at pod scale (N=20, 4096 runs,
+    stride 16384; 5M -> 2^17 steps), the per-chain full-3D beta pair 0.5->3
+    (N=12, Q=144, 4096 runs, 2^17 steps, stride 16384) and config.yaml's
+    first cells on both scans (10 chains, 1M steps, stride 1, tables)."""
+    def board(n_steps, stride, schedule):
+        return ChainSpec(N=16, n_steps=n_steps, schedule=schedule,
+                         init_mode="random", history_stride=stride,
+                         kernel="pallas_shared")
+
+    def chains(spec, seeds, **kw):
+        return lambda m: result_arrays(runner.run_chains(
+            seeds, spec, device="cuda", mesh=m, **kw))
+
+    def tempered(spec, seeds, ladder):
+        return lambda m: tempered_arrays(tempering.run_tempered(
+            seeds, spec, ladder, device="cuda", swap_seed=int(seeds[0]),
+            mesh=m))
+
+    cli_seeds = 42 + np.arange(32768, dtype=np.uint32)
+    plain = board(50000, 48, lin(50000, 1.0, 3.0))
+    temp = board(4800, 48, const(4800, 1.0))
+    f3 = ChainSpec(N=15, n_steps=125000, schedule=const(125000, 1.0),
+                   init_mode="random", mcmc_type="full_3d",
+                   history_stride=62500, kernel="pallas_shared")
+    pod = ChainSpec(N=20, n_steps=1 << 17, schedule=lin(1 << 17, 1.0, 5.0),
+                    init_mode="random", history_stride=16384,
+                    kernel="pallas", early_stop_patience=None)
+    pairs = ChainSpec(N=12, n_steps=1 << 17,
+                      schedule=lin(1 << 17, 0.5, 3.0), init_mode="random",
+                      mcmc_type="full_3d", history_stride=16384,
+                      kernel="pallas")
+    exp = build_schedule("exponential_annealing", 10 ** 6, beta_start=1.0,
+                         beta_end=3.0)
+    scan_b = ChainSpec(N=12, n_steps=10 ** 6, schedule=exp,
+                       init_mode="random", kernel="tables",
+                       early_stop_patience=None)
+    scan_f = ChainSpec(N=12, n_steps=10 ** 6, schedule=lin(10 ** 6, 0.5, 3.0),
+                       init_mode="random", mcmc_type="full_3d",
+                       kernel="tables")
+    ten = 42 + np.arange(10, dtype=np.uint32)
+    four_k = 42 + np.arange(4096, dtype=np.uint32)
+    return [
+        ("board shared N=16 C=32768 (board CLI)", board_shared,
+         chains(plain, cli_seeds)),
+        ("board shared tempered N=16 C=32768 ladder 16", board_shared,
+         tempered(temp, cli_seeds, geometric_ladder(1.0, 3.0, 16))),
+        ("full3d shared tempered N=15 Q=225 C=65536 ladder 16 (floors "
+         "search)",
+         full3d_shared,
+         tempered(f3, 31337 + np.arange(65536, dtype=np.uint32),
+                  geometric_ladder(0.8, 7.0, 16))),
+        ("per-chain board N=20 C=4096 (pod scale)", metropolis_pallas,
+         chains(pod, four_k)),
+        ("per-chain full3d N=12 Q=144 C=4096 (beta pair 0.5->3)",
+         full3d_pallas, chains(pairs, four_k)),
+        ("board scan N=12 C=10 (config.yaml)", board_chain,
+         chains(scan_b, ten, min_segments=10)),
+        ("full3d scan N=12 Q=144 C=10 (config.yaml pairs)", full3d_chain,
+         chains(scan_f, ten, min_segments=10)),
+    ]
+
+
+@contextlib.contextmanager
+def card_busy(mod):
+    """Each card's time in ``mod``'s segments, from CUDA events on its
+    current stream around every segment call (a card's segments run while
+    the host enqueues the next card's, so their host walls overlap)."""
+    spans = collections.defaultdict(list)
+    names = [n for n in ("run_segment", "run_segment_tempered")
+             if hasattr(mod, n)]
+    real = {n: getattr(mod, n) for n in names}
+
+    def wrap(name):
+        def call(carry, *args):
+            dev = carry.device
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(torch.cuda.current_stream(dev))
+            out = real[name](carry, *args)
+            end.record(torch.cuda.current_stream(dev))
+            spans[str(dev)].append((start, end))
+            return out
+        return call
+
+    for n in names:
+        setattr(mod, n, wrap(n))
+    try:
+        yield spans
+    finally:
+        for n in names:
+            setattr(mod, n, real[n])
+
+
+def busy_ms(spans):
+    torch.cuda.synchronize()
+    return {dev: sum(a.elapsed_time(b) for a, b in pairs)
+            for dev, pairs in spans.items()}
+
+
+def run_counted(fn, m):
+    """``fn(m)`` with the launch counts zeroed just before and read just
+    after; returns (result, wall seconds, launches by module)."""
+    zero_launches()
+    t0 = time.perf_counter()
+    out = fn(m)
+    wall = time.perf_counter() - t0
+    return out, wall, {mod: mod.KERNEL_LAUNCHES for mod in KERNELS}
+
+
+def same_arrays(label, want, got):
+    for key, w in want.items():
+        if not np.array_equal(np.asarray(got[key]), np.asarray(w)):
+            raise AssertionError(f"mesh {label}: {key} differs from the "
+                                 f"unsharded run")
+
+
+def pod_scale_mesh(want):
+    """configs/pod_scale.yaml as written (``mesh: true``: every visible
+    card) through drivers.run_from_config, cut to 2^19 steps as the
+    pod-scale slice, its checkpoint_dir in a temporary directory: equal to
+    the unsharded slice's result in every ChainResult array."""
+    cfg = load_config(os.path.join(REPO, "configs", "pod_scale.yaml"))
+    if cfg.tpu.mesh is not True:
+        raise AssertionError("configs/pod_scale.yaml no longer sets mesh")
+    m = mesh_mod.mesh_for("cuda", cfg.tpu.mesh)
+    cfg.common["n_steps"] = POD_SCALE["common"]["n_steps"]
+    with tempfile.TemporaryDirectory() as ckdir:
+        cfg.tpu.checkpoint_dir = ckdir
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = drivers.run_from_config(cfg, device="cuda",
+                                          plot=False)["result"]
+        wall = time.perf_counter() - t0
+    n_segs, seg_outer = runner.plan_segments(
+        -(-cfg.n_steps // cfg.tpu.history_stride), cfg.n_runs,
+        cfg.tpu.history_stride, min_segments=10)
+    got = check_launches("pod-scale mesh",
+                         {metropolis_pallas: n_segs * seg_outer * len(m)})
+    same_arrays("pod_scale.yaml", result_arrays(want), result_arrays(res))
+    if res.devices != tuple(str(d) for d in mesh_mod.distinct(m)):
+        raise AssertionError(f"pod-scale mesh ran on {res.devices}")
+    phase("mesh", f"configs/pod_scale.yaml as written (mesh: true -> "
+          f"{[str(d) for d in m]}; tpu.checkpoint_dir in a temporary "
+          f"directory) cut to {cfg.n_steps} steps: == the unsharded "
+          f"pod-scale slice in every ChainResult array; "
+          f"{got[metropolis_pallas]} kernel launches; run wall "
+          f"{res.wall_time:.3f} s against the unsharded {want.wall_time:.3f}"
+          f" s (driver call {wall:.3f} s); "
+          f"{profiling.throughput_of(res)}")
+    return got[metropolis_pallas]
+
+
+def mesh_slice(pod_result):
+    """(a) pod_scale.yaml with its mesh; (b) every sampler's path on 2 and
+    4 shards over cuda:0 against its unsharded run, bitwise, the shards'
+    launches counted; (c) the same over distinct cards where more than one
+    is visible.  Returns each module's launches in the sharded runs."""
+    n_cards = torch.cuda.device_count()
+    for dev in mesh_mod.make_mesh():
+        # each card's context is made here, not inside a timed run
+        torch.zeros(1, device=dev).cpu()
+    launches = collections.Counter()
+    launches[metropolis_pallas] += pod_scale_mesh(pod_result)
+    for label, mod, fn in mesh_cases():
+        want, wall0, base = run_counted(fn, None)
+        if base[mod] == 0 or sum(base.values()) != base[mod]:
+            raise AssertionError(f"mesh {label}: unsharded launches {base}")
+        walls = []
+        for k in MESH_SHARDS:
+            m = mesh_mod.make_mesh(["cuda:0"] * k)
+            got, wall, n = run_counted(fn, m)
+            same_arrays(f"{label} on {k} shards", want, got)
+            if n[mod] != k * base[mod] or sum(n.values()) != n[mod]:
+                raise AssertionError(f"mesh {label} on {k} shards: "
+                                     f"launches {n}, want {k} x {base[mod]}")
+            launches[mod] += n[mod]
+            walls.append(f"{k} shards {wall:.3f} s ({n[mod]} launches)")
+        if n_cards >= 2:
+            m = mesh_mod.make_mesh()
+            with card_busy(mod) as spans:
+                got, wall, n = run_counted(fn, m)
+            same_arrays(f"{label} on {n_cards} cards", want, got)
+            if n[mod] != n_cards * base[mod]:
+                raise AssertionError(f"mesh {label} on {n_cards} cards: "
+                                     f"{n[mod]} launches")
+            launches[mod] += n[mod]
+            per_card = ", ".join(f"{d} {ms / 1e3:.3f} s"
+                                 for d, ms in busy_ms(spans).items())
+            walls.append(f"{n_cards} cards {wall:.3f} s (busy: {per_card})")
+        phase("mesh", f"{label}: 2 and 4 shards over cuda:0 == unsharded "
+              f"in every array; unsharded {wall0:.3f} s ({base[mod]} "
+              f"launches), {'; '.join(walls)}")
+    if n_cards < 2:
+        phase("mesh", f"one card visible ({torch.cuda.get_device_name(0)}; "
+              f"nvidia-smi: {nvidia_smi('name,power.limit')}): no mesh "
+              f"over distinct cards")
+    missing = [KERNELS[mod]["name"] for mod in KERNELS if not launches[mod]]
+    if missing:
+        raise AssertionError(f"the mesh phase launched no {missing}")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     # 1. device -----------------------------------------------------------
@@ -3952,6 +4194,8 @@ def main():
         metropolis_launches, pod_result = pod_scale_slice()
     with timed("slice pod scale killed and resumed"):
         metropolis_launches += pod_scale_resume(pod_result)
+    with timed("mesh"):
+        mesh_launches = mesh_slice(pod_result)
     with timed("slice beyond reference"):
         metropolis_launches += beyond_reference_slice()
     with timed("slice full3d pairs"):
@@ -4033,7 +4277,8 @@ def main():
         rows.append({
             **KERNELS[mod],
             "route": "cuda",
-            "launches": launches,
+            "launches": launches + mesh_launches[mod],
+            "mesh_launches": mesh_launches[mod],
             "max_abs_err": max(r["err"] for r in results.values()
                                if r["mod"] is mod),
             "ms": res["kernel_ms"],
@@ -4065,6 +4310,9 @@ def main():
          "full3d_scan N=12 Q=144 C=4096 tables", full3d_chain))
     for row, launches, table, case, tag in scan_rows:
         res = table[case]
+        if tag != "freeze":
+            row = {**row, "mesh_launches": mesh_launches[tag]}
+            launches += mesh_launches[tag]
         bound_ms, bound_by = bounds.of(*res["work"])
         phase("bound", f"{row['name']} on '{case}': {res['work'][0]:.4e} "
               f"int32 ops, {res['work'][1]:.4e} bytes -> bound "

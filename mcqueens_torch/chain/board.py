@@ -43,6 +43,7 @@ from mcqueens_torch.core import init as init_mod
 from mcqueens_torch.core import rng
 from mcqueens_torch.core import tables as tables_mod
 from mcqueens_torch.core.schedules import chunk_betas
+from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.kernels import _build, segment
 
 # Launches of the CUDA kernel in this process (read and reset by callers
@@ -368,3 +369,13 @@ def run_segment(carry: BoardCarry, start_outer: int, spec: ChainSpec,
     st = segment_state(carry)
     ys = segment_call(st, int(start_outer), n_outer, spec)
     return carry_of(st), ys
+
+
+def run_segment_sharded(shards, start_outer: int, spec: ChainSpec,
+                        n_outer: int, mesh):
+    """:func:`run_segment` over a chains mesh: each shard's carry (its
+    chains' threefry keys split off the whole batch's) advances on its own
+    device, one launch a shard on CUDA; returns the shard carries and
+    ``ys`` ``(n_outer, C)`` in shard order."""
+    return mesh_mod.run_sharded(
+        lambda c: run_segment(c, start_outer, spec, n_outer), shards, mesh)

@@ -9,14 +9,17 @@ scan samplers, independent chains with full history for <= 64 runs),
 throughput tier).  ``--mcmc-type board|full_3d``, ``--q`` and ``--tempering``
 (``pallas_shared`` only) with ``--exchange-interval`` run as in the JAX CLI.
 ``--checkpoint-dir DIR`` saves the search's state there (at most every 30
-s) and a rerun with the same flags resumes it; ``--mesh`` is not ported yet
-(ROADMAP.md queue 1 item 7) and is refused.
+s) and a rerun with the same flags resumes it.  ``--mesh`` shards the runs
+over every device of ``--device``'s type
+(:func:`mcqueens_torch.dist.mesh.mesh_for`): all visible cards on CUDA; on
+the CPU, which torch sees as one device, a mesh of one shard, so the run
+equals the one without ``--mesh``.
 
     python -m mcqueens_torch.cli.competition [--n 15] [--n-runs 10]
         [--n-steps 100000] [--beta-start 1.0] [--beta-end 3.0] [--seed 42]
         [--kernel tables|naive|pallas|pallas_shared]
         [--mcmc-type board|full_3d] [--q Q] [--tempering L] [--device cuda]
-        [--checkpoint-dir DIR] [--outdir .]
+        [--checkpoint-dir DIR] [--mesh] [--outdir .]
 """
 
 from __future__ import annotations
@@ -63,7 +66,9 @@ def main(argv=None) -> int:
                              "(constant in time).  Requires --kernel "
                              "pallas_shared.  Chain c sits at ladder level "
                              "c %% L.")
-    parser.add_argument("--mesh", action="store_true")
+    parser.add_argument("--mesh", action="store_true",
+                        help="shard the runs over all devices of --device's "
+                             "type (one shard on the CPU)")
     parser.add_argument("--outdir", default=".")
     parser.add_argument("--checkpoint-dir", default=None, metavar="DIR")
     parser.add_argument("--exchange-interval", type=int, default=1,
@@ -78,10 +83,6 @@ def main(argv=None) -> int:
                              "(their plain-torch twins)")
     args = parser.parse_args(argv)
 
-    if args.mesh:
-        parser.error("--mesh: not ported to mcqueens_torch yet (ROADMAP.md "
-                     "queue 1 item 7); use python -m "
-                     "mcqueens.cli.competition")
     if args.q is not None:
         if args.mcmc_type != "full_3d":
             parser.error("--q only applies to --mcmc-type full_3d "
@@ -92,8 +93,11 @@ def main(argv=None) -> int:
 
     from mcqueens_torch.chain.spec import ChainSpec
     from mcqueens_torch.core.schedules import build_schedule
+    from mcqueens_torch.dist import mesh as mesh_mod
     from mcqueens_torch.dist import runner
     from mcqueens_torch.utils import profiling
+
+    mesh = mesh_mod.mesh_for(args.device) if args.mesh else None
 
     stride = args.history_stride
     if stride is None:
@@ -159,7 +163,7 @@ def main(argv=None) -> int:
             args.seed + np.arange(args.n_runs, dtype=np.uint32), spec,
             ladder, device=args.device, swap_seed=args.seed,
             initial_states=initial_states, verbose=True,
-            exchange_interval=args.exchange_interval,
+            exchange_interval=args.exchange_interval, mesh=mesh,
             checkpointer=checkpointer,
         )
         order = np.argsort(out["best_energy"], kind="stable")
@@ -191,8 +195,8 @@ def main(argv=None) -> int:
         )
         res = runner.run_chains(
             args.seed + np.arange(args.n_runs, dtype=np.uint32), spec,
-            device=args.device, verbose=True, initial_states=initial_states,
-            checkpointer=checkpointer,
+            device=args.device, mesh=mesh, verbose=True,
+            initial_states=initial_states, checkpointer=checkpointer,
         )
     else:
         res = runner.run_experiment(
@@ -201,7 +205,7 @@ def main(argv=None) -> int:
             device=args.device, mcmc_type=args.mcmc_type,
             early_stop_patience=args.early_stop_patience,
             verbose=True, history_stride=stride, kernel=args.kernel,
-            n_bins=n_bins, checkpointer=checkpointer, Q=args.q,
+            n_bins=n_bins, checkpointer=checkpointer, Q=args.q, mesh=mesh,
         )
 
     order = np.argsort(res.best_energy, kind="stable")

@@ -1,6 +1,7 @@
-"""Multi-run orchestration on one device, port of :mod:`mcqueens.dist.runner`.
+"""Multi-run orchestration, port of :mod:`mcqueens.dist.runner`.
 
-All runs are one batch of chains on ``device``.  Long runs execute as
+All runs are one batch of chains on ``device``, or sharded over a chains
+mesh (:mod:`mcqueens_torch.dist.mesh`).  Long runs execute as
 equal-length segments (:func:`plan_segments`, unchanged from the JAX package
 so segment boundaries and histories match) while the host reads each
 segment's energy history.  Every kernel of the JAX package is ported, for
@@ -25,6 +26,7 @@ from mcqueens_torch.chain import board as board_chain
 from mcqueens_torch.chain import full3d as full3d_chain
 from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.core import rng as rng_mod
+from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.kernels import (board_shared, full3d_pallas,
                                    full3d_shared, metropolis_pallas)
 from mcqueens_torch.utils import checkpoint, profiling
@@ -71,6 +73,7 @@ class ChainResult:
     wall_time: float             # whole-batch wall clock (seconds)
     run_times: np.ndarray        # (R,) wall_time for every run of the batch
     device: str
+    devices: tuple = ()          # the distinct devices the chains ran on
 
     @property
     def n_runs(self) -> int:
@@ -168,22 +171,46 @@ def run_chains(
 ) -> ChainResult:
     """Run one chain per seed as one batch on ``device`` ("cpu" or "cuda").
 
-    ``checkpointer`` (a :class:`mcqueens_torch.utils.checkpoint.Checkpointer`)
-    saves the carry after every segment and resumes from a saved segment
-    when one matches this run.  ``profile_dir`` writes a ``torch.profiler``
-    trace of the run there (:func:`mcqueens_torch.utils.profiling.trace`:
-    init, segments and the final synchronise).  ``mesh`` is not ported yet
-    (ROADMAP.md queue 1 item 7) and raises if set.
+    ``mesh`` (a tuple of devices of ``device``'s type, see
+    :func:`mcqueens_torch.dist.mesh.make_mesh`; ``ValueError`` if the types
+    differ) shards the batch as the JAX package does: the chains are padded
+    to a multiple of the mesh size with follow-on seeds (warm starts repeat
+    the last one), the Pallas samplers' to whole blocks a shard with the
+    block sized from one shard's share; the whole carry is built once (block
+    seeds are global) and split, and every segment runs each shard on its
+    device.  The result equals an unsharded run's bitwise for the per-chain
+    and scan samplers, and an unsharded run's at the same block for the
+    shared-site ones.  ``checkpointer`` (a
+    :class:`mcqueens_torch.utils.checkpoint.Checkpointer`) saves the whole
+    carry after every segment (gathered in shard order) and resumes from a
+    saved segment when one matches this run.  ``profile_dir`` writes a
+    ``torch.profiler`` trace of the run there
+    (:func:`mcqueens_torch.utils.profiling.trace`: init, segments and the
+    final synchronise).
     """
     dev = _device(device)
     if mesh is not None:
-        raise NotImplementedError("multi-device chain sharding is not "
-                                  "ported yet (ROADMAP.md queue 1 item 7)")
+        mesh = mesh_mod.check_mesh(mesh, dev)
     mod = _modules(spec)
     seeds = np.asarray(seeds, dtype=np.uint32)
     n_runs = seeds.shape[0]
     if initial_states is not None:
         initial_states = validate_initial_states(initial_states, spec, n_runs)
+    n_padded = mesh_mod.pad_chains(n_runs, mesh)
+    if n_padded > n_runs:
+        # Follow-on seeds; padded chains are discarded.
+        pad = seeds[-1] + 1 + np.arange(n_padded - n_runs, dtype=np.uint32)
+        seeds = np.concatenate([seeds, pad])
+        if initial_states is not None:
+            reps = np.repeat(initial_states[-1:], n_padded - n_runs, axis=0)
+            initial_states = np.concatenate([initial_states, reps])
+    block = None
+    if mesh is not None and not _scan(spec):
+        # Each shard owns whole blocks (init_carry_batch pads any shorter
+        # initial_states by repeating the last warm start).
+        seeds, block = mesh_mod.pad_seeds_to_blocks(
+            seeds, mesh, lambda c: mod.block_size(c, spec))
+    home = dev if mesh is None else mesh[0]
 
     n_outer = spec.n_outer
     if verbose:
@@ -191,16 +218,20 @@ def run_chains(
     if checkpointer is not None:
         min_segments = max(min_segments, checkpointer.min_segments)
     n_segs, seg_outer = plan_segments(
-        n_outer, n_runs, spec.history_stride, min_segments)
+        n_outer, n_padded, spec.history_stride, min_segments)
 
     t0 = time.time()
     with profiling.trace(profile_dir):
         # The scan samplers take one threefry key per chain, the Pallas
         # samplers the seeds themselves (mcqueens/dist/runner.py:199-205).
-        init_arg = (rng_mod.chain_keys_from_seeds(seeds, dev) if _scan(spec)
-                    else seeds)
-        carry = mod.init_carry_batch(init_arg, spec,
-                                     initial_states=initial_states, device=dev)
+        if _scan(spec):
+            carry = mod.init_carry_batch(
+                rng_mod.chain_keys_from_seeds(seeds, home), spec,
+                initial_states=initial_states, device=home)
+        else:
+            carry = mod.init_carry_batch(seeds, spec, block=block,
+                                         initial_states=initial_states,
+                                         device=home)
         e0 = carry.energy.reshape(-1).cpu().numpy()
         history_chunks = []
         start_seg = 0
@@ -210,24 +241,34 @@ def run_chains(
                                            fingerprint=ckpt_fp)
             if resumed is not None:
                 carry, start_seg, history_chunks = resumed
+        if mesh is None:
+            state = carry
+        else:
+            state = mesh_mod.shard_chains(carry, mesh)
+        del carry
         for seg in range(start_seg, n_segs):
-            carry, ys = mod.run_segment(carry, seg * seg_outer, spec,
-                                        seg_outer)
+            if mesh is None:
+                state, ys = mod.run_segment(state, seg * seg_outer, spec,
+                                            seg_outer)
+            else:
+                state, ys = mod.run_segment_sharded(
+                    state, seg * seg_outer, spec, seg_outer, mesh)
             history_chunks.append(ys.cpu().numpy())  # (seg_outer, C)
             if verbose:
                 done_steps = min((seg + 1) * seg_outer * spec.history_stride,
                                  spec.n_steps)
-                e = carry.energy[:n_runs].cpu().numpy()
+                e = _field(state, "energy")[:n_runs]
                 print(f"[mcqueens] step {done_steps}/{spec.n_steps}: "
                       f"mean E={e.mean():.2f} min E={e.min()}")
             if checkpointer is not None:
-                checkpointer.save(carry, seg + 1, history_chunks,
+                whole = (state if mesh is None
+                         else mesh_mod.gather_chains(state, "cpu"))
+                checkpointer.save(whole, seg + 1, history_chunks,
                                   seg_outer=seg_outer, fingerprint=ckpt_fp)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        devices = (dev,) if mesh is None else mesh_mod.distinct(mesh)
+        mesh_mod.synchronize(devices)
     wall = time.time() - t0
-    host = {name: getattr(carry, name).cpu().numpy()
-            for name in state_fields(spec)}
+    host = {name: _field(state, name) for name in state_fields(spec)}
     if verbose:
         total_props = int(host["total_bins"].sum())
         print(f"[mcqueens] {total_props:.3e} proposals in {wall:.2f}s "
@@ -263,7 +304,17 @@ def run_chains(
         wall_time=wall,
         run_times=np.full((n_runs,), wall),
         device=str(dev),
+        devices=tuple(str(d) for d in devices),
     )
+
+
+def _field(state, name: str) -> np.ndarray:
+    """A carry field as a host array: of one carry, or of a mesh's shard
+    carries joined in shard order."""
+    if isinstance(state, tuple):
+        return np.concatenate([getattr(c, name).cpu().numpy()
+                               for c in state])
+    return getattr(state, name).cpu().numpy()
 
 
 def run_experiment(

@@ -9,15 +9,16 @@ use it:
       kernel: tables | naive | pallas | pallas_shared
       history_stride: int
       n_bins: int
-      mesh: false                 # multi-GPU sharding: not ported yet
+      mesh: false                 # true: every device; n: the first n
       checkpoint_dir: null        # one resumable checkpoint a sweep cell
       profile_dir: null           # torch.profiler trace of the sweep
       allow_correlated_runs: bool # required (true) for pallas_shared
 
-``mesh`` set to anything but off raises ``NotImplementedError`` (ROADMAP.md
-queue 1 item 7).  ``yaml`` is imported
-only by :func:`load_config`, so a config built as a dict needs no YAML
-package.
+``mesh`` shards every run's chains over a device mesh
+(:func:`mcqueens_torch.dist.mesh.mesh_for`: on CUDA every visible card or
+the first n; on the CPU one shard or n shards of the one CPU device).
+``yaml`` is imported only by :func:`load_config`, so a config built as a
+dict needs no YAML package.
 """
 
 from __future__ import annotations
@@ -134,9 +135,9 @@ def parse_config(raw: dict) -> Config:
             "statistically independent (the reference's n_runs contract). "
             "Use kernel 'pallas' or 'tables', or set "
             "tpu.allow_correlated_runs: true to accept correlated runs.")
-    if tpu.mesh:
-        raise NotImplementedError(
-            "tpu.mesh: not ported to mcqueens_torch yet (ROADMAP.md queue 1 "
-            "item 7); leave it off or use python -m mcqueens.cli.experiments")
+    if not isinstance(tpu.mesh, (bool, int)) or (
+            not isinstance(tpu.mesh, bool) and tpu.mesh < 0):
+        raise ValueError(f"tpu.mesh must be true, false or a device count, "
+                         f"got {tpu.mesh!r}")
     return Config(raw=raw, experiment_type=experiment_type,
                   common=raw["common"], tpu=tpu)

@@ -12,7 +12,10 @@ JAX package's seed derivations exactly:
   * ``measure_min_energy_vs_N``: cell ``(idx, init_mode)`` runs from
     ``base_seed + 10 * idx + sum(ord(c) for c in init_mode) % 1000``.
 
-``device`` ("cuda" unless the caller asks for "cpu") goes to every run.
+``device`` ("cuda" unless the caller asks for "cpu") goes to every run,
+and so does ``mesh`` (a chains mesh of that device type,
+:mod:`mcqueens_torch.dist.mesh`), built from the ``tpu`` section's ``mesh``
+when the caller gives none.
 With ``tpu.checkpoint_dir`` every cell saves its run there under its own
 tag and a rerun resumes it.
 :mod:`mcqueens_torch.experiments.plotting` is imported only where a figure
@@ -25,14 +28,19 @@ from __future__ import annotations
 import numpy as np
 
 from mcqueens_torch.core import schedules as sched_mod
+from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.dist import runner
 from mcqueens_torch.experiments.config import Config, TpuConfig
 from mcqueens_torch.utils.checkpoint import Checkpointer
 
 
 def _run(tpu, N, n_steps, init_mode, schedule, n_runs, base_seed,
-         mcmc_type, early_stop_patience, verbose, device):
-    """One batched experiment with the tpu-section knobs applied."""
+         mcmc_type, early_stop_patience, verbose, device, mesh):
+    """One batched experiment with the tpu-section knobs applied; without
+    ``mesh`` the section's ``mesh`` gives it
+    (:func:`mcqueens_torch.dist.mesh.mesh_for` on ``device``)."""
+    if mesh is None and tpu.mesh:
+        mesh = mesh_mod.mesh_for(device, tpu.mesh)
     checkpointer = None
     if tpu.checkpoint_dir:
         # one checkpoint per sweep cell: resumable sweeps never collide
@@ -43,11 +51,12 @@ def _run(tpu, N, n_steps, init_mode, schedule, n_runs, base_seed,
         n_runs=n_runs, base_seed=base_seed, device=device,
         mcmc_type=mcmc_type, early_stop_patience=early_stop_patience,
         verbose=verbose, history_stride=tpu.history_stride,
-        kernel=tpu.kernel, n_bins=tpu.n_bins, checkpointer=checkpointer)
+        kernel=tpu.kernel, n_bins=tpu.n_bins, checkpointer=checkpointer,
+        mesh=mesh)
 
 
 def run_single_n(cfg: Config, outdir: str = ".", *, device="cuda",
-                 plot: bool = True):
+                 mesh=None, plot: bool = True):
     """single_N: one board size; a list-valued schedule type compares the
     schedules, all from the same base seed."""
     if plot:
@@ -64,7 +73,7 @@ def run_single_n(cfg: Config, outdir: str = ".", *, device="cuda",
         for schedule, base_seed in schedules:
             res = _run(cfg.tpu, N, cfg.n_steps, cfg.init_mode, schedule,
                        cfg.n_runs, base_seed, cfg.mcmc_type,
-                       cfg.early_stop_patience, cfg.verbose, device)
+                       cfg.early_stop_patience, cfg.verbose, device, mesh)
             histories[schedule.label] = res.energy_history
             steps[schedule.label] = res.history_steps
             lens[schedule.label] = res.history_len
@@ -83,7 +92,7 @@ def run_single_n(cfg: Config, outdir: str = ".", *, device="cuda",
                                                          cfg.n_steps)
     res = _run(cfg.tpu, N, cfg.n_steps, cfg.init_mode, schedule, cfg.n_runs,
                base_seed, cfg.mcmc_type, cfg.early_stop_patience,
-               cfg.verbose, device)
+               cfg.verbose, device, mesh)
     if cfg.verbose:
         for e in res.best_energy:
             print(e)
@@ -105,6 +114,7 @@ def run_beta_start_end_pairs(
     init_mode="random", n_runs=5, base_seed=0, verbose=True, plot=True,
     out_path=None, out_path_acceptance=None, mcmc_type="board",
     early_stop_patience=100000, tpu=None, outdir=".", *, device="cuda",
+    mesh=None,
 ):
     """Sweep (beta_start, beta_end) pairs at a fixed annealing type."""
     tpu = tpu or TpuConfig()
@@ -114,7 +124,7 @@ def run_beta_start_end_pairs(
             annealing_type, n_steps, beta_start=beta_start, beta_end=beta_end)
         res = _run(tpu, N, n_steps, init_mode, schedule, n_runs,
                    base_seed + idx * 1000, mcmc_type, early_stop_patience,
-                   verbose, device)
+                   verbose, device, mesh)
         label = f"beta: {beta_start}->{beta_end}"
         histories[label] = res.energy_history
         steps[label] = res.history_steps
@@ -153,7 +163,7 @@ def run_compare_beta_end(
     Ns, n_steps, beta_start_ends, annealing_type="linear_annealing",
     init_mode="random", n_runs=5, base_seed=0, verbose=True, plot=True,
     out_path=None, mcmc_type="board", early_stop_patience=100000,
-    tpu=None, outdir=".", *, device="cuda",
+    tpu=None, outdir=".", *, device="cuda", mesh=None,
 ):
     """The pair sweep at two board sizes, plotted side by side."""
     if len(Ns) != 2:
@@ -164,7 +174,7 @@ def run_compare_beta_end(
         annealing_type=annealing_type, init_mode=init_mode, n_runs=n_runs,
         verbose=verbose, plot=False, mcmc_type=mcmc_type,
         early_stop_patience=early_stop_patience, tpu=tpu, outdir=outdir,
-        device=device)
+        device=device, mesh=mesh)
     res1 = run_beta_start_end_pairs(N=n1, base_seed=base_seed, **common)
     res2 = run_beta_start_end_pairs(N=n2, base_seed=base_seed + 10000,
                                     **common)
@@ -187,6 +197,7 @@ def measure_min_energy_vs_n(
     Ns, n_steps, schedule, init_modes=("random",), n_runs=5, base_seed=100,
     verbose=True, plot=True, out_path=None, mcmc_type="board",
     early_stop_patience=100000, tpu=None, outdir=".", *, device="cuda",
+    mesh=None,
 ):
     """Sweep board sizes x init modes; collect best energies and steps to
     best."""
@@ -202,7 +213,7 @@ def measure_min_energy_vs_n(
         for idx, N in enumerate(Ns):
             res = _run(tpu, N, n_steps, init_mode, schedule, n_runs,
                        base_seed + 10 * idx + init_offset, mcmc_type,
-                       early_stop_patience, verbose, device)
+                       early_stop_patience, verbose, device, mesh)
             all_mins.append(res.best_energy)
             mins_mean.append(res.best_energy.mean())
             mins_std.append(res.best_energy.std())
@@ -229,17 +240,18 @@ def measure_min_energy_vs_n(
 
 
 def run_from_config(cfg: Config, outdir: str = ".", *, device="cuda",
-                    plot: bool = True):
+                    mesh=None, plot: bool = True):
     """Dispatch on the config's experiment_type."""
     et = cfg.experiment_type
     if et == "single_N":
-        return run_single_n(cfg, outdir=outdir, device=device, plot=plot)
+        return run_single_n(cfg, outdir=outdir, device=device, mesh=mesh,
+                            plot=plot)
 
     knobs = dict(
         n_steps=cfg.n_steps, init_mode=cfg.init_mode, n_runs=cfg.n_runs,
         verbose=cfg.verbose, plot=plot, mcmc_type=cfg.mcmc_type,
         early_stop_patience=cfg.early_stop_patience, tpu=cfg.tpu,
-        outdir=outdir, device=device)
+        outdir=outdir, device=device, mesh=mesh)
     if et == "measure_min_energy_vs_N":
         params = cfg.section("measure_min_energy_vs_N")
         schedule, base_seed = sched_mod.schedule_from_common(cfg.common,

@@ -58,6 +58,7 @@ from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.core import fastinit
 from mcqueens_torch.core import tables as tables_mod
 from mcqueens_torch.core.schedules import chunk_betas
+from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.kernels import _build, prng, segment, sizing
 from mcqueens_torch.kernels.carry import BoardCarry
 
@@ -468,6 +469,28 @@ def run_segment_tempered(carry: BoardCarry, beta_scale, start_outer: int,
     beta_scale = torch.as_tensor(beta_scale, dtype=torch.float32,
                                  device=carry.device).reshape(-1).contiguous()
     return _run(carry, beta_scale, start_outer, spec, n_outer)
+
+
+def run_segment_sharded(shards, start_outer: int, spec: ChainSpec,
+                        n_outer: int, mesh):
+    """:func:`run_segment` over a chains mesh (:mod:`mcqueens_torch.dist.mesh`):
+    each shard (from :func:`~mcqueens_torch.dist.mesh.shard_chains` of a
+    carry made at the mesh's block) advances its own whole blocks on its
+    device.  Returns the shard carries and ``ys`` ``(n_outer, C)`` in shard
+    order."""
+    return mesh_mod.run_sharded(
+        lambda c: run_segment(c, start_outer, spec, n_outer), shards, mesh)
+
+
+def run_segment_tempered_sharded(shards, beta_scale, start_outer: int,
+                                 spec: ChainSpec, n_outer: int, mesh):
+    """:func:`run_segment_tempered` over a chains mesh; ``beta_scale`` is
+    the global ``(C,)`` row, split like the chains.  Ladder groups must not
+    straddle shards (:func:`mcqueens_torch.search.tempering.run_tempered`
+    checks it)."""
+    return mesh_mod.run_sharded(
+        lambda c, b: run_segment_tempered(c, b, start_outer, spec, n_outer),
+        shards, mesh, beta_scale)
 
 
 def _run_segment_frozen(carry: BoardCarry, freeze_row, start_outer: int,

@@ -53,6 +53,7 @@ import torch
 
 from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.core.schedules import chunk_betas
+from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.kernels import (_build, full3d_pallas, prng, segment,
                                     sizing)
 from mcqueens_torch.kernels.carry import Full3DCarry
@@ -481,3 +482,22 @@ def run_segment_tempered(carry: Full3DCarry, beta_scale, start_outer: int,
     beta_scale = torch.as_tensor(beta_scale, dtype=torch.float32,
                                  device=carry.device).reshape(-1).contiguous()
     return _run(carry, beta_scale, start_outer, spec, n_outer)
+
+
+def run_segment_sharded(shards, start_outer: int, spec: ChainSpec,
+                        n_outer: int, mesh):
+    """:func:`run_segment` over a chains mesh: each shard advances its own
+    whole blocks (their global block seeds key the candidate and mover
+    streams); returns the shard carries and ``ys`` ``(n_outer, C)`` in
+    shard order."""
+    return mesh_mod.run_sharded(
+        lambda c: run_segment(c, start_outer, spec, n_outer), shards, mesh)
+
+
+def run_segment_tempered_sharded(shards, beta_scale, start_outer: int,
+                                 spec: ChainSpec, n_outer: int, mesh):
+    """:func:`run_segment_tempered` over a chains mesh; ``beta_scale`` is
+    the global ``(C,)`` row, split like the chains."""
+    return mesh_mod.run_sharded(
+        lambda c, b: run_segment_tempered(c, b, start_outer, spec, n_outer),
+        shards, mesh, beta_scale)

@@ -38,6 +38,7 @@ import torch
 
 from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.core.schedules import chunk_betas
+from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.kernels import (_build, board_shared, delta_e, prng,
                                     segment, sizing)
 from mcqueens_torch.kernels.carry import BoardCarry
@@ -322,3 +323,13 @@ def run_segment(carry: BoardCarry, start_outer: int, spec: ChainSpec,
         segment_call(st, (int(start_outer) + o) * stride, stride, spec)
         ys[o].copy_(st.energy)
     return carry_of(st, carry.block_seeds), ys
+
+
+def run_segment_sharded(shards, start_outer: int, spec: ChainSpec,
+                        n_outer: int, mesh):
+    """:func:`run_segment` over a chains mesh: each shard advances its own
+    chains, whose streams are keyed by their own seeds, so the result equals
+    an unsharded run's; returns the shard carries and ``ys`` ``(n_outer,
+    C)`` in shard order."""
+    return mesh_mod.run_sharded(
+        lambda c: run_segment(c, start_outer, spec, n_outer), shards, mesh)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from mcqueens_torch.chain.spec import ChainSpec
+from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.dist import runner as runner_mod
 from mcqueens_torch.kernels import prng
 from mcqueens_torch.utils import checkpoint
@@ -106,13 +107,19 @@ def run_tempered(
     ``record_betas`` adds the per-round beta assignments.  ``checkpointer``
     saves (carry, betas) after each round at its cadence and resumes a
     killed search bit for bit; no RNG state is stored, since the swap stream
-    is a pure function of (swap_seed, round).  ``mesh`` is not ported yet
-    and raises.
+    is a pure function of (swap_seed, round).
+
+    ``mesh`` (devices of ``device``'s type) shards the chains: the seeds are
+    padded to whole blocks a shard, the block sized from one shard's share
+    (:func:`mcqueens_torch.dist.mesh.pad_seeds_to_blocks`), which must be a
+    multiple of the ladder length so that no ladder group straddles two
+    shards (``ValueError`` otherwise).  Segments run shard by shard; the
+    exchange runs on the first device over every shard's energies, so each
+    group's swap draws stay keyed by its global group id.
     """
     dev = runner_mod._device(device)
     if mesh is not None:
-        raise NotImplementedError("multi-device chain sharding is not "
-                                  "ported yet (ROADMAP.md queue 1 item 7)")
+        mesh = mesh_mod.check_mesh(mesh, dev)
     if spec.kernel != "pallas_shared":
         raise ValueError("run_tempered requires kernel='pallas_shared'")
     kmod = runner_mod._modules(spec)
@@ -126,11 +133,21 @@ def run_tempered(
         initial_states = runner_mod.validate_initial_states(
             initial_states, spec, n_runs)
 
-    carry = kmod.init_carry_batch(seeds, spec, initial_states=initial_states,
-                                  device=dev)
+    block, padded = None, seeds
+    if mesh is not None:
+        padded, block = mesh_mod.pad_seeds_to_blocks(
+            seeds, mesh, lambda c: kmod.block_size(c, spec))
+        if block % n_levels:
+            raise ValueError(
+                f"block size {block} must be a multiple of the ladder "
+                f"length {n_levels} (ladder groups must not straddle "
+                f"devices)")
+    home = dev if mesh is None else mesh[0]
+    carry = kmod.init_carry_batch(padded, spec, block=block,
+                                  initial_states=initial_states, device=home)
     C = int(carry.energy.shape[0])
     reps = -(-C // n_levels)
-    betas = torch.from_numpy(np.tile(ladder, reps)[:C]).to(dev)
+    betas = torch.from_numpy(np.tile(ladder, reps)[:C]).to(home)
 
     history = [carry.energy.reshape(1, -1).cpu().numpy()]
     betas_hist = []
@@ -149,48 +166,58 @@ def run_tempered(
         if resumed is not None:
             carry, start_round, chunks, extras = resumed
             betas = torch.from_numpy(
-                np.asarray(extras[0], np.float32)).to(dev)
+                np.asarray(extras[0], np.float32)).to(home)
             if record_betas:
                 betas_hist = list(extras[1])
             history = list(chunks)
+    state = carry if mesh is None else mesh_mod.shard_chains(carry, mesh)
+    del carry
     t0 = time.time()
     for r in range(start_round, n_rounds):
         seg0 = r * exchange_interval
         n_seg = min(exchange_interval, spec.n_outer - seg0)
-        carry, ys = kmod.run_segment_tempered(carry, betas, seg0, spec,
-                                              n_seg)
+        if mesh is None:
+            state, ys = kmod.run_segment_tempered(state, betas, seg0, spec,
+                                                  n_seg)
+        else:
+            state, ys = kmod.run_segment_tempered_sharded(
+                state, betas, seg0, spec, n_seg, mesh)
         history.append(ys.cpu().numpy())
         if record_betas:
             # The betas under which this round's samples were generated.
             betas_hist.append(betas.cpu().numpy())
         if r + 1 < n_rounds:
-            betas = exchange(betas, carry.energy.reshape(-1),
+            energies = (state.energy if mesh is None else
+                        mesh_mod.gather_chains([c.energy for c in state]))
+            betas = exchange(betas, energies.reshape(-1),
                              round_key(swap_seed, r), n_levels, r % 2)
         if checkpointer is not None:
             extras = (betas.cpu().numpy(),)
             if record_betas:
                 extras += (np.stack(betas_hist) if betas_hist
                            else np.zeros((0, C), np.float32),)
-            checkpointer.save(carry, r + 1, history,
+            whole = (state if mesh is None
+                     else mesh_mod.gather_chains(state, "cpu"))
+            checkpointer.save(whole, r + 1, history,
                               seg_outer=exchange_interval, fingerprint=fp,
                               extras=extras)
         if verbose and (r + 1) % max(1, n_rounds // 10) == 0:
-            e = carry.energy.reshape(-1)[:n_runs].cpu().numpy()
-            be = carry.best_energy.reshape(-1)[:n_runs].cpu().numpy()
+            e = runner_mod._field(state, "energy").reshape(-1)[:n_runs]
+            be = runner_mod._field(state, "best_energy").reshape(-1)[:n_runs]
             print(f"[tempering] round {r + 1}/{n_rounds}: "
                   f"mean E={e.mean():.2f} best={be.min()}")
         if stop_at_energy is not None:
-            be = carry.best_energy.reshape(-1)[:n_runs].cpu().numpy()
+            be = runner_mod._field(state, "best_energy").reshape(-1)[:n_runs]
             if be.min() <= stop_at_energy:
                 if verbose:
                     print(f"[tempering] early stop at round {r + 1}/"
                           f"{n_rounds}: best={be.min()}")
                 break
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    devices = (dev,) if mesh is None else mesh_mod.distinct(mesh)
+    mesh_mod.synchronize(devices)
     wall = time.time() - t0
 
-    host = {name: getattr(carry, name).cpu().numpy()
+    host = {name: runner_mod._field(state, name)
             for name in runner_mod.state_fields(spec)}
     best_state, final_state = runner_mod.states_of(host, spec)
     s = slice(0, n_runs)
@@ -208,3 +235,4 @@ def run_tempered(
     if record_betas:
         out["betas_history"] = np.stack(betas_hist, axis=0)[:, :n_runs]
     return out
+

@@ -14,6 +14,10 @@ as ``carry_<name>``, ``segments_done``, ``seg_outer``, ``fingerprint``,
 a ``None`` field (the ``naive`` scan's ``table``) is not saved and stays
 ``None``; the scan carries' ``step_base`` ((C, 2) int64 holding uint32 key
 words) is saved as uint32 words, as JAX saves its keys' ``key_data``.
+A run sharded over a mesh (:mod:`mcqueens_torch.dist.mesh`) saves its whole
+carry, the shards gathered in shard order (the JAX package's sharded arrays
+read back in global order), and restores it whole before splitting it again,
+so its files equal an unsharded save of the same carry.
 """
 
 from __future__ import annotations

@@ -42,10 +42,11 @@ class ThroughputReport:
 
 def throughput_of(result, n_devices: int | None = None) -> ThroughputReport:
     """Throughput of a :class:`mcqueens_torch.dist.runner.ChainResult`;
-    devices are ``torch.cuda.device_count()`` for a CUDA run, 1 on the CPU."""
+    devices are the distinct devices the run used (``result.devices``: one
+    without a mesh, the mesh's distinct cards with one; a CPU mesh is one
+    device however many shards it has)."""
     if n_devices is None:
-        n_devices = (torch.cuda.device_count()
-                     if torch.device(result.device).type == "cuda" else 1)
+        n_devices = len(set(result.devices)) or 1
     return ThroughputReport(
         proposals=result.proposals,
         wall_time_s=result.wall_time,

@@ -138,7 +138,13 @@ pipe.  ``--only sass`` (never run by default) prints the SASS digest of
 each instance of the full-3D shared kernel at hold 8 in the checkout's
 build (:func:`full3d_sass_digests`; a checkout from before the hold was a
 template parameter has only those), so two checkouts' hold-8 kernels can
-be held to each other.  Prints one JSON line
+be held to each other.  ``--only mesh`` (never run by default) runs the
+checkout's ``chip_smoke.py`` mesh phase alone, after the pod-scale slice it
+compares with (``pod_scale_slice``, ``mesh_slice``), over every visible
+card: each path unsharded, on 2 and 4 shards of ``cuda:0`` and, with more
+than one card, over all of them, walls and each card's busy time printed
+(on a host of several cards, the mesh over distinct cards).  Prints one
+JSON line
 with the card's name and power limit; exits non-zero without a CUDA GPU.
 """
 
@@ -1273,6 +1279,17 @@ def sass_digests(root):
         for (lanes, smem), d in full3d_sass_digests(text).items()}}
 
 
+def mesh_phases():
+    """The checkout's ``chip_smoke.py`` mesh phase alone (module
+    docstring); returns each kernel's launches in its sharded runs."""
+    import chip_smoke
+
+    _, pod = chip_smoke.pod_scale_slice()
+    launches = chip_smoke.mesh_slice(pod)
+    return {"mesh_launches": {chip_smoke.KERNELS[mod]["name"]: n
+                              for mod, n in launches.items()}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True,
@@ -1283,7 +1300,8 @@ def main(argv=None):
                                        "full3d_pallas",
                                        "full3d_pallas_variants", "probes",
                                        "vpu_variants", "prng_variants",
-                                       "gather_variants", "sass"],
+                                       "gather_variants", "sass",
+                                       "mesh"],
                     default=None,
                     help="time only one kernel's phases")
     args = ap.parse_args(argv)
@@ -1581,6 +1599,8 @@ def main(argv=None):
         out.update(gather_variants())
     if args.only == "sass":
         out.update(sass_digests(root))
+    if args.only == "mesh":
+        out.update(mesh_phases())
     line = json.dumps(out)
     print(line)
     if args.json:

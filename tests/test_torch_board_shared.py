@@ -232,28 +232,52 @@ def test_competition_cli_parity(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--tempering", "4", "--mesh"], ["--mesh"],
-    # --checkpoint-dir runs now (tests/test_torch_checkpoint.py); the mesh
-    # beside it is still refused
+    # --checkpoint-dir runs (tests/test_torch_checkpoint.py), and so does
+    # the mesh beside it (tests/test_torch_mesh.py)
     ["--checkpoint-dir", "ck", "--mesh"],
     ["--mcmc-type", "full_3d", "--checkpoint-dir", "ck", "--mesh"],
     ["--q", "5"],
-    # the scan kernels run now (the default is tables); tempering still
-    # needs pallas_shared, and the mesh is still refused
+    # the scan kernels run (the default is tables); tempering still needs
+    # pallas_shared
     ["--kernel", "tables", "--tempering", "4"],
     ["--exchange-interval", "3", "--kernel", "naive", "--mesh"],
 ])
-def test_cli_refuses_unported_flags(flags, capsys):
-    with pytest.raises(SystemExit) as exc:
-        competition.main(["--n", "5", "--device", "cpu"] + flags)
-    assert exc.value.code == 2
+def test_cli_refuses_unported_flags(flags, tmp_path, monkeypatch):
+    """Tempering without pallas_shared and --q on a board are refused, as in
+    the JAX CLI; every other case runs, small, and --mesh (one CPU shard)
+    prints and exports what the same run without it does."""
+    argv = ["--n", "5", "--device", "cpu"] + flags
+    if "--tempering" in flags or "--q" in flags:
+        with pytest.raises(SystemExit) as exc:
+            competition.main(argv)
+        assert exc.value.code == 2
+        return
+    monkeypatch.chdir(tmp_path)
+    small = ["--n-runs", "3", "--n-steps", "60"]
+    # the plain run keeps its own checkpoint directory, or the mesh run
+    # would resume from its last save
+    plain = ["ck0" if f == "ck" else f for f in argv if f != "--mesh"]
+    want = _cli(competition.main, plain + small + ["--outdir", "a"])
+    got = _cli(competition.main, argv + small + ["--outdir", "b"])
+
+    def steady(text):  # the lines that hold no wall time or path
+        return [line for line in text.splitlines()
+                if "proposals in" not in line and "wrote" not in line]
+
+    assert steady(want) == steady(got) and "Best energies" in got
+    (a,) = (tmp_path / "a" / "competition_results").glob("*.txt")
+    (b,) = (tmp_path / "b" / "competition_results").glob("*.txt")
+    assert a.read_text() == b.read_text()
 
 
 def test_runner_refuses_unported_paths():
     _, spec = _specs("n5")
     # checkpointer= and profile_dir= run now (tests/test_torch_checkpoint.py,
     # tests/test_torch_profiling.py).
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        runner.run_chains(SEEDS, spec, device="cpu", mesh=object())
+    # mesh= runs (tests/test_torch_mesh.py); a mesh of another device type
+    # than the run's is refused.
+    with pytest.raises(ValueError, match="disagree"):
+        runner.run_chains(SEEDS, spec, device="cpu", mesh=["cuda:0"])
     # Every sampler is ported: the per-chain kernel="pallas" and the scan
     # kernels "tables" and "naive" run, for boards and full-3D placements.
     for other in (dict(kernel="pallas"),

@@ -12,6 +12,8 @@ refuses every path under the TPU's ``artifacts/`` outside
 ``schedules_fig`` draws its figure; the options not ported yet still raise.
 """
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -19,6 +21,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import yaml
 
 from mcqueens_torch import tools
 from mcqueens_torch.cli import competition
@@ -711,34 +714,52 @@ def test_schedules_fig_cli(tmp_path):
     assert (tmp_path / "figures" / "beta_schedules.png").exists()
 
 
-def test_remaining_refusals_cite_item_7(monkeypatch):
-    """mesh is all that is left unported (profile_dir runs:
-    tests/test_torch_profiling.py)."""
+def test_remaining_refusals_cite_item_7(monkeypatch, tmp_path):
+    """Nothing is left unported: the mesh runs in every entry point that
+    refused it (tests/test_torch_mesh.py holds it to the JAX package), and
+    no message cites the old queue item."""
     from mcqueens_torch.chain.spec import ChainSpec
     from mcqueens_torch.core.schedules import build_schedule
-    from mcqueens_torch.dist import runner
+    from mcqueens_torch.dist import mesh, runner
     from mcqueens_torch.experiments.config import parse_config
     from mcqueens_torch.search import tempering
 
     spec = ChainSpec(N=4, n_steps=8, kernel="pallas_shared",
                      schedule=build_schedule("constant", 8, beta_const=1.0))
     seeds = np.arange(4, dtype=np.uint32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        runner.run_chains(seeds, spec, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tempering.run_tempered(seeds, spec, [0.5, 1.0], device="cpu",
-                               mesh=object())
+    two = mesh.make_mesh(["cpu", "cpu"])
+    plain = runner.run_chains(seeds, spec, device="cpu")
+    got = runner.run_chains(seeds, spec, device="cpu", mesh=two)
+    np.testing.assert_array_equal(got.best_energy, plain.best_energy)
+    out = tempering.run_tempered(seeds, spec, [0.5, 1.0], device="cpu",
+                                 mesh=two)
+    assert out["energy_history"].shape == (4, 9)
     base = {"experiment_type": "single_N", "common": {}}
     for tpu in ({"mesh": True}, {"mesh": True, "profile_dir": "trace"}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            parse_config({**base, "tpu": tpu})
+        assert parse_config({**base, "tpu": tpu}).tpu.mesh is True
     assert parse_config({**base, "tpu": {"profile_dir": "trace"}})
-    for main, flags in ((competition.main, ["--mesh"]),
-                        (exp_cli.main, ["--mesh"]),
-                        (exp_cli.main, ["--mesh", "--profile-dir", "trace"])):
-        with pytest.raises(SystemExit) as exc:
-            main(flags + ["--device", "cpu"])
-        assert exc.value.code == 2
+    monkeypatch.chdir(tmp_path)
+    cfg = {"experiment_type": "single_N",
+           "common": {"n_steps": 40, "n_runs": 2, "verbose": False,
+                      "initialization": "random", "mcmc_type": "board",
+                      "betta_scheduling": {"type": "linear_annealing",
+                                           "beta_start": 0.5,
+                                           "beta_end": 3.0},
+                      "output_path": "figures/out.png"},
+           "single_N": {"N": 4},
+           "tpu": {"kernel": "pallas", "history_stride": 20}}
+    (tmp_path / "cfg.yaml").write_text(yaml.safe_dump(cfg))
+    small = ["--n", "4", "--n-runs", "2", "--n-steps", "40"]
+    for main, flags in ((competition.main, small + ["--mesh"]),
+                        (exp_cli.main, ["--config", "cfg.yaml", "--mesh"]),
+                        (exp_cli.main, ["--config", "cfg.yaml", "--mesh",
+                                        "--profile-dir", "trace"])):
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert main(flags + ["--device", "cpu"]) == 0
+    assert os.listdir(tmp_path / "trace")
+    for mod in (runner, tempering, competition, exp_cli):
+        with open(mod.__file__) as f:
+            assert "queue 1 item 7" not in f.read(), mod.__name__
 
 
 def test_warm_start_validation_matches_jax():

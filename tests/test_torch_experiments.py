@@ -28,7 +28,7 @@ from mcqueens.experiments import config as jconfig
 from mcqueens_torch.chain import stats
 from mcqueens_torch.cli import experiments as cli
 from mcqueens_torch.core import schedules
-from mcqueens_torch.dist import runner
+from mcqueens_torch.dist import mesh, runner
 from mcqueens_torch.experiments import config, drivers
 from tests.test_torch_foundations import release_jax_executables  # noqa: F401
 
@@ -179,11 +179,17 @@ def test_config_guards_match_jax():
         with pytest.raises(ValueError, match="'single_N' section"):
             parse({k: v for k, v in base.items()
                    if k != "single_N"}).section("single_N")
+    # tpu.mesh is ported (tests/test_torch_mesh.py): each of these parses
+    # as in the JAX package; a value that is no device count is refused.
     for tpu in ({"mesh": True}, {"mesh": 2}, {"profile_dir": "trace",
                                                "mesh": True},
                 {"checkpoint_dir": "ck", "mesh": True}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            config.parse_config({**base, "tpu": tpu})
+        got = config.parse_config({**base, "tpu": tpu}).tpu
+        assert got.__dict__ == jconfig.parse_config(
+            {**base, "tpu": tpu}).tpu.__dict__
+    for bad in ("all", -1, 1.5):
+        with pytest.raises(ValueError, match="tpu.mesh"):
+            config.parse_config({**base, "tpu": {"mesh": bad}})
     assert config.parse_config({**base, "tpu": {
         "mesh": False, "checkpoint_dir": None, "profile_dir": None}})
     # checkpoint_dir and profile_dir are ported
@@ -195,25 +201,39 @@ def test_config_guards_match_jax():
 
 
 def test_repo_configs_load():
-    """The committed configs parse in the port; pod_scale's mesh is refused
-    until it is ported (its checkpoint_dir is ported)."""
+    """The committed configs parse in the port as in the JAX package,
+    pod_scale's ``mesh: true`` and checkpoint_dir included; on the CPU its
+    mesh is one shard."""
     for name in ("config.yaml", "configs/reference_parity.yaml",
-                 "configs/beyond_reference.yaml"):
+                 "configs/beyond_reference.yaml", "configs/pod_scale.yaml"):
         path = os.path.join(REPO, name)
         want, got = jconfig.load_config(path), config.load_config(path)
         assert got.raw == want.raw and got.tpu.__dict__ == want.tpu.__dict__
-    with pytest.raises(NotImplementedError, match="mesh"):
-        config.load_config(os.path.join(REPO, "configs/pod_scale.yaml"))
+    pod = config.load_config(os.path.join(REPO, "configs/pod_scale.yaml"))
+    assert pod.tpu.mesh is True
+    assert mesh.mesh_for("cpu", pod.tpu.mesh) == (torch.device("cpu"),)
 
 
-# --profile-dir runs (tests/test_torch_profiling.py); --mesh is refused with
-# it or without it.
+# --mesh and --profile-dir run (tests/test_torch_profiling.py,
+# tests/test_torch_mesh.py): a small sweep with each, against the same sweep
+# without --mesh.
 @pytest.mark.parametrize("flags", [["--mesh"],
                                    ["--mesh", "--profile-dir", "trace"]])
-def test_cli_refuses_unported_flags(flags):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["--config", "config.yaml", "--device", "cpu"] + flags)
-    assert exc.value.code == 2
+def test_cli_refuses_unported_flags(flags, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(_raw("beta_start_end_pairs")))
+    argv = ["--config", str(path), "--device", "cpu"]
+    assert cli.main(argv + ["--outdir", "plain"]) == 0
+    assert cli.main(argv + flags + ["--outdir", "mesh"]) == 0
+    csvs = _files("plain", "results")
+    assert csvs and _files("mesh", "results") == csvs
+    for name in csvs:
+        with open(os.path.join("plain", "results", name)) as f:
+            want = f.read()
+        with open(os.path.join("mesh", "results", name)) as f:
+            assert f.read() == want, name
+    assert bool(_files(".", "trace")) == ("--profile-dir" in flags)
 
 
 @pytest.mark.parametrize("kind", schedules.SCHEDULE_TYPES)

@@ -113,9 +113,21 @@ def test_experiments_cli_traces_from_flag_and_config(tmp_path):
 
 
 def test_mesh_still_raises(tmp_path):
+    """The mesh is ported: a sharded run traces like any other and returns
+    the unsharded run's arrays; only a mesh that is no sequence of devices
+    raises, before anything is traced."""
     spec = ChainSpec(N=4, n_steps=8, kernel="pallas_shared",
                      schedule=build_schedule("constant", 8, beta_const=1.0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        runner.run_chains(np.arange(4, dtype=np.uint32), spec, device="cpu",
-                          mesh=object(), profile_dir=str(tmp_path))
+    seeds = np.arange(4, dtype=np.uint32)
+    with pytest.raises(TypeError, match="sequence of devices"):
+        runner.run_chains(seeds, spec, device="cpu", mesh=object(),
+                          profile_dir=str(tmp_path))
     assert not os.listdir(tmp_path)
+    got = runner.run_chains(seeds, spec, device="cpu", mesh=["cpu"] * 2,
+                            profile_dir=str(tmp_path))
+    assert len(_traces(tmp_path)) == 1
+    want = runner.run_chains(seeds, spec, device="cpu", mesh=["cpu"] * 2)
+    for name in ("energy_history", "final_state", "best_state",
+                 "accept_bins", "total_bins"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(want, name), err_msg=name)

@@ -178,8 +178,11 @@ def test_run_tempered_stop_at_energy_and_warm_start():
 
 def test_run_tempered_refuses():
     _, spec = _specs("board")
-    # checkpointer= runs now (tests/test_torch_checkpoint.py).
-    for kw, err in ((dict(mesh=object()), NotImplementedError),
+    # checkpointer= and mesh= run (tests/test_torch_checkpoint.py,
+    # tests/test_torch_mesh.py); a mesh that is no sequence of devices, or
+    # of another device type than the run's, is refused.
+    for kw, err in ((dict(mesh=object()), TypeError),
+                    (dict(mesh=["cuda:0"]), ValueError),
                     (dict(exchange_interval=0), ValueError)):
         with pytest.raises(err):
             tempering.run_tempered(SEEDS, spec, LADDER, device="cpu", **kw)
