@@ -203,7 +203,21 @@ and the script exits non-zero without printing a result:
    the 4-shard mesh to 12; 1M steps, stride 1); where more than one card is
    visible, each path again over all of them, with each card's busy time
    (CUDA events around its segments), else a line saying one card was
-   visible; ``configs/beyond_reference.yaml``'s
+   visible; then several processes
+   (``python -m mcqueens_torch.tools.check_multihost``: a gloo group over
+   localhost, the global mesh spanning both processes), two processes each
+   with 2 shards of ``cuda:0`` (and, where more than one card is visible,
+   each with its own cards) running the board scan at N=16, 4096 chains,
+   65536 steps: both JSONs must equal the same seeds' one-process
+   ``run_chains`` on the card in final_energy, min and sum (each process's
+   start-up, shard scans, gather and reduce printed); then the invariant
+   battery ``python -m mcqueens_torch.tools.verify_gpu`` into a temporary
+   directory: all six checks must pass (tables == naive, incremental ==
+   oracle for seven kernel/mode pairs, card == twin streams, Klarner 0,
+   recover == tracked, init at C=65536 == oracle) and the file must name
+   the card and its power limit; both processes' launches are counted
+   into the kernels line (``multihost_launches``, ``verify_launches``);
+   ``configs/beyond_reference.yaml``'s
    sweep through ``drivers.measure_min_energy_vs_n`` (10 N, random and
    klarner, 128 runs) cut to 62500 steps, where klarner at N = 17, 19, 23,
    29, 31 must report 0; and ``config.yaml``'s beta_start_end_pairs section
@@ -278,6 +292,7 @@ import math  # noqa: E402
 import os  # noqa: E402
 import re  # noqa: E402
 import shutil  # noqa: E402
+import socket  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
 import time  # noqa: E402
@@ -308,6 +323,7 @@ from mcqueens_torch.tools import (probe_full3d_alternatives,  # noqa: E402
 from mcqueens_torch.tools import (full3d_floors_campaign,  # noqa: E402
                                   qmax_frontier, qmax_push, verify_board)
 from mcqueens_torch.tools import probe_hold, probe_largeN  # noqa: E402
+from mcqueens_torch.tools import verify_gpu  # noqa: E402
 from mcqueens_torch.tools import qmax as qmax_tool  # noqa: E402
 from mcqueens_torch.search import tempering  # noqa: E402
 from mcqueens_torch.search.tempering import geometric_ladder  # noqa: E402
@@ -3607,6 +3623,186 @@ def mesh_slice(pod_result):
     return launches
 
 
+MULTIHOST = dict(n=16, n_steps=65536, n_chains=4096)
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_multihost_procs(local_args):
+    """``python -m mcqueens_torch.tools.check_multihost`` in one process a
+    ``local_args`` entry (its ``--local-shards`` or ``--devices``), all at
+    once, at ``MULTIHOST``'s shape; returns (each process's JSON, the wall
+    of the whole run).  A port taken before the store binds it is retried
+    once on another; a non-zero rc or a timeout raises."""
+    n_procs = len(local_args)
+    with tempfile.TemporaryDirectory() as tmp:
+        for attempt in range(2):
+            port = free_port()
+            outs = [os.path.join(tmp, f"mh{r}.json") for r in range(n_procs)]
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, "-m", "mcqueens_torch.tools.check_multihost",
+                 "--device", "cuda", *local_args[r],
+                 "--coordinator", f"localhost:{port}",
+                 "--num-processes", str(n_procs), "--process-id", str(r),
+                 "--out", outs[r], "--n", str(MULTIHOST["n"]),
+                 "--n-steps", str(MULTIHOST["n_steps"]),
+                 "--n-chains", str(MULTIHOST["n_chains"]),
+                 "--timeout", "120"],
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True) for r in range(n_procs)]
+            try:
+                logs = [p.communicate(timeout=300)[0] for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            wall = time.perf_counter() - t0
+            if all(p.returncode == 0 for p in procs):
+                results = []
+                for path in outs:
+                    with open(path) as f:
+                        results.append(json.load(f))
+                return results, wall
+            if attempt == 0 and any("address already in use" in log.lower()
+                                    for log in logs):
+                continue
+            raise AssertionError("check_multihost failed:\n" + "\n---\n".join(
+                f"rc {p.returncode}: {log[-3000:]}"
+                for p, log in zip(procs, logs)))
+
+
+def multihost_slice():
+    """Two ``check_multihost`` processes on the card, each with 2 shards of
+    ``cuda:0`` (and, where more than one card is visible, each with its own
+    cards), at N=16, 4096 chains, 65536 steps: both JSONs equal each other
+    and the same seeds' one-process ``run_chains`` on the card, bitwise.
+    Prints each process's start-up, each shard's scan, the gather and the
+    reduce.  Returns the board scan's launches (the one-process run's and
+    every process's)."""
+    spec = ChainSpec(N=MULTIHOST["n"], n_steps=MULTIHOST["n_steps"],
+                     schedule=lin(MULTIHOST["n_steps"], 0.5, 3.0),
+                     init_mode="random", mcmc_type="board", kernel="tables",
+                     history_stride=MULTIHOST["n_steps"])
+    seeds = np.arange(MULTIHOST["n_chains"], dtype=np.uint32)
+    with card_busy(board_chain) as spans:
+        want, wall0, base = run_counted(
+            lambda m: runner.run_chains(seeds, spec, device="cuda"), None)
+    (segment_ms,) = busy_ms(spans).values()
+    if base[board_chain] != 1 or sum(base.values()) != 1:
+        raise AssertionError(f"multihost: one-process launches {base}")
+    phase("multihost", f"one process, unsharded: run_chains {wall0:.3f} s "
+          f"(its run {want.wall_time:.3f} s, 1 launch of {len(seeds)} "
+          f"chains, its segment {segment_ms:.3f} ms on the card); min "
+          f"{int(want.final_energy.min())}, sum "
+          f"{int(want.final_energy.sum())}")
+    launches = 1
+    n_cards = torch.cuda.device_count()
+    layouts = [("2 processes x 2 shards of cuda:0",
+                [["--local-shards", "2"]] * 2)]
+    if n_cards >= 2:
+        half = n_cards // 2
+        layouts.append((f"2 processes x {half} cards", [
+            ["--devices", ",".join(f"cuda:{i}" for i in range(half))],
+            ["--devices", ",".join(f"cuda:{i}"
+                                   for i in range(half, 2 * half))]]))
+    for label, local_args in layouts:
+        results, wall = check_multihost_procs(local_args)
+        per_proc = [int(v) if flag == "--local-shards" else
+                    len(v.split(",")) for flag, v in local_args]
+        shards = sum(per_proc)
+        for r, res in enumerate(results):
+            got = {k: res[k] for k in ("final_energy", "min_energy",
+                                       "sum_energy")}
+            if got != {"final_energy": want.final_energy.tolist(),
+                       "min_energy": int(want.final_energy.min()),
+                       "sum_energy": int(want.final_energy.sum())}:
+                raise AssertionError(f"multihost {label}: process {r} "
+                                     f"differs from the one-process run")
+            if (res["process_id"], res["n_processes"], res["n_devices"]) != (
+                    r, 2, shards):
+                raise AssertionError(f"multihost {label}: process {r}: "
+                                     f"{res}")
+            n_local = res["n_local_devices"]
+            if n_local != per_proc[r] or res["kernel_launches"] != n_local:
+                raise AssertionError(f"multihost {label}: process {r} "
+                                     f"launched {res['kernel_launches']} "
+                                     f"scans on {n_local} shards")
+            launches += n_local
+            s = res["seconds"]
+            phase("multihost", f"{label}, process {r} ({res['devices']}): "
+                  f"wall {s['wall']:.3f} s; start-up {s['startup']:.3f} s "
+                  f"(imports {s['import']:.3f}, group "
+                  f"{s['init_distributed']:.3f}, CUDA context "
+                  f"{s['cuda_context']:.3f}, library load "
+                  f"{s['library_load']:.3f}); a shard's init and scan "
+                  f"{', '.join(f'{x:.3f}' for x in s['shards'])} s, its "
+                  f"segment on the card "
+                  f"{', '.join(f'{x:.3f}' for x in s['shard_segment_ms'])} "
+                  f"ms ({-(-len(seeds) // shards)} chains each; unsharded "
+                  f"{segment_ms:.3f} ms); gather {s['gather'] * 1e3:.2f} "
+                  f"ms, reduce {s['reduce'] * 1e3:.2f} ms")
+        phase("multihost", f"{label}: both processes == the one-process "
+              f"run in final_energy, min and sum; the two processes' wall "
+              f"{wall:.3f} s")
+    if n_cards < 2:
+        phase("multihost", f"one card visible ({torch.cuda.get_device_name(0)}"
+              f"; nvidia-smi: {nvidia_smi('name,power.limit')}): no run "
+              f"over distinct cards")
+    return launches
+
+
+def verify_slice(kind, smi):
+    """``python -m mcqueens_torch.tools.verify_gpu --json <tmp>``: all six
+    checks pass, and the file names the card and its power limit.  Returns
+    its launches by kernel module (and the freeze mode's)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "VERIFY_GPU.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mcqueens_torch.tools.verify_gpu",
+             "--json", path], cwd=REPO, capture_output=True, text=True,
+            timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"verify_gpu: rc {proc.returncode}\n"
+                                 f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+        with open(path) as f:
+            out = json.load(f)
+    names = [name for name, _ in verify_gpu.CHECKS]
+    if (list(out["checks"]) != names or not out["ok"]
+            or any(c["status"] != "pass" for c in out["checks"].values())):
+        raise AssertionError(f"verify_gpu: {json.dumps(out)[:3000]}")
+    if (out["platform"], out["card"], out["nvidia_smi_name_power_limit"],
+            out["smoke_mode"]) != ("gpu", kind, smi, False):
+        raise AssertionError(f"verify_gpu: the card in the file: "
+                             f"{out['platform']}, {out['card']}, "
+                             f"{out['nvidia_smi_name_power_limit']}")
+    for name, c in out["checks"].items():
+        ran = {k: v for k, v in c["launches"].items() if v}
+        phase("verify", f"{name}: pass in {c['seconds']:.3f} s, launches "
+              f"{ran}; {c['detail']}")
+    launches = collections.Counter(
+        {mod: out["launches"][name]
+         for name, mod in verify_gpu.KERNEL_MODULES.items()})
+    missing = [KERNELS[mod]["name"] for mod in KERNELS if not launches[mod]]
+    if missing or not out["launches"]["board_shared_freeze"]:
+        raise AssertionError(f"verify_gpu launched no {missing or 'freeze'}")
+    # The freeze-mode replay has a row of its own.
+    launches[board_shared] -= out["launches"]["board_shared_freeze"]
+    launches["freeze"] = out["launches"]["board_shared_freeze"]
+    phase("verify", f"python -m mcqueens_torch.tools.verify_gpu: six checks "
+          f"pass, {wall:.1f} s wall (process start included); the file "
+          f"names {out['card']}, nvidia-smi: "
+          f"{out['nvidia_smi_name_power_limit']}")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     # 1. device -----------------------------------------------------------
@@ -4196,6 +4392,10 @@ def main():
         metropolis_launches += pod_scale_resume(pod_result)
     with timed("mesh"):
         mesh_launches = mesh_slice(pod_result)
+    with timed("multihost"):
+        multihost_launches = multihost_slice()
+    with timed("verify"):
+        verify_launches = verify_slice(kind, smi)
     with timed("slice beyond reference"):
         metropolis_launches += beyond_reference_slice()
     with timed("slice full3d pairs"):
@@ -4277,8 +4477,9 @@ def main():
         rows.append({
             **KERNELS[mod],
             "route": "cuda",
-            "launches": launches + mesh_launches[mod],
+            "launches": launches + mesh_launches[mod] + verify_launches[mod],
             "mesh_launches": mesh_launches[mod],
+            "verify_launches": verify_launches[mod],
             "max_abs_err": max(r["err"] for r in results.values()
                                if r["mod"] is mod),
             "ms": res["kernel_ms"],
@@ -4313,6 +4514,11 @@ def main():
         if tag != "freeze":
             row = {**row, "mesh_launches": mesh_launches[tag]}
             launches += mesh_launches[tag]
+        if tag is board_chain:
+            row["multihost_launches"] = multihost_launches
+            launches += multihost_launches
+        row = {**row, "verify_launches": verify_launches[tag]}
+        launches += verify_launches[tag]
         bound_ms, bound_by = bounds.of(*res["work"])
         phase("bound", f"{row['name']} on '{case}': {res['work'][0]:.4e} "
               f"int32 ops, {res['work'][1]:.4e} bytes -> bound "

@@ -21,14 +21,25 @@ the block decides which chains share a site stream.  Block seeds are global
 whole carry once and split it with :func:`shard_chains`.  Launch layouts
 follow each shard's own chain count and change nothing.
 
-``init_distributed`` (multi-host JAX) is not ported: one process drives
-every device of its host.
+Several processes, on one host or many: each calls :func:`init_distributed`
+(a ``gloo`` group over TCP, with JAX's keyword names) with the devices it
+owns, its *local* shards; :func:`make_mesh` then returns the global mesh, a
+:class:`ProcessMesh` of every process's shards in rank order, whose shard
+count is what :func:`pad_chains` and :func:`pad_seeds_to_blocks` see.  Each
+process runs only its own shards (:mod:`mcqueens_torch.tools.check_multihost`).
+The runner, tempering and the CLIs stay one-process, as in the JAX package
+(whose ``device_put`` refuses another process's devices): :func:`check_mesh`
+raises ``ValueError`` for a mesh that holds another process's shards.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
+import ipaddress
+import os
+import re
 from typing import Callable, Sequence
 
 import numpy as np
@@ -37,15 +48,168 @@ import torch
 CHAINS_AXIS = "chains"
 
 
+class ProcessMesh(tuple):
+    """A chains mesh that spans processes: every process's shards in global
+    order (rank by rank), ``owners[s]`` the rank that owns shard ``s`` and
+    ``rank`` this process's.  Another process's devices are labels only
+    (its ``cuda:0`` may be another card)."""
+
+    def __new__(cls, devices, owners, rank: int):
+        self = super().__new__(cls, devices)
+        self.owners = tuple(int(o) for o in owners)
+        self.rank = int(rank)
+        if len(self.owners) != len(self):
+            raise ValueError(f"{len(self.owners)} owners for {len(self)} "
+                             f"shards")
+        return self
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return ProcessMesh(tuple.__getitem__(self, i), self.owners[i],
+                               self.rank)
+        return tuple.__getitem__(self, i)
+
+    def local_shards(self) -> tuple[int, ...]:
+        """The global indices of this process's shards, in mesh order."""
+        return tuple(s for s, o in enumerate(self.owners) if o == self.rank)
+
+
+@dataclasses.dataclass(frozen=True)
+class _World:
+    rank: int
+    size: int
+    local: tuple[torch.device, ...]
+    mesh: ProcessMesh
+
+
+_WORLD: _World | None = None  # set by init_distributed
+
+
+def _coordinator_host(address: str) -> str:
+    """The host of ``host:port``, both checked without a name lookup: a
+    host that is all digits and dots must be an IPv4 address."""
+    host, sep, port = str(address).rpartition(":")
+    host = host[1:-1] if host.startswith("[") and host.endswith("]") else host
+    if not sep or not host or not port.isdigit() or not 0 < int(port) < 65536:
+        raise ValueError(f"coordinator address {address!r} is not host:port")
+    if re.fullmatch(r"[0-9.]+", host):
+        ipaddress.IPv4Address(host)  # ValueError for 256.0.0.1 and the like
+    return host
+
+
+def _loopback(host: str) -> bool:
+    if host == "localhost":
+        return True
+    try:
+        return ipaddress.ip_address(host).is_loopback
+    except ValueError:
+        return False
+
+
+def init_distributed(coordinator_address: str, num_processes: int,
+                     process_id: int, initialization_timeout: int = 300,
+                     local_devices=None) -> None:
+    """Join ``num_processes`` processes in a ``gloo`` group (torch's
+    ``init_process_group`` over ``tcp://coordinator_address``, rank
+    ``process_id``, every wait bounded by ``initialization_timeout``
+    seconds) and record the global mesh: each process's ``local_devices``
+    (default: every visible card, :func:`make_mesh`), rank by rank.
+
+    A second call in a group of the same size and rank is a no-op; one of
+    another size or rank raises ``RuntimeError``.  Every other failure
+    propagates (a malformed or unreachable address, a timeout, mismatched
+    counts): nothing carries on as one process.  Gloo carries the little
+    that crosses processes (energies, two scalars); with a loopback
+    coordinator it binds the loopback interface (``GLOO_SOCKET_IFNAME=lo``
+    unless set).
+    """
+    import torch.distributed as dist
+
+    global _WORLD
+    host = _coordinator_host(coordinator_address)
+    if not 0 <= process_id < num_processes:
+        raise ValueError(f"process_id {process_id} of {num_processes} "
+                         f"processes")
+    if not dist.is_initialized():
+        _WORLD = None  # a group left without shutdown_distributed
+    else:
+        have = (dist.get_world_size(), dist.get_rank())
+        if have != (num_processes, process_id):
+            raise RuntimeError(
+                f"the process group is initialised with {have[0]} processes "
+                f"as rank {have[1]}, not {num_processes} as rank "
+                f"{process_id}")
+        if _WORLD is not None:
+            if (local_devices is not None
+                    and make_mesh(local_devices) != _WORLD.local):
+                raise ValueError(f"local devices {local_devices} differ "
+                                 f"from the group's {_WORLD.local}")
+            return
+    local = make_mesh(local_devices)
+    if not dist.is_initialized():
+        if _loopback(host):
+            os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coordinator_address}",
+            world_size=num_processes, rank=process_id,
+            timeout=datetime.timedelta(seconds=initialization_timeout))
+    shards = [None] * num_processes
+    dist.all_gather_object(shards, [str(d) for d in local])
+    devices = [torch.device(d) for part in shards for d in part]
+    owners = [r for r, part in enumerate(shards) for _ in part]
+    _WORLD = _World(process_id, num_processes, local,
+                    ProcessMesh(devices, owners, process_id))
+
+
+def shutdown_distributed() -> None:
+    """Leave the group of :func:`init_distributed` (a no-op outside one)."""
+    import torch.distributed as dist
+
+    global _WORLD
+    _WORLD = None
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def process_index() -> int:
+    """This process's rank (0 outside a group), as ``jax.process_index``."""
+    return 0 if _WORLD is None else _WORLD.rank
+
+
+def process_count() -> int:
+    """Processes in the group (1 outside one), as ``jax.process_count``."""
+    return 1 if _WORLD is None else _WORLD.size
+
+
+def local_device_count() -> int:
+    """Shards this process owns: its ``local_devices`` in a group, else the
+    visible cards (1, the CPU, without CUDA)."""
+    if _WORLD is not None:
+        return len(_WORLD.local)
+    return torch.cuda.device_count() if torch.cuda.is_available() else 1
+
+
+def device_count() -> int:
+    """Shards of the global mesh, every process's, as
+    ``jax.device_count``."""
+    return local_device_count() if _WORLD is None else len(_WORLD.mesh)
+
+
 def make_mesh(devices=None) -> tuple[torch.device, ...]:
     """A 1-D chains mesh over ``devices`` (any iterable of devices or device
-    strings, repeats allowed), or over every visible CUDA device.
+    strings, repeats allowed), or over every visible CUDA device; after
+    :func:`init_distributed`, the global :class:`ProcessMesh`.
 
-    Without ``devices`` it needs CUDA and raises ``RuntimeError`` if
-    ``torch.cuda.is_available()`` is False (there is no CPU fallback).  A
-    ``cuda`` device without an index means the current one.  Every device
-    must be of one type, ``cpu`` or ``cuda``.
+    Without ``devices`` and a group it needs CUDA and raises
+    ``RuntimeError`` if ``torch.cuda.is_available()`` is False (there is no
+    CPU fallback).  A ``cuda`` device without an index means the current
+    one.  Every device must be of one type, ``cpu`` or ``cuda``.  A
+    :class:`ProcessMesh` is returned as it is.
     """
+    if isinstance(devices, ProcessMesh):
+        return devices
+    if devices is None and _WORLD is not None:
+        return _WORLD.mesh
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh() spans the visible CUDA devices, "
@@ -75,7 +239,9 @@ def mesh_for(device, shards=True) -> tuple[torch.device, ...]:
 
     On CUDA: every visible card, or the first ``n`` of them (fewer if fewer
     are visible, as JAX's ``jax.devices()[:n]``).  On the CPU, which torch
-    sees as one device: one shard, or ``n`` shards on it.
+    sees as one device: one shard, or ``n`` shards on it.  After
+    :func:`init_distributed`: the global mesh, or its first ``n`` shards,
+    which :func:`check_mesh` refuses where they hold another process's.
     """
     dev = torch.device(device)
     if isinstance(shards, bool):
@@ -84,6 +250,8 @@ def mesh_for(device, shards=True) -> tuple[torch.device, ...]:
         n = int(shards)
         if n < 1:
             raise ValueError(f"a mesh of {shards!r} devices")
+    if _WORLD is not None:
+        return _WORLD.mesh if n is None else _WORLD.mesh[:n]
     if dev.type == "cpu":
         return make_mesh([dev] * (n or 1))
     if dev.type != "cuda":
@@ -94,8 +262,18 @@ def mesh_for(device, shards=True) -> tuple[torch.device, ...]:
 
 def check_mesh(mesh, device) -> tuple[torch.device, ...]:
     """``mesh`` as a tuple of devices (:func:`make_mesh`); ``ValueError``
-    unless their type is ``device``'s."""
+    unless their type is ``device``'s, or if it holds shards of another
+    process (a run here would silently cover only this process's chains)."""
     mesh = make_mesh(mesh)
+    if isinstance(mesh, ProcessMesh):
+        foreign = sorted(set(mesh.owners) - {mesh.rank})
+        if foreign:
+            raise ValueError(
+                f"the mesh holds shards of process(es) {foreign}, and this "
+                f"is process {mesh.rank}: a run drives one process's "
+                f"devices (mcqueens_torch.tools.check_multihost runs each "
+                f"process's own shards)")
+        mesh = tuple(mesh)
     dev = torch.device(device)
     if mesh[0].type != dev.type:
         raise ValueError(f"device {dev} and a mesh of {mesh[0].type} "

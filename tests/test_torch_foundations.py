@@ -13,6 +13,7 @@ import sys
 
 import jax
 import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
 import numpy as np
 import pytest
 import torch
@@ -41,10 +42,25 @@ def release_jax_executables():
     that runs several such modules can reach the kernel's vm.max_map_count
     (65530), where XLA:CPU segfaults and the worker's test fails.  The
     persistent compile cache (tests/conftest.py) keeps the recompiles
-    cheap; tests/test_tempering.py clears the same way."""
-    jax.clear_caches()
+    cheap; tests/test_tempering.py clears the same way.  It also resets
+    Pallas interpret mode's shared state, which an interpret-mode kernel
+    that raised leaves behind and which would fail the next module's
+    kernels of another device count."""
+    reset_interpret_mode()
     yield
+    reset_interpret_mode()
+
+
+def reset_interpret_mode():
+    """Drop compiled executables, wait for in-flight interpret-mode
+    callbacks (a failure among them belongs to the test that launched
+    them) and reset the interpreter's shared state."""
     jax.clear_caches()
+    try:
+        jax.effects_barrier()
+    except jax.errors.JaxRuntimeError:
+        pass
+    pltpu.reset_tpu_interpret_mode_state()
 
 I32_MIN, I32_MAX = -2 ** 31, 2 ** 31 - 1
 

@@ -27,6 +27,7 @@ from mcqueens_torch.core import schedules
 from mcqueens_torch.core.schedules import chunk_betas
 from mcqueens_torch.dist import runner
 from mcqueens_torch.kernels import full3d_shared
+from tests.test_torch_foundations import release_jax_executables  # noqa: F401
 from tests.test_torch_full3d_shared import RESULT_FIELDS, SEEDS
 
 LINEAR = dict(sched_type="linear_annealing", beta_start=0.5, beta_end=3.0)

@@ -361,11 +361,13 @@ def test_prng_threefry_matches_jax_random(monkeypatch, shape, n_iter):
 # -- refusals, counts, tools --------------------------------------------------
 
 def _drop_failed_tokens():
-    """Wait for the process's ordered-effect tokens and drop them.  JAX
-    threads interpret-mode callbacks through one such token a thread, and a
-    kernel whose callback raised leaves it failed: every later interpret-mode
-    kernel in the process (an xdist worker's next test files) would then
-    fail with that kernel's IndexError."""
+    """Wait for the process's ordered-effect tokens and drop them, and reset
+    the interpreter's shared state.  JAX threads interpret-mode callbacks
+    through one such token a thread, and a kernel whose callback raised
+    leaves it failed and its simulated memory uncleared: every later
+    interpret-mode kernel in the process (an xdist worker's next test
+    files) would then fail, with that kernel's IndexError or, on another
+    device count, at the interpreter's shared-memory check."""
     from jax._src import dispatch
 
     try:
@@ -373,6 +375,7 @@ def _drop_failed_tokens():
     except jax.errors.JaxRuntimeError:
         pass  # the refusal the caller has already asserted
     dispatch.runtime_tokens.clear()
+    pltpu.reset_tpu_interpret_mode_state()
 
 
 def test_out_of_range_slices_are_refused_by_both(jax_output):
