@@ -45,6 +45,7 @@ from mcqueens_torch.core import tables as tables_mod
 from mcqueens_torch.core.schedules import chunk_betas
 from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.kernels import _build, segment
+from mcqueens_torch.utils import profiling
 
 # Launches of the CUDA kernel in this process (read and reset by callers
 # that check the main path really ran on the card).
@@ -145,18 +146,20 @@ _PLANES = ("heights", "best_heights", "table", "accept_bins", "total_bins")
 
 def segment_state(carry: BoardCarry) -> SegmentState:
     """Transpose a carry into a fresh chains-minor :class:`SegmentState`."""
-    kw = segment.chains_minor(carry, _PLANES, _ROWS)
-    kw["done"] = carry.done.to(torch.int32)
-    kw["step_base"] = rng.as_int32(carry.step_base).t().contiguous()
-    return SegmentState(**kw)
+    with profiling.span("mcq.transpose"):
+        kw = segment.chains_minor(carry, _PLANES, _ROWS)
+        kw["done"] = carry.done.to(torch.int32)
+        kw["step_base"] = rng.as_int32(carry.step_base).t().contiguous()
+        return SegmentState(**kw)
 
 
 def carry_of(st: SegmentState) -> BoardCarry:
     """Inverse of :func:`segment_state`."""
-    kw = segment.chains_major(st, _PLANES, _ROWS, row_shape=(-1,))
-    kw["done"] = st.done != 0
-    kw["step_base"] = rng.from_int32(st.step_base).t().contiguous()
-    return BoardCarry(**kw)
+    with profiling.span("mcq.transpose"):
+        kw = segment.chains_major(st, _PLANES, _ROWS, row_shape=(-1,))
+        kw["done"] = st.done != 0
+        kw["step_base"] = rng.from_int32(st.step_base).t().contiguous()
+        return BoardCarry(**kw)
 
 
 def _draws(keys: torch.Tensor, step: int, N: int):
@@ -351,12 +354,14 @@ def segment_call(st: SegmentState, start_outer: int, n_outer: int,
     an error for anything else; returns the ``(n_outer, C)`` energy rows."""
     dev = st.heights.device
     stride = spec.history_stride
-    beta = chunk_betas(spec.schedule, start_outer * stride, n_outer * stride,
-                       dev)
-    ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
-                     device=dev)
-    segment.on_device("chain.board", dev, segment_reference, segment_cuda,
-                      st, ys, start_outer, n_outer, spec, beta)
+    with profiling.span("mcq.launch"):
+        beta = chunk_betas(spec.schedule, start_outer * stride,
+                           n_outer * stride, dev)
+        ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
+                         device=dev)
+        segment.on_device("chain.board", dev, segment_reference,
+                          segment_cuda, st, ys, start_outer, n_outer, spec,
+                          beta)
     return ys
 
 

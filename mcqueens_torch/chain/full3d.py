@@ -37,6 +37,7 @@ from mcqueens_torch.core import tables as tables_mod
 from mcqueens_torch.core.schedules import chunk_betas
 from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.kernels import _build, segment
+from mcqueens_torch.utils import profiling
 
 # Launches of the CUDA kernel in this process (read and reset by callers
 # that check the main path really ran on the card).
@@ -139,23 +140,25 @@ _PLANES = ("queens", "best_queens", "table", "accept_bins", "total_bins")
 
 def segment_state(carry: Full3DCarry) -> SegmentState:
     """Transpose a carry into a fresh chains-minor :class:`SegmentState`."""
-    kw = segment.chains_minor(carry, _PLANES, _ROWS)
-    kw["occ"] = carry.occ.to(torch.uint8).t().contiguous()
-    kw["done"] = carry.done.to(torch.int32)
-    kw["step_base"] = rng.as_int32(carry.step_base).t().contiguous()
-    return SegmentState(**kw)
+    with profiling.span("mcq.transpose"):
+        kw = segment.chains_minor(carry, _PLANES, _ROWS)
+        kw["occ"] = carry.occ.to(torch.uint8).t().contiguous()
+        kw["done"] = carry.done.to(torch.int32)
+        kw["step_base"] = rng.as_int32(carry.step_base).t().contiguous()
+        return SegmentState(**kw)
 
 
 def carry_of(st: SegmentState) -> Full3DCarry:
     """Inverse of :func:`segment_state`."""
-    kw = segment.chains_major(st, _PLANES, _ROWS, row_shape=(-1,))
-    C = st.energy.shape[0]
-    for name in ("queens", "best_queens"):
-        kw[name] = kw[name].reshape(C, -1, 3)
-    kw["occ"] = st.occ.t() != 0
-    kw["done"] = st.done != 0
-    kw["step_base"] = rng.from_int32(st.step_base).t().contiguous()
-    return Full3DCarry(**kw)
+    with profiling.span("mcq.transpose"):
+        kw = segment.chains_major(st, _PLANES, _ROWS, row_shape=(-1,))
+        C = st.energy.shape[0]
+        for name in ("queens", "best_queens"):
+            kw[name] = kw[name].reshape(C, -1, 3)
+        kw["occ"] = st.occ.t() != 0
+        kw["done"] = st.done != 0
+        kw["step_base"] = rng.from_int32(st.step_base).t().contiguous()
+        return Full3DCarry(**kw)
 
 
 def _draw_unoccupied(keys: torch.Tensor, occ: torch.Tensor,
@@ -328,12 +331,14 @@ def segment_call(st: SegmentState, start_outer: int, n_outer: int,
     returns the ``(n_outer, C)`` energy rows."""
     dev = st.queens.device
     stride = spec.history_stride
-    beta = chunk_betas(spec.schedule, start_outer * stride, n_outer * stride,
-                       dev)
-    ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
-                     device=dev)
-    segment.on_device("chain.full3d", dev, segment_reference, segment_cuda,
-                      st, ys, start_outer, n_outer, spec, beta)
+    with profiling.span("mcq.launch"):
+        beta = chunk_betas(spec.schedule, start_outer * stride,
+                           n_outer * stride, dev)
+        ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
+                         device=dev)
+        segment.on_device("chain.full3d", dev, segment_reference,
+                          segment_cuda, st, ys, start_outer, n_outer, spec,
+                          beta)
     return ys
 
 

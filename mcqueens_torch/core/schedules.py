@@ -17,6 +17,8 @@ from typing import Optional
 
 import torch
 
+from mcqueens_torch.utils import profiling
+
 SCHEDULE_TYPES = (
     "constant",
     "linear_annealing",
@@ -107,9 +109,11 @@ def chunk_betas(schedule: Schedule, step0: int, n: int,
     """(n,) float32 betas of steps ``step0 .. step0 + n - 1``: int32 step
     -> float32 -> schedule, as the JAX kernels evaluate them per step.  A
     sampler computes them once per launch and hands the same tensor to its
-    CUDA kernel and to the kernel's plain-torch twin."""
-    steps = torch.arange(step0, step0 + n, dtype=torch.int32, device=device)
-    return schedule(steps).to(torch.float32).contiguous()
+    CUDA kernel and to the kernel's plain-torch twin (span ``mcq.betas``)."""
+    with profiling.span("mcq.betas"):
+        steps = torch.arange(step0, step0 + n, dtype=torch.int32,
+                             device=device)
+        return schedule(steps).to(torch.float32).contiguous()
 
 
 def build_schedule(sched_type: str, n_steps: int, beta_const=None,

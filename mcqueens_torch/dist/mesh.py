@@ -45,6 +45,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from mcqueens_torch.utils import profiling
+
 CHAINS_AXIS = "chains"
 
 
@@ -287,10 +289,12 @@ def distinct(mesh) -> tuple[torch.device, ...]:
 
 
 def synchronize(devices) -> None:
-    """Wait for the work queued on every CUDA device of ``devices``."""
-    for d in devices:
-        if d.type == "cuda":
-            torch.cuda.synchronize(d)
+    """Wait for the work queued on every CUDA device of ``devices`` (span
+    ``mcq.sync``)."""
+    with profiling.span("mcq.sync"):
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
 
 def pad_chains(n_chains: int, mesh) -> int:
@@ -352,17 +356,19 @@ def shard_chains(carry, mesh):
 
 def gather_chains(shards: Sequence, device=None):
     """Inverse of :func:`shard_chains`: the shards (carries or tensors)
-    joined on axis 0 on ``device`` (default: the first shard's)."""
+    joined on axis 0 on ``device`` (default: the first shard's); span
+    ``mcq.mesh.gather``."""
     first = shards[0]
     dev = first.device if device is None else torch.device(device)
-    if isinstance(first, torch.Tensor):
-        return torch.cat([s.to(dev) for s in shards])
-    out = {}
-    for f in dataclasses.fields(first):
-        vals = [getattr(s, f.name) for s in shards]
-        out[f.name] = (None if vals[0] is None
-                       else torch.cat([v.to(dev) for v in vals]))
-    return type(first)(**out)
+    with profiling.span("mcq.mesh.gather"):
+        if isinstance(first, torch.Tensor):
+            return torch.cat([s.to(dev) for s in shards])
+        out = {}
+        for f in dataclasses.fields(first):
+            vals = [getattr(s, f.name) for s in shards]
+            out[f.name] = (None if vals[0] is None
+                           else torch.cat([v.to(dev) for v in vals]))
+        return type(first)(**out)
 
 
 def on_device(dev: torch.device):
@@ -383,7 +389,8 @@ def run_sharded(fn, shards: Sequence, mesh, *rows):
     shard order) on ``mesh[0]``: the ``out_specs P(None, CHAINS_AXIS)`` of
     the JAX package's ``shard_segment_fn``.  Nothing here waits for a
     device, so each card runs its shards while the host enqueues the next
-    card's.
+    card's.  Each shard's enqueue is a ``mcq.mesh.shard`` span, the join of
+    ``ys`` a ``mcq.mesh.gather``.
     """
     mesh = tuple(mesh)
     if len(shards) != len(mesh):
@@ -391,11 +398,12 @@ def run_sharded(fn, shards: Sequence, mesh, *rows):
     parts = [shard_chains(torch.as_tensor(r), mesh) for r in rows]
     carries, ys = [], []
     for s, (dev, shard) in enumerate(zip(mesh, shards)):
-        with on_device(dev):
+        with profiling.span("mcq.mesh.shard"), on_device(dev):
             c, y = fn(shard, *(p[s] for p in parts))
         carries.append(c)
         ys.append(y)
-    return tuple(carries), torch.cat([y.to(mesh[0]) for y in ys], dim=1)
+    with profiling.span("mcq.mesh.gather"):
+        return tuple(carries), torch.cat([y.to(mesh[0]) for y in ys], dim=1)
 
 
 def global_best_stats(best_energy, energies):

@@ -70,8 +70,7 @@ class ChainResult:
     stop_step: np.ndarray        # (R,) early-stop step (n_steps if none)
     accept_bins: np.ndarray      # (R, n_bins)
     total_bins: np.ndarray       # (R, n_bins)
-    wall_time: float             # whole-batch wall clock (seconds)
-    run_times: np.ndarray        # (R,) wall_time for every run of the batch
+    wall_time: float             # the call's wall clock, entry to return
     device: str
     devices: tuple = ()          # the distinct devices the chains ran on
 
@@ -185,136 +184,150 @@ def run_chains(
     carry after every segment (gathered in shard order) and resumes from a
     saved segment when one matches this run.  ``profile_dir`` writes a
     ``torch.profiler`` trace of the run there
-    (:func:`mcqueens_torch.utils.profiling.trace`: init, segments and the
-    final synchronise).
+    (:func:`mcqueens_torch.utils.profiling.trace`, with the call's spans).
+    The result's ``wall_time`` is the call's ``mcq.search`` span: init, the
+    segments and the drain.
     """
     dev = _device(device)
     if mesh is not None:
         mesh = mesh_mod.check_mesh(mesh, dev)
-    mod = _modules(spec)
-    seeds = np.asarray(seeds, dtype=np.uint32)
-    n_runs = seeds.shape[0]
-    if initial_states is not None:
-        initial_states = validate_initial_states(initial_states, spec, n_runs)
-    n_padded = mesh_mod.pad_chains(n_runs, mesh)
-    if n_padded > n_runs:
-        # Follow-on seeds; padded chains are discarded.
-        pad = seeds[-1] + 1 + np.arange(n_padded - n_runs, dtype=np.uint32)
-        seeds = np.concatenate([seeds, pad])
-        if initial_states is not None:
-            reps = np.repeat(initial_states[-1:], n_padded - n_runs, axis=0)
-            initial_states = np.concatenate([initial_states, reps])
-    block = None
-    if mesh is not None and not _scan(spec):
-        # Each shard owns whole blocks (init_carry_batch pads any shorter
-        # initial_states by repeating the last warm start).
-        seeds, block = mesh_mod.pad_seeds_to_blocks(
-            seeds, mesh, lambda c: mod.block_size(c, spec))
-    home = dev if mesh is None else mesh[0]
+    with profiling.trace(profile_dir), profiling.span("mcq.search"):
+        t0 = time.time()
+        with profiling.span("mcq.init"):
+            mod = _modules(spec)
+            seeds = np.asarray(seeds, dtype=np.uint32)
+            n_runs = seeds.shape[0]
+            if initial_states is not None:
+                initial_states = validate_initial_states(
+                    initial_states, spec, n_runs)
+            n_padded = mesh_mod.pad_chains(n_runs, mesh)
+            if n_padded > n_runs:
+                # Follow-on seeds; padded chains are discarded.
+                pad = seeds[-1] + 1 + np.arange(n_padded - n_runs,
+                                                dtype=np.uint32)
+                seeds = np.concatenate([seeds, pad])
+                if initial_states is not None:
+                    reps = np.repeat(initial_states[-1:],
+                                     n_padded - n_runs, axis=0)
+                    initial_states = np.concatenate([initial_states, reps])
+            block = None
+            if mesh is not None and not _scan(spec):
+                # Each shard owns whole blocks (init_carry_batch pads any
+                # shorter initial_states by repeating the last warm start).
+                seeds, block = mesh_mod.pad_seeds_to_blocks(
+                    seeds, mesh, lambda c: mod.block_size(c, spec))
+            home = dev if mesh is None else mesh[0]
 
-    n_outer = spec.n_outer
-    if verbose:
-        min_segments = max(min_segments, 10)
-    if checkpointer is not None:
-        min_segments = max(min_segments, checkpointer.min_segments)
-    n_segs, seg_outer = plan_segments(
-        n_outer, n_padded, spec.history_stride, min_segments)
-
-    t0 = time.time()
-    with profiling.trace(profile_dir):
-        # The scan samplers take one threefry key per chain, the Pallas
-        # samplers the seeds themselves (mcqueens/dist/runner.py:199-205).
-        if _scan(spec):
-            carry = mod.init_carry_batch(
-                rng_mod.chain_keys_from_seeds(seeds, home), spec,
-                initial_states=initial_states, device=home)
-        else:
-            carry = mod.init_carry_batch(seeds, spec, block=block,
-                                         initial_states=initial_states,
-                                         device=home)
-        e0 = carry.energy.reshape(-1).cpu().numpy()
-        history_chunks = []
-        start_seg = 0
-        if checkpointer is not None:
-            ckpt_fp = checkpoint.spec_fingerprint(spec, seeds)
-            resumed = checkpointer.restore(carry, seg_outer=seg_outer,
-                                           fingerprint=ckpt_fp)
-            if resumed is not None:
-                carry, start_seg, history_chunks = resumed
-        if mesh is None:
-            state = carry
-        else:
-            state = mesh_mod.shard_chains(carry, mesh)
-        del carry
-        for seg in range(start_seg, n_segs):
-            if mesh is None:
-                state, ys = mod.run_segment(state, seg * seg_outer, spec,
-                                            seg_outer)
-            else:
-                state, ys = mod.run_segment_sharded(
-                    state, seg * seg_outer, spec, seg_outer, mesh)
-            history_chunks.append(ys.cpu().numpy())  # (seg_outer, C)
+            n_outer = spec.n_outer
             if verbose:
-                done_steps = min((seg + 1) * seg_outer * spec.history_stride,
-                                 spec.n_steps)
-                e = _field(state, "energy")[:n_runs]
-                print(f"[mcqueens] step {done_steps}/{spec.n_steps}: "
-                      f"mean E={e.mean():.2f} min E={e.min()}")
+                min_segments = max(min_segments, 10)
             if checkpointer is not None:
-                whole = (state if mesh is None
-                         else mesh_mod.gather_chains(state, "cpu"))
-                checkpointer.save(whole, seg + 1, history_chunks,
-                                  seg_outer=seg_outer, fingerprint=ckpt_fp)
-        devices = (dev,) if mesh is None else mesh_mod.distinct(mesh)
-        mesh_mod.synchronize(devices)
-    wall = time.time() - t0
-    host = {name: _field(state, name) for name in state_fields(spec)}
-    if verbose:
-        total_props = int(host["total_bins"].sum())
-        print(f"[mcqueens] {total_props:.3e} proposals in {wall:.2f}s "
-              f"= {total_props / max(wall, 1e-9):.3e} moves/s")
+                min_segments = max(min_segments, checkpointer.min_segments)
+            n_segs, seg_outer = plan_segments(
+                n_outer, n_padded, spec.history_stride, min_segments)
 
-    hist = np.concatenate(history_chunks, axis=0)[:n_outer]  # (n_outer, C)
-    energy_history = np.concatenate([e0[None, :], hist], axis=0).T  # (C, P)
-    history_steps = np.minimum(
-        np.arange(n_outer + 1, dtype=np.int64) * spec.history_stride,
-        spec.n_steps)
-    stop_step = host["stop_step"].reshape(-1)
-    # A run stopping at step s recorded ceil(s / stride) points plus the
-    # initial one (the reference breaks before appending).
-    stopped = stop_step < spec.n_steps
-    pts = -(-stop_step // spec.history_stride)
-    history_len = (np.where(stopped, pts, n_outer) + 1).astype(np.int64)
+            # The scan samplers take one threefry key per chain, the Pallas
+            # samplers the seeds themselves (mcqueens/dist/runner.py:199-205).
+            if _scan(spec):
+                carry = mod.init_carry_batch(
+                    rng_mod.chain_keys_from_seeds(seeds, home), spec,
+                    initial_states=initial_states, device=home)
+            else:
+                carry = mod.init_carry_batch(seeds, spec, block=block,
+                                             initial_states=initial_states,
+                                             device=home)
+            with profiling.span("mcq.read"):
+                e0 = carry.energy.reshape(-1).cpu().numpy()
+            history_chunks = []
+            start_seg = 0
+            if checkpointer is not None:
+                ckpt_fp = checkpoint.spec_fingerprint(spec, seeds)
+                resumed = checkpointer.restore(carry, seg_outer=seg_outer,
+                                               fingerprint=ckpt_fp)
+                if resumed is not None:
+                    carry, start_seg, history_chunks = resumed
+            if mesh is None:
+                state = carry
+            else:
+                state = mesh_mod.shard_chains(carry, mesh)
+            del carry
+        for seg in range(start_seg, n_segs):
+            with profiling.span("mcq.round"):
+                if mesh is None:
+                    state, ys = mod.run_segment(state, seg * seg_outer, spec,
+                                                seg_outer)
+                else:
+                    state, ys = mod.run_segment_sharded(
+                        state, seg * seg_outer, spec, seg_outer, mesh)
+                with profiling.span("mcq.read"):
+                    history_chunks.append(ys.cpu().numpy())  # (seg_outer, C)
+                if verbose:
+                    done_steps = min(
+                        (seg + 1) * seg_outer * spec.history_stride,
+                        spec.n_steps)
+                    e = _field(state, "energy")[:n_runs]
+                    print(f"[mcqueens] step {done_steps}/{spec.n_steps}: "
+                          f"mean E={e.mean():.2f} min E={e.min()}")
+                if checkpointer is not None:
+                    with profiling.span("mcq.checkpoint"):
+                        whole = (state if mesh is None
+                                 else mesh_mod.gather_chains(state, "cpu"))
+                        checkpointer.save(whole, seg + 1, history_chunks,
+                                          seg_outer=seg_outer,
+                                          fingerprint=ckpt_fp)
+        with profiling.span("mcq.drain"):
+            devices = (dev,) if mesh is None else mesh_mod.distinct(mesh)
+            mesh_mod.synchronize(devices)
+            host = {name: _field(state, name) for name in state_fields(spec)}
 
-    best_state, final_state = states_of(host, spec)
-    s = slice(0, n_runs)
-    return ChainResult(
-        spec=spec,
-        energy_history=energy_history[s],
-        history_steps=history_steps,
-        history_len=history_len[s],
-        final_energy=host["energy"].reshape(-1)[s],
-        final_state=final_state[s],
-        best_energy=host["best_energy"].reshape(-1)[s],
-        best_state=best_state[s],
-        steps_to_best=host["best_step"].reshape(-1)[s],
-        stop_step=stop_step[s],
-        accept_bins=host["accept_bins"][s],
-        total_bins=host["total_bins"][s],
-        wall_time=wall,
-        run_times=np.full((n_runs,), wall),
-        device=str(dev),
-        devices=tuple(str(d) for d in devices),
-    )
+            hist = np.concatenate(history_chunks, axis=0)[:n_outer]
+            energy_history = np.concatenate([e0[None, :], hist], axis=0).T
+            history_steps = np.minimum(
+                np.arange(n_outer + 1, dtype=np.int64) * spec.history_stride,
+                spec.n_steps)
+            stop_step = host["stop_step"].reshape(-1)
+            # A run stopping at step s recorded ceil(s / stride) points plus
+            # the initial one (the reference breaks before appending).
+            stopped = stop_step < spec.n_steps
+            pts = -(-stop_step // spec.history_stride)
+            history_len = (np.where(stopped, pts, n_outer) + 1).astype(
+                np.int64)
+
+            best_state, final_state = states_of(host, spec)
+            s = slice(0, n_runs)
+            wall = time.time() - t0
+            if verbose:
+                total_props = int(host["total_bins"].sum())
+                print(f"[mcqueens] {total_props:.3e} proposals in "
+                      f"{wall:.2f}s = {total_props / max(wall, 1e-9):.3e} "
+                      f"moves/s")
+            return ChainResult(
+                spec=spec,
+                energy_history=energy_history[s],
+                history_steps=history_steps,
+                history_len=history_len[s],
+                final_energy=host["energy"].reshape(-1)[s],
+                final_state=final_state[s],
+                best_energy=host["best_energy"].reshape(-1)[s],
+                best_state=best_state[s],
+                steps_to_best=host["best_step"].reshape(-1)[s],
+                stop_step=stop_step[s],
+                accept_bins=host["accept_bins"][s],
+                total_bins=host["total_bins"][s],
+                wall_time=wall,
+                device=str(dev),
+                devices=tuple(str(d) for d in devices),
+            )
 
 
 def _field(state, name: str) -> np.ndarray:
     """A carry field as a host array: of one carry, or of a mesh's shard
-    carries joined in shard order."""
-    if isinstance(state, tuple):
-        return np.concatenate([getattr(c, name).cpu().numpy()
-                               for c in state])
-    return getattr(state, name).cpu().numpy()
+    carries joined in shard order (span ``mcq.read``)."""
+    with profiling.span("mcq.read"):
+        if isinstance(state, tuple):
+            return np.concatenate([getattr(c, name).cpu().numpy()
+                                   for c in state])
+        return getattr(state, name).cpu().numpy()
 
 
 def run_experiment(

@@ -61,6 +61,7 @@ from mcqueens_torch.core.schedules import chunk_betas
 from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.kernels import _build, prng, segment, sizing
 from mcqueens_torch.kernels.carry import BoardCarry
+from mcqueens_torch.utils import profiling
 
 DEFAULT_BLOCK = 2048
 _SITE_MUL = prng._i32(0x2545F491)
@@ -175,16 +176,18 @@ _PLANES = ("heights", "best_heights", "accept_bins", "total_bins")
 def segment_state(carry: BoardCarry) -> SegmentState:
     """Transpose a carry into a fresh chains-minor :class:`SegmentState`;
     ``ValueError`` if a height lies outside [0, N) (:func:`check_heights`)."""
-    st = SegmentState(**segment.chains_minor(
-        carry, _PLANES, _ROWS + ("block_seeds",)))
-    check_heights(st.heights, math.isqrt(st.heights.shape[0]))
+    with profiling.span("mcq.transpose"):
+        st = SegmentState(**segment.chains_minor(
+            carry, _PLANES, _ROWS + ("block_seeds",)))
+        check_heights(st.heights, math.isqrt(st.heights.shape[0]))
     return st
 
 
 def carry_of(st: SegmentState) -> BoardCarry:
     """Inverse of :func:`segment_state`."""
-    return BoardCarry(**segment.chains_major(
-        st, _PLANES, _ROWS + ("block_seeds",)))
+    with profiling.span("mcq.transpose"):
+        return BoardCarry(**segment.chains_major(
+            st, _PLANES, _ROWS + ("block_seeds",)))
 
 
 def segment_reference(st: SegmentState, step0: int, n_inner: int,
@@ -341,7 +344,8 @@ def check_heights(heights: torch.Tensor, N: int) -> None:
     subtraction."""
     if not heights.numel():
         return
-    lo, hi = torch.stack(torch.aminmax(heights)).tolist()
+    with profiling.span("mcq.read"):
+        lo, hi = torch.stack(torch.aminmax(heights)).tolist()
     if lo < 0 or hi >= N:
         raise ValueError(f"heights must lie in [0, {N}), got [{lo}, {hi}]")
 
@@ -429,10 +433,11 @@ def segment_call(st: SegmentState, step0: int, n_inner: int,
     """One chunk of ``n_inner`` steps: the twin for CPU state, the CUDA
     kernel for CUDA state, and an error for anything else."""
     dev = st.heights.device
-    beta = chunk_betas(spec.schedule, step0, n_inner, dev)
-    segment.on_device("board_shared", dev, segment_reference, segment_cuda,
-                      st, step0, n_inner, spec, beta, beta_scale,
-                      freeze=freeze, track_best=track_best)
+    with profiling.span("mcq.launch"):
+        beta = chunk_betas(spec.schedule, step0, n_inner, dev)
+        segment.on_device("board_shared", dev, segment_reference,
+                          segment_cuda, st, step0, n_inner, spec, beta,
+                          beta_scale, freeze=freeze, track_best=track_best)
 
 
 def _run(carry: BoardCarry, beta_scale, start_outer: int, spec: ChainSpec,

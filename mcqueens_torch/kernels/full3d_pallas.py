@@ -51,6 +51,7 @@ from mcqueens_torch.core.schedules import chunk_betas
 from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.kernels import _build, prng, segment, sizing
 from mcqueens_torch.kernels.carry import Full3DCarry
+from mcqueens_torch.utils import profiling
 
 DEFAULT_BLOCK = 2048
 _A_SALT = prng._i32(0x3C6EF372)  # attempt-word stream offset
@@ -183,18 +184,20 @@ _PLANES = ("qi", "qj", "qk", "occ", "best_qi", "best_qj", "best_qk",
 
 def segment_state(carry: Full3DCarry) -> SegmentState:
     """A fresh :class:`SegmentState` holding copies of the carry's fields."""
-    kw = {name: getattr(carry, name).clone().contiguous()
-          for name in _PLANES}
-    kw.update({name: getattr(carry, name).reshape(-1).clone()
-               for name in _ROWS})
-    return SegmentState(**kw)
+    with profiling.span("mcq.transpose"):
+        kw = {name: getattr(carry, name).clone().contiguous()
+              for name in _PLANES}
+        kw.update({name: getattr(carry, name).reshape(-1).clone()
+                   for name in _ROWS})
+        return SegmentState(**kw)
 
 
 def carry_of(st: SegmentState, block_seeds: torch.Tensor) -> Full3DCarry:
     """Inverse of :func:`segment_state`; ``block_seeds`` passes through."""
-    kw = {name: getattr(st, name) for name in _PLANES}
-    kw.update({name: getattr(st, name)[:, None] for name in _ROWS})
-    return Full3DCarry(block_seeds=block_seeds, **kw)
+    with profiling.span("mcq.transpose"):
+        kw = {name: getattr(st, name) for name in _PLANES}
+        kw.update({name: getattr(st, name)[:, None] for name in _ROWS})
+        return Full3DCarry(block_seeds=block_seeds, **kw)
 
 
 def _attack_ind(p, q, r):
@@ -448,9 +451,10 @@ def segment_call(st: SegmentState, step0: int, n_inner: int,
     """One chunk of ``n_inner`` steps: the twin for CPU state, the CUDA
     kernel for CUDA state, and an error for anything else."""
     dev = st.qi.device
-    beta = chunk_betas(spec.schedule, step0, n_inner, dev)
-    segment.on_device("full3d_pallas", dev, segment_reference, segment_cuda,
-                      st, step0, n_inner, spec, beta)
+    with profiling.span("mcq.launch"):
+        beta = chunk_betas(spec.schedule, step0, n_inner, dev)
+        segment.on_device("full3d_pallas", dev, segment_reference,
+                          segment_cuda, st, step0, n_inner, spec, beta)
 
 
 def run_segment(carry: Full3DCarry, start_outer: int, spec: ChainSpec,

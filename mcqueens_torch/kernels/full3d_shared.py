@@ -57,6 +57,7 @@ from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.kernels import (_build, full3d_pallas, prng, segment,
                                     sizing)
 from mcqueens_torch.kernels.carry import Full3DCarry
+from mcqueens_torch.utils import profiling
 
 DEFAULT_BLOCK = 2048
 _HOLD = 8  # steps the shared mover is held; read at each launch
@@ -175,14 +176,16 @@ _PLANES = ("qi", "qj", "qk", "best_qi", "best_qj", "best_qk", "accept_bins",
 
 def segment_state(carry: Full3DCarry) -> SegmentState:
     """Transpose a carry into a fresh chains-minor :class:`SegmentState`."""
-    return SegmentState(**segment.chains_minor(
-        carry, _PLANES, _ROWS + ("block_seeds",)))
+    with profiling.span("mcq.transpose"):
+        return SegmentState(**segment.chains_minor(
+            carry, _PLANES, _ROWS + ("block_seeds",)))
 
 
 def carry_of(st: SegmentState, occ: torch.Tensor) -> Full3DCarry:
     """Inverse of :func:`segment_state`; ``occ`` passes through."""
-    return Full3DCarry(occ=occ, **segment.chains_major(
-        st, _PLANES, _ROWS + ("block_seeds",)))
+    with profiling.span("mcq.transpose"):
+        return Full3DCarry(occ=occ, **segment.chains_major(
+            st, _PLANES, _ROWS + ("block_seeds",)))
 
 
 def _attack(dx, dy, dz):
@@ -448,9 +451,11 @@ def segment_call(st: SegmentState, step0: int, n_inner: int,
     """One launch of ``n_inner`` steps: the twin for CPU state, the CUDA
     kernel for CUDA state, and an error for anything else."""
     dev = st.qi.device
-    beta = chunk_betas(spec.schedule, step0, n_inner, dev)
-    segment.on_device("full3d_shared", dev, segment_reference, segment_cuda,
-                      st, step0, n_inner, spec, beta, beta_scale)
+    with profiling.span("mcq.launch"):
+        beta = chunk_betas(spec.schedule, step0, n_inner, dev)
+        segment.on_device("full3d_shared", dev, segment_reference,
+                          segment_cuda, st, step0, n_inner, spec, beta,
+                          beta_scale)
 
 
 def _run(carry: Full3DCarry, beta_scale, start_outer: int, spec: ChainSpec,

@@ -42,6 +42,7 @@ from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.kernels import (_build, board_shared, delta_e, prng,
                                     segment, sizing)
 from mcqueens_torch.kernels.carry import BoardCarry
+from mcqueens_torch.utils import profiling
 
 DEFAULT_BLOCK = 2048
 
@@ -110,20 +111,22 @@ def segment_state(carry: BoardCarry) -> SegmentState:
     raises ``ValueError`` unless every height lies in [0, N)
     (:func:`board_shared.check_heights`: the CUDA kernel keeps a board as
     bytes)."""
-    board_shared.check_heights(carry.heights,
-                               math.isqrt(carry.heights.shape[1]))
-    kw = {name: getattr(carry, name).clone().contiguous()
-          for name in _PLANES}
-    kw.update({name: getattr(carry, name).reshape(-1).clone()
-               for name in _ROWS})
-    return SegmentState(**kw)
+    with profiling.span("mcq.transpose"):
+        board_shared.check_heights(carry.heights,
+                                   math.isqrt(carry.heights.shape[1]))
+        kw = {name: getattr(carry, name).clone().contiguous()
+              for name in _PLANES}
+        kw.update({name: getattr(carry, name).reshape(-1).clone()
+                   for name in _ROWS})
+        return SegmentState(**kw)
 
 
 def carry_of(st: SegmentState, block_seeds: torch.Tensor) -> BoardCarry:
     """Inverse of :func:`segment_state`; ``block_seeds`` passes through."""
-    kw = {name: getattr(st, name) for name in _PLANES}
-    kw.update({name: getattr(st, name)[:, None] for name in _ROWS})
-    return BoardCarry(block_seeds=block_seeds, **kw)
+    with profiling.span("mcq.transpose"):
+        kw = {name: getattr(st, name) for name in _PLANES}
+        kw.update({name: getattr(st, name)[:, None] for name in _ROWS})
+        return BoardCarry(block_seeds=block_seeds, **kw)
 
 
 def segment_reference(st: SegmentState, step0: int, n_inner: int,
@@ -305,9 +308,10 @@ def segment_call(st: SegmentState, step0: int, n_inner: int,
     """One chunk of ``n_inner`` steps: the twin for CPU state, the CUDA
     kernel for CUDA state, and an error for anything else."""
     dev = st.heights.device
-    beta = chunk_betas(spec.schedule, step0, n_inner, dev)
-    segment.on_device("metropolis_pallas", dev, segment_reference,
-                      segment_cuda, st, step0, n_inner, spec, beta)
+    with profiling.span("mcq.launch"):
+        beta = chunk_betas(spec.schedule, step0, n_inner, dev)
+        segment.on_device("metropolis_pallas", dev, segment_reference,
+                          segment_cuda, st, step0, n_inner, spec, beta)
 
 
 def run_segment(carry: BoardCarry, start_outer: int, spec: ChainSpec,

@@ -23,7 +23,7 @@ from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.dist import runner as runner_mod
 from mcqueens_torch.kernels import prng
-from mcqueens_torch.utils import checkpoint
+from mcqueens_torch.utils import checkpoint, profiling
 
 _GROUP_K = prng._i32(0xB5297A4D)  # group-id stride
 _PAIR_K = prng._i32(0x1B873593)   # pair-id stride
@@ -116,123 +116,144 @@ def run_tempered(
     shards (``ValueError`` otherwise).  Segments run shard by shard; the
     exchange runs on the first device over every shard's energies, so each
     group's swap draws stay keyed by its global group id.
+
+    The result's ``wall_time`` is the call's ``mcq.search`` span: init, the
+    rounds and the drain (:func:`mcqueens_torch.utils.profiling.span`).
     """
     dev = runner_mod._device(device)
     if mesh is not None:
         mesh = mesh_mod.check_mesh(mesh, dev)
-    if spec.kernel != "pallas_shared":
-        raise ValueError("run_tempered requires kernel='pallas_shared'")
-    kmod = runner_mod._modules(spec)
-    if exchange_interval < 1:
-        raise ValueError("exchange_interval must be >= 1")
-    ladder = np.asarray(ladder, np.float32)
-    n_levels = int(ladder.shape[0])
-    seeds = np.asarray(seeds, dtype=np.uint32)
-    n_runs = seeds.shape[0]
-    if initial_states is not None:
-        initial_states = runner_mod.validate_initial_states(
-            initial_states, spec, n_runs)
+    with profiling.span("mcq.search"):
+        t0 = time.time()
+        with profiling.span("mcq.init"):
+            if spec.kernel != "pallas_shared":
+                raise ValueError(
+                    "run_tempered requires kernel='pallas_shared'")
+            kmod = runner_mod._modules(spec)
+            if exchange_interval < 1:
+                raise ValueError("exchange_interval must be >= 1")
+            ladder = np.asarray(ladder, np.float32)
+            n_levels = int(ladder.shape[0])
+            seeds = np.asarray(seeds, dtype=np.uint32)
+            n_runs = seeds.shape[0]
+            if initial_states is not None:
+                initial_states = runner_mod.validate_initial_states(
+                    initial_states, spec, n_runs)
 
-    block, padded = None, seeds
-    if mesh is not None:
-        padded, block = mesh_mod.pad_seeds_to_blocks(
-            seeds, mesh, lambda c: kmod.block_size(c, spec))
-        if block % n_levels:
-            raise ValueError(
-                f"block size {block} must be a multiple of the ladder "
-                f"length {n_levels} (ladder groups must not straddle "
-                f"devices)")
-    home = dev if mesh is None else mesh[0]
-    carry = kmod.init_carry_batch(padded, spec, block=block,
-                                  initial_states=initial_states, device=home)
-    C = int(carry.energy.shape[0])
-    reps = -(-C // n_levels)
-    betas = torch.from_numpy(np.tile(ladder, reps)[:C]).to(home)
+            block, padded = None, seeds
+            if mesh is not None:
+                padded, block = mesh_mod.pad_seeds_to_blocks(
+                    seeds, mesh, lambda c: kmod.block_size(c, spec))
+                if block % n_levels:
+                    raise ValueError(
+                        f"block size {block} must be a multiple of the "
+                        f"ladder length {n_levels} (ladder groups must not "
+                        f"straddle devices)")
+            home = dev if mesh is None else mesh[0]
+            carry = kmod.init_carry_batch(padded, spec, block=block,
+                                          initial_states=initial_states,
+                                          device=home)
+            C = int(carry.energy.shape[0])
+            reps = -(-C // n_levels)
+            betas = torch.from_numpy(np.tile(ladder, reps)[:C]).to(home)
 
-    history = [carry.energy.reshape(1, -1).cpu().numpy()]
-    betas_hist = []
-    n_rounds = -(-spec.n_outer // exchange_interval)
-    start_round = 0
-    if checkpointer is not None:
-        fp = checkpoint.spec_fingerprint(spec, seeds)
-        # record_betas changes the checkpoint payload (the beta history
-        # rides in the extras), so it is part of the run identity.
-        fp = checkpoint.extend_fingerprint(
-            fp, ladder, np.uint32(swap_seed), np.int64(exchange_interval),
-            np.bool_(record_betas))
-        resumed = checkpointer.restore(carry, seg_outer=exchange_interval,
-                                       fingerprint=fp,
-                                       n_extras=2 if record_betas else 1)
-        if resumed is not None:
-            carry, start_round, chunks, extras = resumed
-            betas = torch.from_numpy(
-                np.asarray(extras[0], np.float32)).to(home)
+            with profiling.span("mcq.read"):
+                history = [carry.energy.reshape(1, -1).cpu().numpy()]
+            betas_hist = []
+            n_rounds = -(-spec.n_outer // exchange_interval)
+            start_round = 0
+            if checkpointer is not None:
+                fp = checkpoint.spec_fingerprint(spec, seeds)
+                # record_betas changes the checkpoint payload (the beta
+                # history rides in the extras), so it is part of the run
+                # identity.
+                fp = checkpoint.extend_fingerprint(
+                    fp, ladder, np.uint32(swap_seed),
+                    np.int64(exchange_interval), np.bool_(record_betas))
+                resumed = checkpointer.restore(
+                    carry, seg_outer=exchange_interval, fingerprint=fp,
+                    n_extras=2 if record_betas else 1)
+                if resumed is not None:
+                    carry, start_round, chunks, extras = resumed
+                    betas = torch.from_numpy(
+                        np.asarray(extras[0], np.float32)).to(home)
+                    if record_betas:
+                        betas_hist = list(extras[1])
+                    history = list(chunks)
+            state = (carry if mesh is None
+                     else mesh_mod.shard_chains(carry, mesh))
+            del carry
+        for r in range(start_round, n_rounds):
+            with profiling.span("mcq.round"):
+                seg0 = r * exchange_interval
+                n_seg = min(exchange_interval, spec.n_outer - seg0)
+                if mesh is None:
+                    state, ys = kmod.run_segment_tempered(
+                        state, betas, seg0, spec, n_seg)
+                else:
+                    state, ys = kmod.run_segment_tempered_sharded(
+                        state, betas, seg0, spec, n_seg, mesh)
+                with profiling.span("mcq.read"):
+                    history.append(ys.cpu().numpy())
+                if record_betas:
+                    # The betas under which this round's samples were
+                    # generated.
+                    with profiling.span("mcq.read"):
+                        betas_hist.append(betas.cpu().numpy())
+                if r + 1 < n_rounds:
+                    with profiling.span("mcq.exchange"):
+                        energies = (state.energy if mesh is None else
+                                    mesh_mod.gather_chains(
+                                        [c.energy for c in state]))
+                        betas = exchange(betas, energies.reshape(-1),
+                                         round_key(swap_seed, r), n_levels,
+                                         r % 2)
+                if checkpointer is not None:
+                    with profiling.span("mcq.checkpoint"):
+                        extras = (betas.cpu().numpy(),)
+                        if record_betas:
+                            extras += (np.stack(betas_hist) if betas_hist
+                                       else np.zeros((0, C), np.float32),)
+                        whole = (state if mesh is None
+                                 else mesh_mod.gather_chains(state, "cpu"))
+                        checkpointer.save(whole, r + 1, history,
+                                          seg_outer=exchange_interval,
+                                          fingerprint=fp, extras=extras)
+                if verbose and (r + 1) % max(1, n_rounds // 10) == 0:
+                    e = runner_mod._field(state, "energy").reshape(-1)
+                    be = runner_mod._field(state, "best_energy").reshape(-1)
+                    print(f"[tempering] round {r + 1}/{n_rounds}: "
+                          f"mean E={e[:n_runs].mean():.2f} "
+                          f"best={be[:n_runs].min()}")
+                if stop_at_energy is not None:
+                    be = runner_mod._field(
+                        state, "best_energy").reshape(-1)[:n_runs]
+                    if be.min() <= stop_at_energy:
+                        if verbose:
+                            print(f"[tempering] early stop at round "
+                                  f"{r + 1}/{n_rounds}: best={be.min()}")
+                        break
+        with profiling.span("mcq.drain"):
+            devices = (dev,) if mesh is None else mesh_mod.distinct(mesh)
+            mesh_mod.synchronize(devices)
+            host = {name: runner_mod._field(state, name)
+                    for name in runner_mod.state_fields(spec)}
+            best_state, final_state = runner_mod.states_of(host, spec)
+            s = slice(0, n_runs)
+            with profiling.span("mcq.read"):
+                final_betas = betas.cpu().numpy()
+            out = {
+                "best_energy": host["best_energy"].reshape(-1)[s],
+                "best_state": best_state[s],
+                "final_energy": host["energy"].reshape(-1)[s],
+                "final_state": final_state[s],
+                "energy_history": np.concatenate(history, axis=0).T[s],
+                "betas": final_betas[s],
+                "ladder": ladder,
+                "proposals": int(host["total_bins"].sum()),
+            }
             if record_betas:
-                betas_hist = list(extras[1])
-            history = list(chunks)
-    state = carry if mesh is None else mesh_mod.shard_chains(carry, mesh)
-    del carry
-    t0 = time.time()
-    for r in range(start_round, n_rounds):
-        seg0 = r * exchange_interval
-        n_seg = min(exchange_interval, spec.n_outer - seg0)
-        if mesh is None:
-            state, ys = kmod.run_segment_tempered(state, betas, seg0, spec,
-                                                  n_seg)
-        else:
-            state, ys = kmod.run_segment_tempered_sharded(
-                state, betas, seg0, spec, n_seg, mesh)
-        history.append(ys.cpu().numpy())
-        if record_betas:
-            # The betas under which this round's samples were generated.
-            betas_hist.append(betas.cpu().numpy())
-        if r + 1 < n_rounds:
-            energies = (state.energy if mesh is None else
-                        mesh_mod.gather_chains([c.energy for c in state]))
-            betas = exchange(betas, energies.reshape(-1),
-                             round_key(swap_seed, r), n_levels, r % 2)
-        if checkpointer is not None:
-            extras = (betas.cpu().numpy(),)
-            if record_betas:
-                extras += (np.stack(betas_hist) if betas_hist
-                           else np.zeros((0, C), np.float32),)
-            whole = (state if mesh is None
-                     else mesh_mod.gather_chains(state, "cpu"))
-            checkpointer.save(whole, r + 1, history,
-                              seg_outer=exchange_interval, fingerprint=fp,
-                              extras=extras)
-        if verbose and (r + 1) % max(1, n_rounds // 10) == 0:
-            e = runner_mod._field(state, "energy").reshape(-1)[:n_runs]
-            be = runner_mod._field(state, "best_energy").reshape(-1)[:n_runs]
-            print(f"[tempering] round {r + 1}/{n_rounds}: "
-                  f"mean E={e.mean():.2f} best={be.min()}")
-        if stop_at_energy is not None:
-            be = runner_mod._field(state, "best_energy").reshape(-1)[:n_runs]
-            if be.min() <= stop_at_energy:
-                if verbose:
-                    print(f"[tempering] early stop at round {r + 1}/"
-                          f"{n_rounds}: best={be.min()}")
-                break
-    devices = (dev,) if mesh is None else mesh_mod.distinct(mesh)
-    mesh_mod.synchronize(devices)
-    wall = time.time() - t0
-
-    host = {name: runner_mod._field(state, name)
-            for name in runner_mod.state_fields(spec)}
-    best_state, final_state = runner_mod.states_of(host, spec)
-    s = slice(0, n_runs)
-    out = {
-        "best_energy": host["best_energy"].reshape(-1)[s],
-        "best_state": best_state[s],
-        "final_energy": host["energy"].reshape(-1)[s],
-        "final_state": final_state[s],
-        "energy_history": np.concatenate(history, axis=0).T[s],
-        "betas": betas.cpu().numpy()[s],
-        "ladder": ladder,
-        "wall_time": wall,
-        "proposals": int(host["total_bins"].sum()),
-    }
-    if record_betas:
-        out["betas_history"] = np.stack(betas_hist, axis=0)[:, :n_runs]
-    return out
-
+                out["betas_history"] = np.stack(betas_hist,
+                                                axis=0)[:, :n_runs]
+            out["wall_time"] = time.time() - t0
+            return out
