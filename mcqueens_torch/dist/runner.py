@@ -56,7 +56,9 @@ def plan_segments(n_outer: int, n_padded: int, history_stride: int,
 @dataclasses.dataclass
 class ChainResult:
     """Batched results for R chains (axis 0 = run/chain index), as host
-    numpy arrays; ``device`` names where the chains ran."""
+    numpy arrays (from a card: views of pinned memory, which returns to
+    torch's caching host allocator with the result); ``device`` names where
+    the chains ran."""
 
     spec: ChainSpec
     energy_history: np.ndarray   # (R, P) int32
@@ -131,29 +133,88 @@ def _scan(spec: ChainSpec) -> bool:
     return spec.kernel in ("tables", "naive")
 
 
-def state_fields(spec: ChainSpec) -> tuple[str, ...]:
-    """Carry fields read back at the end of a run."""
-    if spec.mcmc_type == "board":
-        state = ("heights", "best_heights")
-    elif _scan(spec):
-        state = ("queens", "best_queens")
-    else:
-        state = ("qi", "qj", "qk", "best_qi", "best_qj", "best_qk")
-    return ("energy", "best_energy", "best_step", "stop_step", "accept_bins",
-            "total_bins") + state
+# Takes of result fields by :func:`drain`: one a field and shard.
+DRAIN_COPIES = 0
+
+# The fields of a ChainResult that :func:`drain` reads off the final carry.
+CHAIN_FIELDS = ("energy", "best_energy", "best_step", "stop_step",
+                "accept_bins", "total_bins", "final_state", "best_state")
 
 
-def states_of(host: dict, spec: ChainSpec):
-    """``(best_state, final_state)`` from host carry arrays: (C, N, N)
-    int64 boards, or (C, Q, 3) int32 queens (stacked from the planes of
-    the Pallas samplers' carries)."""
-    if spec.mcmc_type == "board":
-        return tuple(host[name].astype(np.int64).reshape(-1, spec.N, spec.N)
-                     for name in ("best_heights", "heights"))
-    if _scan(spec):
-        return host["best_queens"], host["queens"]
-    return (np.stack([host[f"best_q{a}"] for a in "ijk"], axis=-1),
-            np.stack([host[f"q{a}"] for a in "ijk"], axis=-1))
+def host_empty(shape, dtype: torch.dtype, device: torch.device):
+    """An empty host tensor for results read from ``device``: pinned, from
+    torch's caching host allocator, for a card (each copy lands in it
+    directly, the cards' copies overlap, and a dropped result's blocks serve
+    the next search), plain memory for the CPU."""
+    return torch.empty(shape, dtype=dtype, pin_memory=device.type == "cuda")
+
+
+def _laid_out(carry, name: str, spec: ChainSpec) -> torch.Tensor:
+    """Result field ``name`` of one carry, in its final shape and dtype on
+    the carry's device: a (C,) row, (C, n_bins) bins, ``final_state`` /
+    ``best_state`` as (C, N, N) int64 boards or (C, Q, 3) int32 queens (the
+    Pallas samplers' planes stacked), ``proposals`` the carry's total
+    proposals as a (1,) int64."""
+    if name in ("final_state", "best_state"):
+        best = "best_" if name == "best_state" else ""
+        if spec.mcmc_type == "board":
+            return getattr(carry, best + "heights").reshape(
+                -1, spec.N, spec.N).to(torch.int64)
+        if _scan(spec):
+            return getattr(carry, best + "queens")
+        return torch.stack([getattr(carry, f"{best}q{a}") for a in "ijk"],
+                           dim=-1)
+    if name == "proposals":
+        return carry.total_bins.sum(dtype=torch.int64).reshape(1)
+    t = getattr(carry, name)
+    return t if name.endswith("_bins") else t.reshape(-1)
+
+
+def drain(state, names, spec: ChainSpec) -> dict:
+    """The result fields ``names`` of a run's final carry (one carry, or a
+    mesh's shard carries in shard order) as host arrays in their final
+    shapes, each copied from the card once.
+
+    Each shard's field is laid out on its own device (:func:`_laid_out`) and
+    its copy enqueued into its rows of one array of :func:`host_empty`;
+    every card is synchronised once, after all the copies (span
+    ``mcq.sync``).  One carry on the CPU gives zero-copy views.  Adds one to
+    ``DRAIN_COPIES`` a field and shard.
+    """
+    global DRAIN_COPIES
+    shards = state if isinstance(state, tuple) else (state,)
+    out, devices = {}, []
+    with profiling.span("mcq.read"):
+        for name in names:
+            parts = [_laid_out(c, name, spec) for c in shards]
+            DRAIN_COPIES += len(parts)
+            first = parts[0]
+            if len(parts) == 1 and first.device.type == "cpu":
+                out[name] = first.numpy()
+                continue
+            host = host_empty((sum(p.shape[0] for p in parts),)
+                              + tuple(first.shape[1:]), first.dtype,
+                              first.device)
+            row = 0
+            for p in parts:
+                host[row:row + p.shape[0]].copy_(p, non_blocking=True)
+                row += p.shape[0]
+                devices.append(p.device)
+            out[name] = host.numpy()
+    mesh_mod.synchronize(mesh_mod.distinct(devices))
+    return out
+
+
+def history_rows(rows: np.ndarray, chunks, start: int) -> list:
+    """Restored history ``chunks`` copied into ``rows`` from row ``start``
+    on, one after another; returns them as views of their rows."""
+    views = []
+    for chunk in chunks:
+        view = rows[start:start + len(chunk)]
+        view[...] = chunk
+        views.append(view)
+        start += len(chunk)
+    return views
 
 
 def run_chains(
@@ -236,8 +297,14 @@ def run_chains(
                 carry = mod.init_carry_batch(seeds, spec, block=block,
                                              initial_states=initial_states,
                                              device=home)
+            # The energy history: the initial energies, then each
+            # segment's ys written into its rows as it is read.
+            hist = host_empty((1 + n_segs * seg_outer,
+                               carry.energy.shape[0]), carry.energy.dtype,
+                              home)
+            rows = hist.numpy()
             with profiling.span("mcq.read"):
-                e0 = carry.energy.reshape(-1).cpu().numpy()
+                hist[0].copy_(carry.energy.reshape(-1))
             history_chunks = []
             start_seg = 0
             if checkpointer is not None:
@@ -245,7 +312,8 @@ def run_chains(
                 resumed = checkpointer.restore(carry, seg_outer=seg_outer,
                                                fingerprint=ckpt_fp)
                 if resumed is not None:
-                    carry, start_seg, history_chunks = resumed
+                    carry, start_seg, chunks = resumed
+                    history_chunks = history_rows(rows, chunks, 1)
             if mesh is None:
                 state = carry
             else:
@@ -259,8 +327,10 @@ def run_chains(
                 else:
                     state, ys = mod.run_segment_sharded(
                         state, seg * seg_outer, spec, seg_outer, mesh)
+                a = 1 + seg * seg_outer
                 with profiling.span("mcq.read"):
-                    history_chunks.append(ys.cpu().numpy())  # (seg_outer, C)
+                    hist[a:a + seg_outer].copy_(ys)  # (seg_outer, C)
+                history_chunks.append(rows[a:a + seg_outer])
                 if verbose:
                     done_steps = min(
                         (seg + 1) * seg_outer * spec.history_stride,
@@ -277,23 +347,19 @@ def run_chains(
                                           fingerprint=ckpt_fp)
         with profiling.span("mcq.drain"):
             devices = (dev,) if mesh is None else mesh_mod.distinct(mesh)
-            mesh_mod.synchronize(devices)
-            host = {name: _field(state, name) for name in state_fields(spec)}
-
-            hist = np.concatenate(history_chunks, axis=0)[:n_outer]
-            energy_history = np.concatenate([e0[None, :], hist], axis=0).T
+            host = drain(state, CHAIN_FIELDS, spec)
+            energy_history = rows[:n_outer + 1].T
             history_steps = np.minimum(
                 np.arange(n_outer + 1, dtype=np.int64) * spec.history_stride,
                 spec.n_steps)
-            stop_step = host["stop_step"].reshape(-1)
+            stop_step = host["stop_step"]
             # A run stopping at step s recorded ceil(s / stride) points plus
             # the initial one (the reference breaks before appending).
             stopped = stop_step < spec.n_steps
             pts = -(-stop_step // spec.history_stride)
-            history_len = (np.where(stopped, pts, n_outer) + 1).astype(
-                np.int64)
+            history_len = np.add(np.where(stopped, pts, n_outer), 1,
+                                 dtype=np.int64)
 
-            best_state, final_state = states_of(host, spec)
             s = slice(0, n_runs)
             wall = time.time() - t0
             if verbose:
@@ -306,11 +372,11 @@ def run_chains(
                 energy_history=energy_history[s],
                 history_steps=history_steps,
                 history_len=history_len[s],
-                final_energy=host["energy"].reshape(-1)[s],
-                final_state=final_state[s],
-                best_energy=host["best_energy"].reshape(-1)[s],
-                best_state=best_state[s],
-                steps_to_best=host["best_step"].reshape(-1)[s],
+                final_energy=host["energy"][s],
+                final_state=host["final_state"][s],
+                best_energy=host["best_energy"][s],
+                best_state=host["best_state"][s],
+                steps_to_best=host["best_step"][s],
                 stop_step=stop_step[s],
                 accept_bins=host["accept_bins"][s],
                 total_bins=host["total_bins"][s],

@@ -29,6 +29,11 @@ _GROUP_K = prng._i32(0xB5297A4D)  # group-id stride
 _PAIR_K = prng._i32(0x1B873593)   # pair-id stride
 _ROUND_K = prng._i32(0x9E3779B9)  # round stride
 
+# The fields that :func:`run_tempered` drains off the final carry
+# (:func:`mcqueens_torch.dist.runner.drain`).
+RESULT_FIELDS = ("energy", "best_energy", "proposals", "final_state",
+                 "best_state")
+
 
 def geometric_ladder(beta_min: float, beta_max: float, n_levels: int):
     """Geometric beta ladder (constant acceptance ratio heuristic)."""
@@ -157,10 +162,20 @@ def run_tempered(
             reps = -(-C // n_levels)
             betas = torch.from_numpy(np.tile(ladder, reps)[:C]).to(home)
 
+            # The energy history (the initial energies, then each round's
+            # ys) and, with record_betas, the betas of each round, written
+            # into their rows as they are read.
+            hist = runner_mod.host_empty((1 + spec.n_outer, C),
+                                         carry.energy.dtype, home)
+            rows = hist.numpy()
             with profiling.span("mcq.read"):
-                history = [carry.energy.reshape(1, -1).cpu().numpy()]
-            betas_hist = []
+                hist[0].copy_(carry.energy.reshape(-1))
+            history, done = [rows[:1]], 1
             n_rounds = -(-spec.n_outer // exchange_interval)
+            if record_betas:
+                betas_hist = runner_mod.host_empty((n_rounds, C),
+                                                   torch.float32, home)
+                betas_rows = betas_hist.numpy()
             start_round = 0
             if checkpointer is not None:
                 fp = checkpoint.spec_fingerprint(spec, seeds)
@@ -178,8 +193,9 @@ def run_tempered(
                     betas = torch.from_numpy(
                         np.asarray(extras[0], np.float32)).to(home)
                     if record_betas:
-                        betas_hist = list(extras[1])
-                    history = list(chunks)
+                        betas_rows[:len(extras[1])] = extras[1]
+                    history = runner_mod.history_rows(rows, chunks, 0)
+                    done = sum(len(chunk) for chunk in chunks)
             state = (carry if mesh is None
                      else mesh_mod.shard_chains(carry, mesh))
             del carry
@@ -194,12 +210,14 @@ def run_tempered(
                     state, ys = kmod.run_segment_tempered_sharded(
                         state, betas, seg0, spec, n_seg, mesh)
                 with profiling.span("mcq.read"):
-                    history.append(ys.cpu().numpy())
+                    hist[done:done + n_seg].copy_(ys)
+                history.append(rows[done:done + n_seg])
+                done += n_seg
                 if record_betas:
                     # The betas under which this round's samples were
                     # generated.
                     with profiling.span("mcq.read"):
-                        betas_hist.append(betas.cpu().numpy())
+                        betas_hist[r].copy_(betas)
                 if r + 1 < n_rounds:
                     with profiling.span("mcq.exchange"):
                         energies = (state.energy if mesh is None else
@@ -212,8 +230,7 @@ def run_tempered(
                     with profiling.span("mcq.checkpoint"):
                         extras = (betas.cpu().numpy(),)
                         if record_betas:
-                            extras += (np.stack(betas_hist) if betas_hist
-                                       else np.zeros((0, C), np.float32),)
+                            extras += (betas_rows[:r + 1],)
                         whole = (state if mesh is None
                                  else mesh_mod.gather_chains(state, "cpu"))
                         checkpointer.save(whole, r + 1, history,
@@ -234,26 +251,21 @@ def run_tempered(
                                   f"{r + 1}/{n_rounds}: best={be.min()}")
                         break
         with profiling.span("mcq.drain"):
-            devices = (dev,) if mesh is None else mesh_mod.distinct(mesh)
-            mesh_mod.synchronize(devices)
-            host = {name: runner_mod._field(state, name)
-                    for name in runner_mod.state_fields(spec)}
-            best_state, final_state = runner_mod.states_of(host, spec)
+            host = runner_mod.drain(state, RESULT_FIELDS, spec)
             s = slice(0, n_runs)
             with profiling.span("mcq.read"):
                 final_betas = betas.cpu().numpy()
             out = {
-                "best_energy": host["best_energy"].reshape(-1)[s],
-                "best_state": best_state[s],
-                "final_energy": host["energy"].reshape(-1)[s],
-                "final_state": final_state[s],
-                "energy_history": np.concatenate(history, axis=0).T[s],
+                "best_energy": host["best_energy"][s],
+                "best_state": host["best_state"][s],
+                "final_energy": host["energy"][s],
+                "final_state": host["final_state"][s],
+                "energy_history": rows[:done].T[s],
                 "betas": final_betas[s],
                 "ladder": ladder,
-                "proposals": int(host["total_bins"].sum()),
+                "proposals": int(host["proposals"].sum()),
             }
             if record_betas:
-                out["betas_history"] = np.stack(betas_hist,
-                                                axis=0)[:, :n_runs]
+                out["betas_history"] = betas_rows[:len(history) - 1, :n_runs]
             out["wall_time"] = time.time() - t0
             return out
