@@ -18,6 +18,10 @@ A run sharded over a mesh (:mod:`mcqueens_torch.dist.mesh`) saves its whole
 carry, the shards gathered in shard order (the JAX package's sharded arrays
 read back in global order), and restores it whole before splitting it again,
 so its files equal an unsharded save of the same carry.
+
+Each file a save writes is one ``mcq.checkpoint.write`` span
+(:func:`mcqueens_torch.utils.profiling.span`, inside the caller's
+``mcq.checkpoint``); :data:`SAVES` counts the saves that wrote.
 """
 
 from __future__ import annotations
@@ -32,9 +36,14 @@ import time
 import numpy as np
 import torch
 
+from mcqueens_torch.utils import profiling
+
 # Fields holding threefry key words: int64 tensors on the device, uint32
 # words on disk.
 KEY_FIELDS = ("step_base",)
+
+# Saves that wrote their files in this process (every Checkpointer).
+SAVES = 0
 
 
 def spec_fingerprint(spec, seeds) -> str:
@@ -114,18 +123,20 @@ class Checkpointer:
         return os.path.join(self.directory, f"{self.tag}.{fp}.hist{idx}.npy")
 
     def _write_atomic(self, final_path: str, write_fn) -> None:
-        fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".tmp")
-        try:
-            with os.fdopen(fd, "wb") as f:
-                write_fn(f)
-            os.replace(tmp, final_path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        with profiling.span("mcq.checkpoint.write"):
+            fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".tmp")
+            try:
+                with os.fdopen(fd, "wb") as f:
+                    write_fn(f)
+                os.replace(tmp, final_path)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
 
     def save(self, carry, segments_done: int, history_chunks,
              seg_outer: int = -1, fingerprint: str = "",
              extras=()) -> None:
+        global SAVES
         if segments_done % self.every != 0:
             return
         now = time.monotonic()
@@ -155,6 +166,7 @@ class Checkpointer:
             # record_betas, the accumulated beta history).
             payload[f"extra_{idx}"] = np.asarray(extra)
         self._write_atomic(self.path, lambda f: np.savez(f, **payload))
+        SAVES += 1
 
     def restore(self, template_carry, seg_outer: int = -1,
                 fingerprint: str = "", n_extras: int = 0):

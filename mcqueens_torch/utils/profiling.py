@@ -29,7 +29,9 @@ above it on the calling thread:
 - ``mcq.mesh.shard``: one shard's enqueue of a segment; ``mcq.mesh.gather``:
   one gather of shards to one device (``gather_chains``, the segment's
   energies);
-- ``mcq.checkpoint``: one save;
+- ``mcq.checkpoint``: one save (the carry's gather to the host and its
+  files); ``mcq.checkpoint.write``: one file it writes, a history chunk or
+  the main npz;
 - ``mcq.drain``: the last round to the return: ``mcq.sync`` (the wait for
   every card), the result's reads and its assembly.
 """
