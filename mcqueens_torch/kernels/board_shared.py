@@ -21,9 +21,11 @@ One chunk of ``n_inner`` steps has two implementations over the same
 chains-minor state (:class:`SegmentState`), both updating it in place:
 
   * :func:`segment_cuda` launches the hand-written CUDA kernel
-    (``csrc/board_shared.cu``: a team of lanes a chain, boards in shared
-    memory) through :func:`launch_segment`, laid out by :func:`layout`, and
-    counts the launch in :data:`KERNEL_LAUNCHES`;
+    (``csrc/board_shared.cu``: a team of lanes a chain, boards packed in
+    shared memory and scored four cells a word) through
+    :func:`launch_segment`, laid out by :func:`layout`, and counts the
+    launch in :data:`KERNEL_LAUNCHES` (and :data:`PACKED_LAUNCHES` where the
+    boards went to shared memory);
   * :func:`segment_reference` is its plain-torch twin (vectorised over
     chains, a Python loop over steps).
 
@@ -69,9 +71,12 @@ _SITE_SALT = prng._i32(0x9E3779B9)
 
 # Launches of the CUDA kernel in this process (read and reset by callers
 # that check the main path really ran on the card); FREEZE_LAUNCHES counts
-# the ones made with a freeze row (the replay of recover_best_heights).
+# the ones made with a freeze row (the replay of recover_best_heights),
+# PACKED_LAUNCHES the ones that kept the boards packed in shared memory
+# (the SMEM instance, every N <= 127 whose CTA fits).
 KERNEL_LAUNCHES = 0
 FREEZE_LAUNCHES = 0
+PACKED_LAUNCHES = 0
 
 
 def _sn(N: int) -> int:
@@ -284,9 +289,18 @@ def slot_bytes(N: int, track_best: bool) -> int:
     return 4 * ((1 + bool(track_best)) * N * row_pitch(N) // 4 | 1)
 
 
+def guard_bytes(N: int) -> int:
+    """Zeroed shared-memory bytes before a CTA's first slot and after its
+    last: the kernel's masked reads of diagonal cells off the board and of
+    rows past N in a ragged last word reach that far."""
+    return 4 * ((3 * row_pitch(N) + 2 * N + 6) // 4)
+
+
 def cta_smem_bytes(N: int, chains_per_cta: int, track_best: bool) -> int:
-    """Shared memory of a CTA: a flag word and a slot per chain."""
-    return chains_per_cta * (4 + slot_bytes(N, track_best))
+    """Shared memory of a CTA: a flag word and a slot per chain, and a
+    guard at each end of the slots."""
+    return (chains_per_cta * (4 + slot_bytes(N, track_best))
+            + 2 * guard_bytes(N))
 
 
 def _resident(lanes: int, cpb: int, smem: int) -> int:
@@ -411,18 +425,20 @@ def segment_cuda(st: SegmentState, step0: int, n_inner: int,
     """Advance every chain by ``n_inner`` steps with the CUDA kernel
     (asynchronous on the current stream; counts the launch), laid out by
     :func:`layout` unless ``forced`` is given."""
-    global KERNEL_LAUNCHES, FREEZE_LAUNCHES
+    global KERNEL_LAUNCHES, FREEZE_LAUNCHES, PACKED_LAUNCHES
     dev = st.heights.device
     if dev.type != "cuda":
         raise ValueError(f"segment_cuda: state on {dev}, not a CUDA device")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        launch_segment(_build.load_library(), st, step0, n_inner, spec, beta,
-                       beta_scale, freeze=freeze, track_best=track_best,
-                       n_sm=n_sm, stream=stream, forced=forced)
+        lay = launch_segment(_build.load_library(), st, step0, n_inner, spec,
+                             beta, beta_scale, freeze=freeze,
+                             track_best=track_best, n_sm=n_sm, stream=stream,
+                             forced=forced)
     KERNEL_LAUNCHES += 1
     FREEZE_LAUNCHES += freeze is not None
+    PACKED_LAUNCHES += lay.in_shared
 
 
 def segment_call(st: SegmentState, step0: int, n_inner: int,

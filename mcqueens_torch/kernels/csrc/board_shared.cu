@@ -15,23 +15,47 @@
 // at (i, j) changes conflicts only on row i, column j and the two diagonals
 // through (i, j), so dE sums up to 4(N-1) cells (60 at N=16).
 //
-// What bounds it: int32 instructions.  A step's cells, four hashes and the precise
-// expf are ~800 int32 operations a chain, a chain is a serial walk, and the
-// board is tiny; the parent design (a thread a chain, boards in device
-// memory) spent its time waiting on L2 and idling SMs instead.  Design:
+// What bounds it: int32 issue.  A chain is a serial walk over a tiny board,
+// so the card is kept busy by many chains at once, and a step costs the
+// instructions its lanes issue (IADD3, LOP3, SHF, VABSDIFF4 on the ALU
+// pipe, IMAD on the FMA pipe; shared-memory loads and shuffles through
+// MIO): ~210 a lane and step at N=16 and L=4, about half of them scoring
+// the lines.  Moving adds from the ALU pipe to IMADs (a runtime 1) was
+// timed and lost 5-12%: the count, not the pipe balance, sets the time.
+// The earlier design scored a cell at a time: a byte load, two
+// differences, two squares and four compares a cell, and three runtime
+// divisions a step, ~430 instructions a lane and step.  Design:
 //   * A team of L lanes a chain (L = 1, 2, 4 or 8; a team sits inside one
-//     warp).  Lane r scores the offsets x = r, r + L, ... of the four lines
-//     and the team sums dE with __shfl_xor_sync: an integer sum, so every
-//     lane holds the same dE, hence the same accept decision, without a
-//     broadcast.  Few chains take large teams (4096 chains fill ~8 warps an
-//     SM at L = 8), many chains small ones (32768 need L <= 4 to stay
-//     resident in one wave).
+//     warp).  Few chains take large teams, many chains small ones (32768
+//     need L <= 4 to stay resident in one wave).
+//   * Byte-SIMD scoring on packed rows.  A board row is bytes in shared
+//     memory, padded to whole words; lane r scores the words w = r, r + L,
+//     ... < ceil(N / 4) of each of the four lines: cells x = 4w .. 4w + 3
+//     of row i (one word load) and of column j and both diagonals through
+//     (i, j) (rows x, four byte loads packed into a word).  A cell h at
+//     offset d along its line counts [|h - new| is 0 or d] - [|h - old| is
+//     0 or d]; VABSDIFF4 takes the four |h - k| at once and two adds of
+//     0x7F to each byte (no carry: every byte is below 0x80) test them
+//     against 0 and d, so four cells cost a dozen instructions.  A byte
+//     mask drops cells past N and diagonal cells off the board (bytes
+//     compared with the diagonal's bounds the same way), and no branch
+//     does; the site's own cell is counted on all four lines and taken
+//     back as a constant (bias), which lane 0 adds to its part.  The team
+//     sums dE with __shfl_xor_sync.
+//   * Shared memory is zeroed before the boards are copied in, with a guard
+//     before the first slot and after the last (guard_bytes), so every byte
+//     the masked reads touch is a height, a flag or zero.
 //   * Draws ahead.  No draw depends on the chain's state, and neither does
 //     the step's beta: lane r computes step t + r's site, height offset,
 //     uniform and (scaled) beta, and the walk takes them with __shfl_sync.
-//     A batch may run past the chain's last step; those draws are unused.
-//     A step's bin changes only at fixed steps, so the walk keeps the step
-//     at which the current bin ends and needs no division a step.
+//     The three divisions of a draw (the site's cell by N^2, its row by N,
+//     the height offset by N - 1) are multiply-highs by divisors the host
+//     computes once a launch (exact_div.cuh).  A step's bin changes only at
+//     fixed steps, so the walk keeps the step at which the current bin ends.
+//   * Every lane evaluates the step's expf.  Skipping it where it cannot
+//     change the outcome (dE <= 0 at a finite beta >= 0: u < 1 <= expf)
+//     was timed and lost 4-5%: a warp skips only when all its teams may,
+//     and the branch costs more than the expf it saves.
 //   * Boards in shared memory, one byte a cell (heights lie in [0, N) and
 //     N <= 127; the wrapper refuses heights outside [0, N)).  A CTA copies
 //     its chains' heights in at the start, coalesced over neighbouring
@@ -40,10 +64,10 @@
 //     the chains that improved in this launch.  An improvement copies the
 //     board shared to shared, a word a lane at a time.  With track_best off
 //     a slot holds no best board.  Rows are padded to an odd number of
-//     words and slots to an odd number of words, so that a team's column
-//     and diagonal reads and the teams of a warp fall in different banks.
-//     The SMEM = false instance walks the same code on the chains-minor
-//     device arrays, for N > 127 (layout chosen by the wrapper's rule,
+//     words and slots to an odd number of words, so that the teams of a
+//     warp fall in different banks.  The SMEM = false instance (N > 127)
+//     walks the chains-minor device arrays a cell at a time, as before the
+//     redesign (layout chosen by the wrapper's rule,
 //     kernels/board_shared.py:layout, not a fallback).
 //   * Every lane of a team stores the new height, so every lane reads its
 //     own stores and no barrier separates a step's store from the next
@@ -69,13 +93,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "exact_div.cuh"
+
 namespace {
+
+// The exact division by a launch's invariant divisors (exact_div.cuh).
+using mcq::Div;
+using mcq::make_div;
+using mcq::quot;
+using mcq::quot2;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxChainsPerCta = 128;
 constexpr int kMaxThreadsPerCta = 1024;
 constexpr int kMaxSharedN = 127;
 constexpr int kNever = 0x7FFFFFFF;
+// A byte replicated four times is b * kOnes; kHigh is each byte's bit 7.
+constexpr uint32_t kOnes = 0x01010101u;
+constexpr uint32_t kHigh = 0x80808080u;
+constexpr uint32_t kLow7 = 0x7F7F7F7Fu;
 
 // A board row's bytes in shared memory: N rounded up to an odd number of
 // words.  Mirrored by kernels/board_shared.py:row_pitch.
@@ -87,6 +123,15 @@ __host__ __device__ inline int row_pitch(int N) {
 // an odd number of words.  Mirrored by kernels/board_shared.py:slot_bytes.
 __host__ __device__ inline int slot_bytes(int N, int track_best) {
   return 4 * (((track_best ? 2 : 1) * N * row_pitch(N) / 4) | 1);
+}
+
+// Zeroed bytes before the first slot and after the last: a slot's masked
+// reads reach N - 1 bytes before it (the diagonal's cells left of the
+// board) and 3 * row_pitch(N) + 2N + 2 past its board (rows past N in a
+// ragged last word, diagonal cells right of the board).  Mirrored by
+// kernels/board_shared.py:guard_bytes.
+__host__ __device__ inline int guard_bytes(int N) {
+  return 4 * ((3 * row_pitch(N) + 2 * N + 6) / 4);
 }
 
 __device__ __forceinline__ uint32_t lowbias32(uint32_t z) {
@@ -107,6 +152,27 @@ __device__ __forceinline__ int line_score(int hp, int old_k, int new_k,
   return (dn == 0) - (dl == 0) + (dn * dn == d2) - (dl * dl == d2);
 }
 
+// Four cells h of one line, byte b of d their offsets along it, bit 7 of
+// byte b of on set where the cell counts.  Byte b of the result is [h_b is
+// on a line of the new height: |h_b - new| is 0 or d_b] + [h_b is on no
+// line of the old one], 0 to 2.  Every byte of h, n4, o4 and d is below
+// 0x80, so adding 0x7F to a byte never carries into the next and sets its
+// bit 7 exactly where the byte is not 0.
+__device__ __forceinline__ uint32_t score4(uint32_t h, uint32_t n4,
+                                           uint32_t o4, uint32_t d,
+                                           uint32_t on) {
+  const uint32_t an = __vabsdiffu4(h, n4), ao = __vabsdiffu4(h, o4);
+  const uint32_t hit_new = ~((an + kLow7) & ((an ^ d) + kLow7)) & on;
+  const uint32_t miss_old = (ao + kLow7) & ((ao ^ d) + kLow7) & on;
+  return (hit_new >> 7) + (miss_old >> 7);
+}
+
+// Bytes p[0], p[s], p[2s], p[3s] as one word, the first lowest.
+__device__ __forceinline__ uint32_t gather4(const uint8_t* p, int s) {
+  return (uint32_t)p[0] | (uint32_t)p[s] << 8 | (uint32_t)p[2 * s] << 16 |
+         (uint32_t)p[3 * s] << 24;
+}
+
 struct Args {
   int32_t *heights, *best_heights, *energy, *best_energy, *best_step,
       *no_improve, *stop_step, *accept_bins, *total_bins;
@@ -114,17 +180,25 @@ struct Args {
   const float *beta, *beta_scale;
   const int32_t* freeze;
   int step0, n_inner, N, C, c_blk, n_steps, n_bins, patience, track_best;
+  Div by_nn, by_n, by_nm1;  // N^2, N and N - 1
 };
 
 // One chain's board: bytes in a shared-memory slot (rows `pitch` apart) or
-// the chain's int32 column of a chains-minor (N*N, C) device array.
+// the chain's int32 column of a chains-minor (N*N, C) device array.  Each
+// scores a step's lines: lane r of a team of L returns its part of dE, and
+// the team's sum is dE.
 template <bool SMEM>
 struct Board;
 
 template <>
 struct Board<true> {
   uint8_t* p;
-  int pitch;
+  int pitch, N;
+  int words;      // ceil(N / 4): the words of a row that hold cells
+  uint32_t last;  // bit 7 of each byte of the last word that holds a cell
+  __device__ Board(uint8_t* p_, int N_)
+      : p(p_), pitch(row_pitch(N_)), N(N_), words((N_ + 3) / 4),
+        last(kHigh >> (8 * (4 * ((N_ + 3) / 4) - N_))) {}
   __device__ __forceinline__ int at(int i, int j) const {
     return p[i * pitch + j];
   }
@@ -132,11 +206,51 @@ struct Board<true> {
     p[i * pitch + j] = (uint8_t)v;
   }
   // Lane r of L copies words r, r + L, ... of the slot's board.
-  __device__ __forceinline__ void copy_to(const Board& dst, int N, int r,
+  __device__ __forceinline__ void copy_to(const Board& dst, int r,
                                           int L) const {
     const uint32_t* s = reinterpret_cast<const uint32_t*>(p);
     uint32_t* d = reinterpret_cast<uint32_t*>(dst.p);
     for (int w = r; w < N * pitch / 4; w += L) d[w] = s[w];
+  }
+  // dE less the lines' score4 counts: each line's cells count 0 to 2 where
+  // they should count -1 to 1, and the site itself, which every line
+  // counts as 0 (|old - new| is neither 0 nor its offset 0; |old - old| is
+  // 0), should not count.  The diagonal through (i, j) holds cells (x, j +
+  // x - i) for x in [max(i - j, 0), min(N + i - j, N)), the antidiagonal
+  // (x, j - x + i) for x in [max(i + j + 1 - N, 0), min(i + j + 1, N)).
+  __device__ __forceinline__ int bias(int i, int j) const {
+    const int on = 2 * N + min(N + i - j, N) - max(i - j, 0) +
+                   min(i + j + 1, N) - max(i + j + 1 - N, 0);
+    return 4 - on;
+  }
+  template <int L>
+  __device__ __forceinline__ int delta(int r, int i, int j, int old_k,
+                                       int new_k) const {
+    const uint32_t n4 = new_k * kOnes, o4 = old_k * kOnes;
+    const uint32_t i4 = i * kOnes, j4 = j * kOnes;
+    const uint32_t dlo = max(i - j, 0) * kOnes, dhi = min(N + i - j, N) * kOnes;
+    const uint32_t alo = max(i + j + 1 - N, 0) * kOnes,
+                   ahi = min(i + j + 1, N) * kOnes;
+    const uint8_t* const row = p + i * pitch;
+    int sum = r == 0 ? bias(i, j) : 0;
+    for (int w = r; w < words; w += L) {
+      const int x = 4 * w;
+      // Byte b: the cell's column along row i, its row along the others.
+      const uint32_t x4 = 0x03020100u + x * kOnes, x8 = x4 | kHigh;
+      const uint32_t on = w == words - 1 ? last : kHigh;
+      // Bit 7 of (x | 0x80) - lo is [x >= lo] (no borrow: lo <= 127).
+      const uint32_t on_d = (x8 - dlo) & ~(x8 - dhi) & on;
+      const uint32_t on_a = (x8 - alo) & ~(x8 - ahi) & on;
+      const uint32_t dr = __vabsdiffu4(x4, j4), dc = __vabsdiffu4(x4, i4);
+      const uint8_t* const c = p + x * pitch + j;
+      uint32_t n = score4(*reinterpret_cast<const uint32_t*>(row + x), n4, o4,
+                          dr, on);
+      n += score4(gather4(c, pitch), n4, o4, dc, on);
+      n += score4(gather4(c + x - i, pitch + 1), n4, o4, dc, on_d);
+      n += score4(gather4(c - x + i, pitch - 1), n4, o4, dc, on_a);
+      sum += (n * kOnes) >> 24;  // at most 32: no byte of the sum carries
+    }
+    return sum;
   }
 };
 
@@ -151,9 +265,29 @@ struct Board<false> {
   __device__ __forceinline__ void set(int i, int j, int v) const {
     p[(size_t)(i * N + j) * sC] = v;
   }
-  __device__ __forceinline__ void copy_to(const Board& dst, int, int r,
+  __device__ __forceinline__ void copy_to(const Board& dst, int r,
                                           int L) const {
     for (int x = r; x < N * N; x += L) dst.p[(size_t)x * sC] = p[(size_t)x * sC];
+  }
+  // Lane r scores the offsets x = r, r + L, ... of the four lines.
+  template <int L>
+  __device__ __forceinline__ int delta(int r, int i, int j, int old_k,
+                                       int new_k) const {
+    int de = 0;
+    for (int x = r; x < N; x += L) {
+      const int dj = x - j;  // offset along row i
+      const int d = x - i;   // offset along column j and both diagonals
+      if (dj != 0) de += line_score(at(i, x), old_k, new_k, dj * dj);
+      if (d != 0) {
+        const int d2 = d * d;
+        de += line_score(at(x, j), old_k, new_k, d2);
+        const int jd = j + d;
+        if (jd >= 0 && jd < N) de += line_score(at(x, jd), old_k, new_k, d2);
+        const int ja = j - d;
+        if (ja >= 0 && ja < N) de += line_score(at(x, ja), old_k, new_k, d2);
+      }
+    }
+    return de;
   }
 };
 
@@ -174,7 +308,7 @@ __device__ __forceinline__ T from_lane(T v, int lane) {
 template <int L, bool SMEM>
 __device__ __forceinline__ bool walk(const Args& a, int c, bool exists,
                                      int r, Board<SMEM> h, Board<SMEM> bh) {
-  const int N = a.N, NN = N * N;
+  const int N = a.N;
   const size_t sC = (size_t)a.C;
   const int team_lane0 = (threadIdx.x & 31) - r;
   int e = 0, be = 0, bs = 0, ni = 0, st = 0, t_end = 0;
@@ -207,20 +341,25 @@ __device__ __forceinline__ bool walk(const Args& a, int c, bool exists,
 
   for (int tb = 0; tb < T; tb += L) {
     if (!__any_sync(kFull, tb < t_end && st >= a.n_steps)) break;
-    // Draws of step tb + r.
+    // Draws of step tb + r: the site (i, j) and the height offset kr, each
+    // below 2^16 (SMEM: below 2^8, packed into one word).
     const int tl = tb + r;
     int dij = 0, dkr = 0;
     float du = 0.0f, dbeta = 0.0f;
     if (tl < T) {
       const uint32_t gs = (uint32_t)(a.step0 + tl);
       const uint32_t hv = lowbias32(gs ^ site_base) & 0x7FFFFFFFu;
-      const int cell = (int)(hv % (uint32_t)NN);
-      const int i = cell / N;
-      dij = i | ((cell - i * N) << 16);
+      const uint32_t cell = hv - quot2(hv, a.by_nn) * (uint32_t)(N * N);
+      const uint32_t i = quot2(cell, a.by_n);
       const uint32_t base = lowbias32(g ^ (gs * 0x9E3779B9u));
       const uint32_t w0 = lowbias32(base ^ 0x68BC21EBu) & 0x7FFFFFFFu;
       const uint32_t w1 = lowbias32(base + 0x02E5BE93u);
-      dkr = (int)(w0 % (uint32_t)(N - 1));
+      dkr = (int)(w0 - quot(w0, a.by_nm1) * (uint32_t)(N - 1));
+      if (SMEM) {
+        dij = (int)(i | (cell - i * N) << 8) | dkr << 16;
+      } else {
+        dij = (int)(i | (cell - i * N) << 16);
+      }
       du = (float)((w1 >> 7) & 0xFFFFFFu) * (1.0f / 16777216.0f);
       dbeta = a.beta[tl];
       if (a.beta_scale) dbeta = dbeta * scale;
@@ -229,10 +368,18 @@ __device__ __forceinline__ bool walk(const Args& a, int c, bool exists,
     for (int q = 0; q < n; ++q) {
       const int t = tb + q, gstep = a.step0 + t;
       const int ij = from_lane<L>(dij, team_lane0 + q);
-      const int kr = from_lane<L>(dkr, team_lane0 + q);
       const float u = from_lane<L>(du, team_lane0 + q);
       const float bt = from_lane<L>(dbeta, team_lane0 + q);
-      const int i = ij & 0xFFFF, j = ij >> 16;
+      int i, j, kr;
+      if (SMEM) {
+        i = ij & 0xFF;
+        j = (ij >> 8) & 0xFF;
+        kr = ij >> 16;
+      } else {
+        i = ij & 0xFFFF;
+        j = ij >> 16;
+        kr = from_lane<L>(dkr, team_lane0 + q);
+      }
       if (gstep >= bin_end) {
         // gstep < n_steps here and n_steps * n_bins < 2^31 (ChainSpec
         // guard); bin b ends at the first step s with s * n_bins >= (b + 1)
@@ -254,21 +401,7 @@ __device__ __forceinline__ bool walk(const Args& a, int c, bool exists,
       // (old_k + 1 + kr) % N with 0 <= old_k < N and 0 <= kr <= N - 2
       int new_k = old_k + 1 + kr;
       if (new_k >= N) new_k -= N;
-      int de = 0;
-      for (int x = r; x < N; x += L) {
-        const int dj = x - j;  // offset along row i
-        const int d = x - i;   // offset along column j and both diagonals
-        if (dj != 0) de += line_score(h.at(i, x), old_k, new_k, dj * dj);
-        if (d != 0) {
-          const int d2 = d * d;
-          de += line_score(h.at(x, j), old_k, new_k, d2);
-          const int jd = j + d;
-          if (jd >= 0 && jd < N) de += line_score(h.at(x, jd), old_k, new_k, d2);
-          const int ja = j - d;
-          if (ja >= 0 && ja < N) de += line_score(h.at(x, ja), old_k, new_k, d2);
-        }
-      }
-      de = team_sum<L>(de);
+      const int de = team_sum<L>(h.template delta<L>(r, i, j, old_k, new_k));
       const bool accept = live && u < expf(-bt * (float)de);
       if (accept) {
         h.set(i, j, new_k);
@@ -280,7 +413,7 @@ __device__ __forceinline__ bool walk(const Args& a, int c, bool exists,
           bs = gstep + 1;
           ni = 0;
           improved = true;
-          if (a.track_best) h.copy_to(bh, N, r, L);
+          if (a.track_best) h.copy_to(bh, r, L);
         } else {
           ni += 1;
         }
@@ -306,7 +439,8 @@ __device__ __forceinline__ bool walk(const Args& a, int c, bool exists,
 
 // Launched with cpb * L threads a CTA, chains [blockIdx.x * cpb, + cpb).
 // SMEM: dynamic shared memory of 4 * cpb bytes of flags (a chain improved
-// in this launch) and cpb slots of slot_bytes(N, track_best).
+// in this launch), a guard, cpb slots of slot_bytes(N, track_best) and a
+// guard of guard_bytes(N) each, all zeroed first.
 template <int L, bool SMEM>
 __global__ void __launch_bounds__(kMaxThreadsPerCta, 1)
     board_shared_kernel(Args a, int cpb) {
@@ -324,9 +458,14 @@ __global__ void __launch_bounds__(kMaxThreadsPerCta, 1)
     return;
   }
   const int N = a.N, NN = N * N, pitch = row_pitch(N);
-  const int S = slot_bytes(N, a.track_best);
+  const int S = slot_bytes(N, a.track_best), G = guard_bytes(N);
   int* const flags = smem;
-  uint8_t* const slots = reinterpret_cast<uint8_t*>(smem + cpb);
+  uint8_t* const slots = reinterpret_cast<uint8_t*>(smem + cpb) + G;
+  for (int w = threadIdx.x; w < cpb + (cpb * S + 2 * G) / 4;
+       w += blockDim.x) {
+    smem[w] = 0;
+  }
+  __syncthreads();
   // Neighbouring threads take neighbouring chains: a warp reads one cell of
   // 32 chains, contiguous in the device array.
   for (int idx = threadIdx.x; idx < NN * cpb; idx += blockDim.x) {
@@ -339,8 +478,8 @@ __global__ void __launch_bounds__(kMaxThreadsPerCta, 1)
   }
   __syncthreads();
   uint8_t* const slot = slots + (size_t)team * S;
-  const Board<true> h = {slot, pitch};
-  const Board<true> bh = {slot + N * pitch, pitch};
+  const Board<true> h(slot, N);
+  const Board<true> bh(slot + N * pitch, N);
   const bool improved = walk<L, true>(a, c, exists, r, h, bh);
   if (r == 0) flags[team] = improved;
   __syncthreads();
@@ -398,10 +537,10 @@ int launch_lanes(const Args& a, int lanes, int cpb, int smem,
 // untouched.  The layout (kernels/board_shared.py:layout): `lanes` (1, 2, 4
 // or 8) lanes a chain, `chains_per_cta` (a power of two, at most 128, with
 // lanes * chains_per_cta a multiple of 32 and at most 1024) chains a CTA,
-// and smem_bytes the CTA's shared memory: 4 * chains_per_cta * (1 +
-// slot_bytes(N, track_best) / 4) to keep the boards there (N <= 127), or 0
-// to walk them in device memory.  Anything else returns
-// cudaErrorInvalidValue.
+// and smem_bytes the CTA's shared memory: 4 * chains_per_cta +
+// chains_per_cta * slot_bytes(N, track_best) + 2 * guard_bytes(N) to keep
+// the boards there (N <= 127), or 0 to walk them in device memory.
+// Anything else returns cudaErrorInvalidValue.
 extern "C" int mcq_board_shared_segment(
     void* heights, void* best_heights, void* energy, void* best_energy,
     void* best_step, void* no_improve, void* stop_step, void* accept_bins,
@@ -410,15 +549,6 @@ extern "C" int mcq_board_shared_segment(
     int n_inner, int N, int C, int c_blk, int n_steps, int n_bins,
     int patience, int track_best, int lanes, int chains_per_cta,
     int smem_bytes, void* stream) {
-  const Args a = {(int32_t*)heights,       (int32_t*)best_heights,
-                  (int32_t*)energy,        (int32_t*)best_energy,
-                  (int32_t*)best_step,     (int32_t*)no_improve,
-                  (int32_t*)stop_step,     (int32_t*)accept_bins,
-                  (int32_t*)total_bins,    (const int32_t*)chain_seeds,
-                  (const int32_t*)block_seeds, (const float*)beta,
-                  (const float*)beta_scale, (const int32_t*)freeze,
-                  step0, n_inner, N, C, c_blk, n_steps, n_bins, patience,
-                  track_best};
   const int cpb = chains_per_cta;
   const bool lanes_ok = lanes == 1 || lanes == 2 || lanes == 4 || lanes == 8;
   const bool cpb_ok = cpb >= 1 && cpb <= kMaxChainsPerCta &&
@@ -427,10 +557,21 @@ extern "C" int mcq_board_shared_segment(
   const bool smem_ok =
       smem_bytes == 0 ||
       (N <= kMaxSharedN &&
-       smem_bytes == 4 * cpb + cpb * slot_bytes(N, track_best));
-  if (!lanes_ok || !cpb_ok || !smem_ok || C < 1 || c_blk < 1) {
+       smem_bytes == 4 * cpb + cpb * slot_bytes(N, track_best) +
+                         2 * guard_bytes(N));
+  if (!lanes_ok || !cpb_ok || !smem_ok || C < 1 || c_blk < 1 || N < 2) {
     return (int)cudaErrorInvalidValue;
   }
+  const Args a = {(int32_t*)heights,       (int32_t*)best_heights,
+                  (int32_t*)energy,        (int32_t*)best_energy,
+                  (int32_t*)best_step,     (int32_t*)no_improve,
+                  (int32_t*)stop_step,     (int32_t*)accept_bins,
+                  (int32_t*)total_bins,    (const int32_t*)chain_seeds,
+                  (const int32_t*)block_seeds, (const float*)beta,
+                  (const float*)beta_scale, (const int32_t*)freeze,
+                  step0, n_inner, N, C, c_blk, n_steps, n_bins, patience,
+                  track_best, make_div((uint32_t)(N * N)),
+                  make_div((uint32_t)N), make_div((uint32_t)(N - 1))};
   const cudaStream_t s = (cudaStream_t)stream;
   return smem_bytes ? launch_lanes<true>(a, lanes, cpb, smem_bytes, s)
                     : launch_lanes<false>(a, lanes, cpb, 0, s);

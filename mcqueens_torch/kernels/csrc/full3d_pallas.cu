@@ -96,7 +96,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "exact_div.cuh"
+
 namespace {
+
+// The exact division by a launch's invariant divisors (exact_div.cuh).
+using mcq::Div;
+using mcq::make_div;
+using mcq::quot;
+using mcq::quot2;
 
 constexpr unsigned kFull = 0xffffffffu;
 // __launch_bounds__(256, 2) lets ptxas use up to 128 registers a thread: the
@@ -121,33 +129,6 @@ constexpr int kNever = 0x7FFFFFFF;
 __host__ __device__ inline int slot_words(int Q, int N, int L) {
   const int s = 2 * Q + (N * N * N + 31) / 32;
   return L < 32 ? s + ((L - s % (2 * L)) % (2 * L) + 2 * L) % (2 * L) : s;
-}
-
-// floor(n / d) for 0 <= n < 2^31 as a multiply-high: with l = ceil(log2 d)
-// and m = ceil(2^(31 + l) / d) < 2^32, n * m / 2^(31 + l) exceeds n / d by
-// less than 1 / d, so its floor is the quotient (Granlund and Montgomery,
-// with the dividend's spare top bit); d = 1 passes n through.
-struct Div {
-  uint32_t m;
-  int shift;
-  uint32_t d;
-};
-
-inline Div make_div(uint32_t d) {
-  int l = 0;
-  while ((1ull << l) < d) ++l;
-  if (l == 0) return {0u, 0, 1u};
-  const uint64_t m = ((1ull << (31 + l)) + d - 1) / d;
-  return {(uint32_t)m, l - 1, d};
-}
-
-__device__ __forceinline__ uint32_t quot(uint32_t n, const Div& q) {
-  return q.d == 1 ? n : __umulhi(n, q.m) >> q.shift;
-}
-
-// quot for a divisor of at least 2 (N, N^2 and N^3 are).
-__device__ __forceinline__ uint32_t quot2(uint32_t n, const Div& q) {
-  return __umulhi(n, q.m) >> q.shift;
 }
 
 __device__ __forceinline__ uint32_t lowbias32(uint32_t z) {

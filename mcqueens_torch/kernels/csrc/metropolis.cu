@@ -82,7 +82,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "exact_div.cuh"
+
 namespace {
+
+// The exact division by a launch's invariant divisors (exact_div.cuh).
+using mcq::Div;
+using mcq::make_div;
+using mcq::quot;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxThreadsPerCta = 1024;
@@ -104,28 +111,6 @@ __host__ __device__ inline int board_bytes(int N) {
 // words.  Mirrored by kernels/metropolis_pallas.py:slot_bytes.
 __host__ __device__ inline int slot_bytes(int N) {
   return 16 * ((2 * board_bytes(N) / 16) | 1);
-}
-
-// floor(n / d) for 0 <= n < 2^31 as a multiply-high: with l = ceil(log2 d)
-// and m = ceil(2^(31 + l) / d) < 2^32, n * m / 2^(31 + l) exceeds n / d by
-// less than 1 / d, so its floor is the quotient (Granlund and Montgomery,
-// with the dividend's spare top bit); d = 1 passes n through.
-struct Div {
-  uint32_t m;
-  int shift;
-  uint32_t d;
-};
-
-inline Div make_div(uint32_t d) {
-  int l = 0;
-  while ((1ull << l) < d) ++l;
-  if (l == 0) return {0u, 0, 1u};
-  const uint64_t m = ((1ull << (31 + l)) + d - 1) / d;
-  return {(uint32_t)m, l - 1, d};
-}
-
-__device__ __forceinline__ uint32_t quot(uint32_t n, const Div& q) {
-  return q.d == 1 ? n : __umulhi(n, q.m) >> q.shift;
 }
 
 __device__ __forceinline__ uint32_t lowbias32(uint32_t z) {

@@ -1,5 +1,5 @@
-// Host emulation of the CUDA runtime and warp intrinsics that the warp
-// kernels use (board_scan.cu, full3d_scan.cu, board_shared.cu,
+// Host emulation of the CUDA runtime, warp intrinsics and integer
+// intrinsics that the warp kernels use (board_scan.cu, full3d_scan.cu, board_shared.cu,
 // full3d_shared.cu, metropolis.cu, full3d_pallas.cu) and the gather and
 // slice probes (probe_gather.cu, probe_slice.cu), so that a kernel's
 // logic can be run and checked on a machine without a GPU or nvcc.  Built
@@ -139,6 +139,16 @@ inline float __uint_as_float(uint32_t u) {
 }
 
 inline float __int_as_float(int i) { return __uint_as_float((uint32_t)i); }
+
+// Byte i of the result is |byte i of a - byte i of b|, the bytes unsigned.
+inline unsigned __vabsdiffu4(unsigned a, unsigned b) {
+  unsigned out = 0;
+  for (int i = 0; i < 32; i += 8) {
+    const int x = (int)((a >> i) & 0xFF), y = (int)((b >> i) & 0xFF);
+    out |= (unsigned)(x > y ? x - y : y - x) << i;
+  }
+  return out;
+}
 
 // Byte i of the result is byte (s >> 4i) & 7 of the eight bytes of y:x.
 inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {

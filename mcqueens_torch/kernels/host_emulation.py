@@ -32,7 +32,10 @@ with its plain C++ beside it).  ``tests/test_torch_scan_emulation.py``,
 ``tests/test_torch_metropolis_emulation.py``,
 ``tests/test_torch_full3d_pallas_emulation.py`` and
 ``tests/test_torch_probes_emulation.py`` hold the emulated kernels bitwise
-against their plain-torch twins.
+against their plain-torch twins.  ``emu/checks.cpp`` adds elementwise entry
+points of the header's integer intrinsics and a whole-range check of the
+exact divider (``csrc/exact_div.cuh``), which
+``tests/test_torch_shared_emulation.py`` holds to plain models.
 """
 
 from __future__ import annotations
@@ -52,6 +55,9 @@ SOURCES = tuple(_build._PKG / "csrc" / f"{name}.cu"
                 for name in ("board_scan", "full3d_scan", "board_shared",
                              "full3d_shared", "metropolis", "full3d_pallas",
                              "probe_gather", "probe_slice"))
+# Built beside them as it is: entry points of the integer intrinsics and of
+# the exact divider, for the tests only.
+CHECKS = EMU_DIR / "checks.cpp"
 BUILD_DIR = _build.BUILD_DIR / "host"
 CXX_FLAGS = ("-std=c++20", "-O1", "-pthread", "-fPIC", "-shared",
              "-ffp-contract=off", "-w")
@@ -78,7 +84,8 @@ def translate(text: str) -> str:
 
 def library_path():
     key = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    for src in (*SOURCES, *_build.HEADERS, EMU_DIR / "cuda_runtime.h"):
+    for src in (*SOURCES, *_build.HEADERS, EMU_DIR / "cuda_runtime.h",
+                CHECKS):
         key.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"mcqueens_host_{key.hexdigest()[:16]}.so"
 
@@ -103,7 +110,8 @@ def build():
     tmp = BUILD_DIR / f"{tag}.so.tmp"
     proc = subprocess.run(
         [cxx, *CXX_FLAGS, f"-I{EMU_DIR}", f"-I{_build._PKG / 'csrc'}",
-         "-o", str(tmp), *map(str, cpps)], capture_output=True, text=True)
+         "-o", str(tmp), *map(str, cpps), str(CHECKS)], capture_output=True,
+        text=True)
     for cpp in cpps:
         cpp.unlink()
     if proc.returncode != 0:

@@ -109,8 +109,18 @@ public functions that both sides have are called.  Phases:
     ``probe_slice`` ``--quick`` as wall time, with the roofline's int32 add
     rate and the slice tool's reduce and draw costs.
 
-``--only full3d`` runs the full-3D shared kernel's items alone, ``--only
-metropolis`` the per-chain board kernel's, ``--only full3d_pallas`` the
+``--only board_shared`` (never run by default) times the shared-site
+board kernel alone, each launch on a fresh state behind a spin kernel,
+three times after one untimed launch: the main-path, tempered and freeze
+chunks above, the bench chunk at 32768 and 4096 chains, the anneal cell's
+launch (N=16, 1024 steps of linear 1->5 over 2^20) after 1 and 900
+chunks at 32768 chains and after 1 at 4096, and the same launch at N=14
+and N=32 (4096 chains): ms; the 4096-chain launch at each team size the
+rule may give; the anneal cell's 1024 launches back to back from step 0 at
+32768 chains (the betas made beforehand): ms, with the launches counted
+and the mean best energy; and each instance's SASS loop mix by pipe and
+registers.  ``--only full3d`` runs the full-3D shared kernel's items
+alone, ``--only metropolis`` the per-chain board kernel's, ``--only full3d_pallas`` the
 per-chain full-3D kernel's.  ``--only full3d_pallas_variants`` (never run
 by default) builds the variants of ``csrc/full3d_pallas.cu`` in
 :data:`F3P_VARIANTS` beside the committed source, each into a library of
@@ -251,6 +261,185 @@ def full3d_phases():
     torch.cuda.synchronize()
     out["qmax_search_s"] = time.perf_counter() - t0
     out["qmax_best_energy"] = int(np.min(res.best_energy))
+    return out
+
+
+def board_shared_sass(so):
+    """``{instance: {loop: {pipe: instructions}}}`` of each instance of
+    ``board_shared_kernel<L, SMEM>`` in the library ``so``
+    (``cuobjdump -sass``): its largest innermost loop (``inner``, the cells
+    of one offset or one word of a row) and the smallest loop around it
+    (``step``, one step of the walk, counting ``inner`` once); pipes as
+    ``chip_smoke.pipe_mix`` puts them (IMAD and float arithmetic FMA,
+    shared memory and shuffles MIO, branches, barriers, loads, stores and
+    the uniform datapath apart, the rest ALU)."""
+    import collections
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    text = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(so)],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            m = re.search(r"19board_shared_kernelILi(\d+)ELb([01])E", line)
+            cur = (f"L={m.group(1)} {'shared' if m.group(2) == '1' else 'device'}"
+                   if m else None)
+            if cur:
+                funcs[cur] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if m and cur:
+            funcs[cur].append((int(m.group(1), 16), m.group(2), m.group(3)))
+
+    def mix(ins, lo, hi):
+        pipes = collections.Counter()
+        for a, op, _ in ins:
+            if lo <= a <= hi:
+                pipes["FMA" if op.startswith(("IMAD", "FFMA", "FADD", "FMUL"))
+                      else "MIO" if op.startswith(("LDS", "STS", "SHFL"))
+                      else "other" if op.startswith((
+                          "BRA", "EXIT", "NOP", "BSSY", "BSYNC", "BAR",
+                          "WARPSYNC", "LD", "ST", "S2R", "CS2R", "U"))
+                      else "ALU"] += 1
+        return dict(sorted(pipes.items()))
+
+    out = {}
+    for key, ins in sorted(funcs.items()):
+        loops = []
+        for addr, op, rest in ins:
+            t = re.search(r"0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and t and int(t.group(1), 16) <= addr:
+                loops.append((int(t.group(1), 16), addr))
+        inner = max((lp for lp in loops if not any(
+            o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)),
+            key=lambda lp: lp[1] - lp[0])
+        lo, hi = min((lp for lp in loops if lp[0] <= inner[0]
+                      and inner[1] <= lp[1] and lp != inner),
+                     key=lambda lp: lp[1] - lp[0], default=inner)
+        out[key] = {"inner": mix(ins, *inner), "step": mix(ins, lo, hi),
+                    "opcodes": dict(collections.Counter(
+                        op.split(".")[0] for a, op, _ in ins
+                        if lo <= a <= hi).most_common())}
+    return out
+
+
+def board_shared_phases():
+    """The shared-site board kernel's phases (module docstring)."""
+    import numpy as np
+    import torch
+
+    from mcqueens_torch.chain.spec import ChainSpec
+    from mcqueens_torch.core.schedules import build_schedule, chunk_betas
+    from mcqueens_torch.kernels import _build
+    from mcqueens_torch.kernels import board_shared as bs
+    from mcqueens_torch.search.tempering import geometric_ladder
+
+    def spec_of(N, n_steps, stride, b0, b1, sched="linear_annealing"):
+        kw = (dict(beta_start=b0, beta_end=b1) if sched == "linear_annealing"
+              else dict(beta_const=b0))
+        return ChainSpec(N=N, n_steps=n_steps, history_stride=stride,
+                         kernel="pallas_shared",
+                         schedule=build_schedule(sched, n_steps, **kw))
+
+    def events_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(5_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    main = spec_of(16, 50000, 48, 1.0, 3.0)
+    flat = spec_of(16, 50000, 48, 1.0, None, "constant")
+    bench = spec_of(16, 2 ** 24, 32768, 1.0, 5.0)
+    cell = spec_of(16, 2 ** 20, 1024, 1.0, 5.0)
+    ladder = geometric_ladder(1.0, 3.0, 16)
+    # name -> (spec, chains, chunks run before the timed one, seed0, mode)
+    launches = {
+        "main_path_C32768": (main, 32768, 0, 42, "main"),
+        "tempered_C32768": (flat, 32768, 0, 42, "tempered"),
+        "freeze_C32768": (main, 32768, 10, 42, "freeze"),
+        "bench_chunk_C32768": (bench, 32768, 1, 0, "main"),
+        "bench_chunk_C4096": (bench, 4096, 1, 0, "main"),
+        "anneal_launch_C32768_chunk1": (cell, 32768, 1, 7, "main"),
+        "anneal_launch_C32768_chunk900": (cell, 32768, 900, 7, "main"),
+        "anneal_launch_C4096_chunk1": (cell, 4096, 1, 7, "main"),
+        "N14_C4096_chunk1": (spec_of(14, 2 ** 20, 1024, 1.0, 5.0), 4096, 1,
+                             7, "main"),
+        "N32_C4096_chunk1": (spec_of(32, 2 ** 20, 1024, 1.0, 5.0), 4096, 1,
+                             7, "main"),
+    }
+
+    def launch_ms(spec, chains, chunks, seed0, mode, reps, forced=None):
+        carry = bs.init_carry_batch(seed0 + np.arange(chains, dtype=np.uint32),
+                                    spec, device="cuda")
+        if chunks:
+            carry, _ = bs.run_segment(carry, 0, spec, chunks)
+        step0, n = chunks * spec.history_stride, spec.history_stride
+        beta = chunk_betas(spec.schedule, step0, n, "cuda")
+        C = carry.energy.shape[0]
+        args, kw = (), {}
+        if mode == "tempered":
+            args = (torch.from_numpy(np.tile(ladder, -(-C // 16))[:C]
+                                     .copy()).cuda(),)
+        if mode == "freeze":
+            kw = dict(freeze=torch.as_tensor(np.random.default_rng(7).integers(
+                step0, step0 + n, C), dtype=torch.int32, device="cuda"),
+                track_best=False)
+        if forced is not None:
+            kw["forced"] = forced
+        times = []
+        for rep in range(reps + 1):  # the first loads the kernel: not kept
+            st = bs.segment_state(carry)
+            ms = events_ms(lambda: bs.segment_cuda(st, step0, n, spec, beta,
+                                                   *args, **kw))
+            if rep:
+                times.append(ms)
+        return times
+
+    out = {"board_shared_launch_ms": {
+        key: launch_ms(*args, reps=3) for key, args in launches.items()}}
+    out["board_shared_layouts"] = {
+        key: str(bs.layout(spec.N, chains, n_sm, mode != "freeze"))
+        for key, (spec, chains, _, _, mode) in launches.items()}
+    # The team sizes the rule may give, forced at 4096 chains (N=16).
+    out["board_shared_C4096_by_lanes_ms"] = {}
+    for lanes in (2, 4, 8):
+        cpb = 32 * 8 // lanes if lanes < 8 else 32
+        forced = bs.Layout(lanes, cpb, bs.cta_smem_bytes(16, cpb, True))
+        out["board_shared_C4096_by_lanes_ms"][f"L={lanes} cpb={cpb}"] = (
+            launch_ms(cell, 4096, 1, 7, "main", reps=1, forced=forced))
+    # The anneal cell's search on the card alone: 1024 launches of 1024
+    # steps at 32768 chains from step 0, the betas made beforehand.
+    carry = bs.init_carry_batch(7 + np.arange(32768, dtype=np.uint32), cell,
+                                device="cuda")
+    st = bs.segment_state(carry)
+    betas = [chunk_betas(cell.schedule, o * 1024, 1024, "cuda")
+             for o in range(cell.n_outer)]
+    launches0, packed0 = bs.KERNEL_LAUNCHES, getattr(bs, "PACKED_LAUNCHES", 0)
+
+    def search():
+        for o, beta in enumerate(betas):
+            bs.segment_cuda(st, o * 1024, 1024, cell, beta)
+
+    out["board_shared_anneal_search_kernels_ms"] = events_ms(search)
+    out["board_shared_anneal_search_launches"] = [
+        bs.KERNEL_LAUNCHES - launches0,
+        getattr(bs, "PACKED_LAUNCHES", 0) - packed0]
+    out["board_shared_anneal_search_mean_best"] = float(
+        st.best_energy.float().mean())
+    out["board_shared_sass"] = board_shared_sass(_build.library_path())
+    if _build.library_path().with_suffix(".log").exists():
+        out["board_shared_registers"] = {
+            entry: use for entry, use in _build.ptxas_usage().items()
+            if "board_shared_kernel" in entry}
     return out
 
 
@@ -1296,7 +1485,8 @@ def main(argv=None):
                     help="root of the checkout whose port is timed")
     ap.add_argument("--label", default=None)
     ap.add_argument("--json", default=None, help="also write the line here")
-    ap.add_argument("--only", choices=["full3d", "metropolis",
+    ap.add_argument("--only", choices=["board_shared", "full3d",
+                                       "metropolis",
                                        "full3d_pallas",
                                        "full3d_pallas_variants", "probes",
                                        "vpu_variants", "prng_variants",
@@ -1581,6 +1771,8 @@ def main(argv=None):
             out["slice_copy_ms"][mode] = {
                 "kernel": events_ms(kernel, 10, spin=True),
                 name: events_ms(library, 10, spin=True)}
+    if args.only == "board_shared":
+        out.update(board_shared_phases())
     if args.only in (None, "full3d"):
         out.update(full3d_phases())
     if args.only in (None, "metropolis"):

@@ -14,6 +14,7 @@ Skips only when g++ is absent.  No JAX: the twin is held to the JAX kernel
 by ``tests/test_torch_board_shared.py``.
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -209,3 +210,80 @@ def test_warm_start_bitwise(lib):
     for mode in MODES:
         _emulated_equals_twin(lib, spec, carry, 2, mode)
 
+
+# -- the packed walk's intrinsics, divider and edges -------------------------
+
+
+def _words(seed):
+    """Random words and words of edge bytes (0x00, 0x01, 0x7F, 0x80, 0xFF
+    in every position)."""
+    edge = np.array([0x00, 0x01, 0x7F, 0x80, 0xFF], np.uint64)
+    b = np.stack(np.meshgrid(edge, edge, edge, edge), -1).reshape(-1, 4)
+    grid = (b << np.array([0, 8, 16, 24], np.uint64)).sum(1).astype(np.uint32)
+    rs = np.random.default_rng(seed)
+    rand = rs.integers(0, 2 ** 32, 4096, dtype=np.uint64).astype(np.uint32)
+    a = np.concatenate([np.repeat(grid, grid.size), rand])
+    c = np.concatenate([np.tile(grid, grid.size), rs.permutation(rand)])
+    return a, c
+
+
+def _vabsdiffu4(a, b):
+    out = 0
+    for k in range(0, 32, 8):
+        out |= abs((a >> k & 0xFF) - (b >> k & 0xFF)) << k
+    return out
+
+
+@pytest.mark.parametrize("op, model", [
+    (0, _vabsdiffu4), (1, lambda a, b: a * b >> 32)],
+    ids=["vabsdiffu4", "umulhi"])
+def test_intrinsic_matches_bytewise_model(lib, op, model):
+    """The emulation header's integer intrinsics the packed walk uses
+    (``__vabsdiffu4``: each byte's unsigned |a - b|; ``__umulhi``: the high
+    word of the 64-bit product) against a plain-Python model, over every
+    pair of words of edge bytes and random words."""
+    a, b = _words(op)
+    out = np.empty_like(a)
+    p = lambda x: x.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
+    lib.mcq_emu_intrinsic.restype = ctypes.c_int
+    assert lib.mcq_emu_intrinsic(ctypes.c_int(op), p(a), p(b), p(out),
+                                 ctypes.c_int64(a.size)) == 0
+    want = [model(int(x), int(y)) for x, y in zip(a, b)]
+    assert out.tolist() == want
+
+
+@pytest.mark.parametrize("N", [2, 5, 9, 11, 12, 14, 16, 24, 32, 127, 128])
+def test_exact_division_whole_range(lib, N):
+    """The divisors of the kernels' draws (N^3, N^2, N and N - 1) at every
+    N of the parity cases: the multiply-high quotient equals n // d for
+    every n in [0, 2^31) (by residue class, ``emu/checks.cpp``)."""
+    lib.mcq_emu_quot_mismatches.restype = ctypes.c_int64
+    lib.mcq_emu_quot_mismatches.argtypes = [ctypes.c_uint32]
+    for d in (N ** 3, N * N, N, N - 1):
+        assert lib.mcq_emu_quot_mismatches(d) == 0, d
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+@pytest.mark.parametrize("N", [5, 14, 24, 32])
+def test_packed_edges(lib, N, lanes, mode):
+    """Ragged last words (N=5: two words, one cell in the second; N=14),
+    more words than lanes and one lane a chain (N=24, 32), each team size
+    forced, with patience 9 so that chains stop inside a batch of draws:
+    64 chains, two 24-step chunks from step 0."""
+    spec = _spec(N, 2000, 24, early_stop_patience=9)
+    cpb = max(32 // lanes, 16)
+    forced = board_shared.Layout(lanes, cpb, board_shared.cta_smem_bytes(
+        N, cpb, mode != "freeze"))
+    end, _ = _emulated_equals_twin(lib, spec, _carry(spec, 64, seed0=N), 2,
+                                   mode, forced)
+    assert int((end.stop_step < spec.n_steps).sum()) > 0
+
+
+def test_packed_by_rule_n24_n32(lib):
+    """N=24 and N=32 at 512 chains, laid out by the rule (for ``N_SM``
+    SMs), in all three modes."""
+    for N in (24, 32):
+        spec = _spec(N, 2000, 16)
+        for mode in MODES:
+            _emulated_equals_twin(lib, spec, _carry(spec, 512), 1, mode)
