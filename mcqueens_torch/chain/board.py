@@ -24,15 +24,16 @@ both updating it in place and writing the ``(n_outer, C)`` energy rows:
   * :func:`segment_reference` is its plain-torch twin (vectorised over
     chains, a Python loop over steps).
 
-:func:`segment_call` takes the twin only for CPU tensors and the kernel only
-for CUDA tensors.  The betas of the segment's steps are evaluated once by
-:func:`~mcqueens_torch.core.schedules.chunk_betas` and read by either.
+:mod:`mcqueens_torch.kernels.segment` chooses one by the state's device
+and hands it the segment's betas.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import sys
 from typing import Optional
 
 import torch
@@ -42,14 +43,13 @@ from mcqueens_torch.core import energy as energy_mod
 from mcqueens_torch.core import init as init_mod
 from mcqueens_torch.core import rng
 from mcqueens_torch.core import tables as tables_mod
-from mcqueens_torch.core.schedules import chunk_betas
-from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.kernels import _build, segment
 from mcqueens_torch.utils import profiling
 
-# Launches of the CUDA kernel in this process (read and reset by callers
-# that check the main path really ran on the card).
+# Launches of the CUDA kernel in this process (segment.launch counts them;
+# read and reset by callers that check the main path ran on the card).
 KERNEL_LAUNCHES = 0
+_SAMPLER = sys.modules[__name__]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,20 +286,8 @@ def check_steps(start_outer: int, n_outer: int, stride: int) -> None:
                          f"{stride} steps overflow int32")
 
 
-def segment_cuda(st: SegmentState, ys: torch.Tensor, start_outer: int,
-                 n_outer: int, spec: ChainSpec, beta: torch.Tensor) -> None:
-    """The segment with the CUDA kernel (asynchronous on the current
-    stream; one launch, counted)."""
-    global KERNEL_LAUNCHES
-    dev = st.heights.device
-    if dev.type != "cuda":
-        raise ValueError(f"segment_cuda: state on {dev}, not a CUDA device")
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        launch_segment(_build.load_library(), st, ys, start_outer, n_outer,
-                       spec, beta, n_sm, stream)
-    KERNEL_LAUNCHES += 1
+# One launch of the CUDA kernel, counted (segment.launch).
+segment_cuda = functools.partial(segment.launch, _SAMPLER)
 
 
 def launch_segment(lib, st: SegmentState, ys: torch.Tensor,
@@ -348,23 +336,6 @@ def launch_segment(lib, st: SegmentState, ys: torch.Tensor,
                            f"(cudaError {err})")
 
 
-def segment_call(st: SegmentState, start_outer: int, n_outer: int,
-                 spec: ChainSpec) -> torch.Tensor:
-    """One segment: the twin for CPU state, the CUDA kernel for CUDA state,
-    an error for anything else; returns the ``(n_outer, C)`` energy rows."""
-    dev = st.heights.device
-    stride = spec.history_stride
-    with profiling.span("mcq.launch"):
-        beta = chunk_betas(spec.schedule, start_outer * stride,
-                           n_outer * stride, dev)
-        ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
-                         device=dev)
-        segment.on_device("chain.board", dev, segment_reference,
-                          segment_cuda, st, ys, start_outer, n_outer, spec,
-                          beta)
-    return ys
-
-
 def run_segment(carry: BoardCarry, start_outer: int, spec: ChainSpec,
                 n_outer: int):
     """Advance every chain by ``n_outer`` history chunks of
@@ -372,15 +343,5 @@ def run_segment(carry: BoardCarry, start_outer: int, spec: ChainSpec,
     ys)`` with ``ys`` the ``(n_outer, C)`` int32 energies after each chunk
     (one kernel launch on CUDA)."""
     st = segment_state(carry)
-    ys = segment_call(st, int(start_outer), n_outer, spec)
+    ys = segment.call_scan(_SAMPLER, st, int(start_outer), n_outer, spec)
     return carry_of(st), ys
-
-
-def run_segment_sharded(shards, start_outer: int, spec: ChainSpec,
-                        n_outer: int, mesh):
-    """:func:`run_segment` over a chains mesh: each shard's carry (its
-    chains' threefry keys split off the whole batch's) advances on its own
-    device, one launch a shard on CUDA; returns the shard carries and
-    ``ys`` ``(n_outer, C)`` in shard order."""
-    return mesh_mod.run_sharded(
-        lambda c: run_segment(c, start_outer, spec, n_outer), shards, mesh)

@@ -90,7 +90,10 @@ class ChainResult:
         return self.proposals / max(self.wall_time, 1e-9)
 
 
-def _device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``: ``cpu``, or ``cuda`` where torch
+    sees a card (``RuntimeError`` otherwise); ``ValueError`` for any other
+    type."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but "
@@ -100,7 +103,8 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _modules(spec: ChainSpec):
+def sampler_module(spec: ChainSpec):
+    """The sampler module of ``spec``'s kernel and move type."""
     board = spec.mcmc_type == "board"
     if spec.kernel == "pallas_shared":
         return board_shared if board else full3d_shared
@@ -249,13 +253,13 @@ def run_chains(
     The result's ``wall_time`` is the call's ``mcq.search`` span: init, the
     segments and the drain.
     """
-    dev = _device(device)
+    dev = resolve_device(device)
     if mesh is not None:
         mesh = mesh_mod.check_mesh(mesh, dev)
     with profiling.trace(profile_dir), profiling.span("mcq.search"):
         t0 = time.time()
         with profiling.span("mcq.init"):
-            mod = _modules(spec)
+            mod = sampler_module(spec)
             seeds = np.asarray(seeds, dtype=np.uint32)
             n_runs = seeds.shape[0]
             if initial_states is not None:
@@ -321,12 +325,11 @@ def run_chains(
             del carry
         for seg in range(start_seg, n_segs):
             with profiling.span("mcq.round"):
-                if mesh is None:
-                    state, ys = mod.run_segment(state, seg * seg_outer, spec,
-                                                seg_outer)
-                else:
-                    state, ys = mod.run_segment_sharded(
-                        state, seg * seg_outer, spec, seg_outer, mesh)
+                # On a mesh each shard advances its own blocks on its device.
+                step = lambda c: mod.run_segment(
+                    c, seg * seg_outer, spec, seg_outer)
+                state, ys = (step(state) if mesh is None
+                             else mesh_mod.run_sharded(step, state, mesh))
                 a = 1 + seg * seg_outer
                 with profiling.span("mcq.read"):
                     hist[a:a + seg_outer].copy_(ys)  # (seg_outer, C)
@@ -335,7 +338,7 @@ def run_chains(
                     done_steps = min(
                         (seg + 1) * seg_outer * spec.history_stride,
                         spec.n_steps)
-                    e = _field(state, "energy")[:n_runs]
+                    e = host_field(state, "energy")[:n_runs]
                     print(f"[mcqueens] step {done_steps}/{spec.n_steps}: "
                           f"mean E={e.mean():.2f} min E={e.min()}")
                 if checkpointer is not None:
@@ -386,7 +389,7 @@ def run_chains(
             )
 
 
-def _field(state, name: str) -> np.ndarray:
+def host_field(state, name: str) -> np.ndarray:
     """A carry field as a host array: of one carry, or of a mesh's shard
     carries joined in shard order (span ``mcq.read``)."""
     with profiling.span("mcq.read"):

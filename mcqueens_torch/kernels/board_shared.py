@@ -29,11 +29,8 @@ chains-minor state (:class:`SegmentState`), both updating it in place:
   * :func:`segment_reference` is its plain-torch twin (vectorised over
     chains, a Python loop over steps).
 
-:func:`segment_call` takes the twin only for CPU tensors and the kernel only
-for CUDA tensors; there is no fallback between them.  The per-step betas are
-evaluated once per chunk by :func:`~mcqueens_torch.core.schedules.chunk_betas`
-and handed to either one, so the kernel and the twin share one beta by
-construction.
+:mod:`mcqueens_torch.kernels.segment` chooses one by the state's device
+and hands it the chunk's betas, so both share one beta by construction.
 
 All three modes of the JAX kernel are ported: the main path
 (``track_best=True``, no freeze row); the tempered mode, where chain ``c``
@@ -52,6 +49,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+import sys
 
 import numpy as np
 import torch
@@ -59,8 +57,6 @@ import torch
 from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.core import fastinit
 from mcqueens_torch.core import tables as tables_mod
-from mcqueens_torch.core.schedules import chunk_betas
-from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.kernels import _build, prng, segment, sizing
 from mcqueens_torch.kernels.carry import BoardCarry
 from mcqueens_torch.utils import profiling
@@ -70,13 +66,15 @@ _SITE_MUL = prng._i32(0x2545F491)
 _SITE_SALT = prng._i32(0x9E3779B9)
 
 # Launches of the CUDA kernel in this process (read and reset by callers
-# that check the main path really ran on the card); FREEZE_LAUNCHES counts
-# the ones made with a freeze row (the replay of recover_best_heights),
-# PACKED_LAUNCHES the ones that kept the boards packed in shared memory
-# (the SMEM instance, every N <= 127 whose CTA fits).
+# that check the main path really ran on the card; counted by
+# segment.launch); FREEZE_LAUNCHES counts the ones made with a freeze row
+# (the replay of recover_best_heights), PACKED_LAUNCHES the ones that kept
+# the boards packed in shared memory (the SMEM instance, every N <= 127
+# whose CTA fits), both counted by launch_segment for state on the card.
 KERNEL_LAUNCHES = 0
 FREEZE_LAUNCHES = 0
 PACKED_LAUNCHES = 0
+_SAMPLER = sys.modules[__name__]
 
 
 def _sn(N: int) -> int:
@@ -376,6 +374,7 @@ def launch_segment(lib, st: SegmentState, step0: int, n_inner: int,
     error.  ``lib`` is the CUDA library (:func:`segment_cuda`) or its host
     emulation (:mod:`mcqueens_torch.kernels.host_emulation`, CPU tensors).
     Returns the layout."""
+    global FREEZE_LAUNCHES, PACKED_LAUNCHES
     N, NN, C = spec.N, spec.N * spec.N, st.energy.shape[0]
     n_blocks = st.block_seeds.shape[0]
     i32, f32 = torch.int32, torch.float32
@@ -413,60 +412,14 @@ def launch_segment(lib, st: SegmentState, step0: int, n_inner: int,
     if err != 0:
         raise RuntimeError(f"board_shared CUDA kernel launch failed "
                            f"(cudaError {err})")
+    if st.heights.is_cuda:
+        FREEZE_LAUNCHES += freeze is not None
+        PACKED_LAUNCHES += lay.in_shared
     return lay
 
 
-def segment_cuda(st: SegmentState, step0: int, n_inner: int,
-                 spec: ChainSpec, beta: torch.Tensor,
-                 beta_scale: torch.Tensor | None = None, *,
-                 freeze: torch.Tensor | None = None,
-                 track_best: bool = True,
-                 forced: Layout | None = None) -> None:
-    """Advance every chain by ``n_inner`` steps with the CUDA kernel
-    (asynchronous on the current stream; counts the launch), laid out by
-    :func:`layout` unless ``forced`` is given."""
-    global KERNEL_LAUNCHES, FREEZE_LAUNCHES, PACKED_LAUNCHES
-    dev = st.heights.device
-    if dev.type != "cuda":
-        raise ValueError(f"segment_cuda: state on {dev}, not a CUDA device")
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        lay = launch_segment(_build.load_library(), st, step0, n_inner, spec,
-                             beta, beta_scale, freeze=freeze,
-                             track_best=track_best, n_sm=n_sm, stream=stream,
-                             forced=forced)
-    KERNEL_LAUNCHES += 1
-    FREEZE_LAUNCHES += freeze is not None
-    PACKED_LAUNCHES += lay.in_shared
-
-
-def segment_call(st: SegmentState, step0: int, n_inner: int,
-                 spec: ChainSpec,
-                 beta_scale: torch.Tensor | None = None, *,
-                 freeze: torch.Tensor | None = None,
-                 track_best: bool = True) -> None:
-    """One chunk of ``n_inner`` steps: the twin for CPU state, the CUDA
-    kernel for CUDA state, and an error for anything else."""
-    dev = st.heights.device
-    with profiling.span("mcq.launch"):
-        beta = chunk_betas(spec.schedule, step0, n_inner, dev)
-        segment.on_device("board_shared", dev, segment_reference,
-                          segment_cuda, st, step0, n_inner, spec, beta,
-                          beta_scale, freeze=freeze, track_best=track_best)
-
-
-def _run(carry: BoardCarry, beta_scale, start_outer: int, spec: ChainSpec,
-         n_outer: int, **mode):
-    stride = spec.history_stride
-    st = segment_state(carry)
-    ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
-                     device=st.energy.device)
-    for o in range(n_outer):
-        segment_call(st, (int(start_outer) + o) * stride, stride, spec,
-                     beta_scale, **mode)
-        ys[o].copy_(st.energy)
-    return carry_of(st), ys
+# One launch of the CUDA kernel, counted (segment.launch).
+segment_cuda = functools.partial(segment.launch, _SAMPLER)
 
 
 def run_segment(carry: BoardCarry, start_outer: int, spec: ChainSpec,
@@ -479,39 +432,18 @@ def run_segment(carry: BoardCarry, start_outer: int, spec: ChainSpec,
     ``best_energy``/``best_step`` stay exact and :func:`recover_best_heights`
     rebuilds the boards afterwards.
     """
-    return _run(carry, None, start_outer, spec, n_outer,
-                track_best=track_best)
+    st, ys = segment.run(_SAMPLER, carry, start_outer, spec, n_outer,
+                         track_best=track_best)
+    return carry_of(st), ys
 
 
 def run_segment_tempered(carry: BoardCarry, beta_scale, start_outer: int,
                          spec: ChainSpec, n_outer: int):
     """:func:`run_segment` with chain ``c`` sampling at
     ``spec.schedule(step) * beta_scale[c]`` (a ``(C,)`` float32 scale)."""
-    beta_scale = torch.as_tensor(beta_scale, dtype=torch.float32,
-                                 device=carry.device).reshape(-1).contiguous()
-    return _run(carry, beta_scale, start_outer, spec, n_outer)
-
-
-def run_segment_sharded(shards, start_outer: int, spec: ChainSpec,
-                        n_outer: int, mesh):
-    """:func:`run_segment` over a chains mesh (:mod:`mcqueens_torch.dist.mesh`):
-    each shard (from :func:`~mcqueens_torch.dist.mesh.shard_chains` of a
-    carry made at the mesh's block) advances its own whole blocks on its
-    device.  Returns the shard carries and ``ys`` ``(n_outer, C)`` in shard
-    order."""
-    return mesh_mod.run_sharded(
-        lambda c: run_segment(c, start_outer, spec, n_outer), shards, mesh)
-
-
-def run_segment_tempered_sharded(shards, beta_scale, start_outer: int,
-                                 spec: ChainSpec, n_outer: int, mesh):
-    """:func:`run_segment_tempered` over a chains mesh; ``beta_scale`` is
-    the global ``(C,)`` row, split like the chains.  Ladder groups must not
-    straddle shards (:func:`mcqueens_torch.search.tempering.run_tempered`
-    checks it)."""
-    return mesh_mod.run_sharded(
-        lambda c, b: run_segment_tempered(c, b, start_outer, spec, n_outer),
-        shards, mesh, beta_scale)
+    st, ys = segment.run(_SAMPLER, carry, start_outer, spec, n_outer,
+                         beta_scale=beta_scale)
+    return carry_of(st), ys
 
 
 def _run_segment_frozen(carry: BoardCarry, freeze_row, start_outer: int,
@@ -524,8 +456,8 @@ def _run_segment_frozen(carry: BoardCarry, freeze_row, start_outer: int,
                              device=carry.device).reshape(-1).contiguous()
     st = segment_state(carry)
     stride = spec.history_stride
-    segment_call(st, int(start_outer) * stride, n_outer * stride, spec,
-                 freeze=freeze, track_best=False)
+    segment.call(_SAMPLER, st, int(start_outer) * stride, n_outer * stride,
+                 spec, freeze=freeze, track_best=False)
     return carry_of(st)
 
 

@@ -36,9 +36,9 @@ chains-minor state (:class:`SegmentState`), both updating it in place:
   * :func:`segment_reference` is its plain-torch twin (vectorised over
     chains, a Python loop over steps).
 
-:func:`segment_call` takes the twin only for CPU tensors and the kernel only
-for CUDA tensors.  ``run_segment_tempered`` multiplies each chain's beta by
-its own scale (parallel tempering, :mod:`mcqueens_torch.search.tempering`).
+:mod:`mcqueens_torch.kernels.segment` chooses one by the state's device.
+``run_segment_tempered`` multiplies each chain's beta by its own scale
+(parallel tempering, :mod:`mcqueens_torch.search.tempering`).
 """
 
 from __future__ import annotations
@@ -47,13 +47,12 @@ import ctypes
 import dataclasses
 import functools
 import re
+import sys
 
 import numpy as np
 import torch
 
 from mcqueens_torch.chain.spec import ChainSpec
-from mcqueens_torch.core.schedules import chunk_betas
-from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.kernels import (_build, full3d_pallas, prng, segment,
                                     sizing)
 from mcqueens_torch.kernels.carry import Full3DCarry
@@ -72,9 +71,10 @@ _SEED_MUL = prng._i32(0x2545F491)
 _CAND_SALT = prng._i32(0x7F4A7C15)   # candidate-cell stream
 _MOVER_SALT = prng._i32(0x3C6EF372)  # mover-index stream
 
-# Launches of the CUDA kernel in this process (read and reset by callers
-# that check the main path really ran on the card).
+# Launches of the CUDA kernel in this process (segment.launch counts them;
+# read and reset by callers that check the main path ran on the card).
 KERNEL_LAUNCHES = 0
+_SAMPLER = sys.modules[__name__]
 
 
 def check_n(N: int) -> None:
@@ -426,50 +426,8 @@ def instances(usage: dict) -> dict:
     return out
 
 
-def segment_cuda(st: SegmentState, step0: int, n_inner: int,
-                 spec: ChainSpec, beta: torch.Tensor,
-                 beta_scale: torch.Tensor | None = None, *,
-                 forced: Layout | None = None) -> None:
-    """Advance every chain by ``n_inner`` steps with the CUDA kernel
-    (asynchronous on the current stream; counts the launch), laid out by
-    :func:`layout` unless ``forced`` is given."""
-    global KERNEL_LAUNCHES
-    dev = st.qi.device
-    if dev.type != "cuda":
-        raise ValueError(f"segment_cuda: state on {dev}, not a CUDA device")
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        launch_segment(_build.load_library(), st, step0, n_inner, spec, beta,
-                       beta_scale, n_sm=n_sm, stream=stream, forced=forced)
-    KERNEL_LAUNCHES += 1
-
-
-def segment_call(st: SegmentState, step0: int, n_inner: int,
-                 spec: ChainSpec,
-                 beta_scale: torch.Tensor | None = None) -> None:
-    """One launch of ``n_inner`` steps: the twin for CPU state, the CUDA
-    kernel for CUDA state, and an error for anything else."""
-    dev = st.qi.device
-    with profiling.span("mcq.launch"):
-        beta = chunk_betas(spec.schedule, step0, n_inner, dev)
-        segment.on_device("full3d_shared", dev, segment_reference,
-                          segment_cuda, st, step0, n_inner, spec, beta,
-                          beta_scale)
-
-
-def _run(carry: Full3DCarry, beta_scale, start_outer: int, spec: ChainSpec,
-         n_outer: int):
-    check_n(spec.N)
-    stride = spec.history_stride
-    st = segment_state(carry)
-    ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
-                     device=st.energy.device)
-    for o in range(n_outer):
-        segment_call(st, (int(start_outer) + o) * stride, stride, spec,
-                     beta_scale)
-        ys[o].copy_(st.energy)
-    return carry_of(st, carry.occ), ys
+# One launch of the CUDA kernel, counted (segment.launch).
+segment_cuda = functools.partial(segment.launch, _SAMPLER)
 
 
 def run_segment(carry: Full3DCarry, start_outer: int, spec: ChainSpec,
@@ -477,32 +435,16 @@ def run_segment(carry: Full3DCarry, start_outer: int, spec: ChainSpec,
     """``n_outer`` launches of ``history_stride`` steps from chunk
     ``start_outer``; returns ``(carry, ys)`` with ``ys`` the ``(n_outer, C)``
     int32 energies after each launch."""
-    return _run(carry, None, start_outer, spec, n_outer)
+    check_n(spec.N)
+    st, ys = segment.run(_SAMPLER, carry, start_outer, spec, n_outer)
+    return carry_of(st, carry.occ), ys
 
 
 def run_segment_tempered(carry: Full3DCarry, beta_scale, start_outer: int,
                          spec: ChainSpec, n_outer: int):
     """:func:`run_segment` with chain ``c`` sampling at
     ``spec.schedule(step) * beta_scale[c]`` (a ``(C,)`` float32 scale)."""
-    beta_scale = torch.as_tensor(beta_scale, dtype=torch.float32,
-                                 device=carry.device).reshape(-1).contiguous()
-    return _run(carry, beta_scale, start_outer, spec, n_outer)
-
-
-def run_segment_sharded(shards, start_outer: int, spec: ChainSpec,
-                        n_outer: int, mesh):
-    """:func:`run_segment` over a chains mesh: each shard advances its own
-    whole blocks (their global block seeds key the candidate and mover
-    streams); returns the shard carries and ``ys`` ``(n_outer, C)`` in
-    shard order."""
-    return mesh_mod.run_sharded(
-        lambda c: run_segment(c, start_outer, spec, n_outer), shards, mesh)
-
-
-def run_segment_tempered_sharded(shards, beta_scale, start_outer: int,
-                                 spec: ChainSpec, n_outer: int, mesh):
-    """:func:`run_segment_tempered` over a chains mesh; ``beta_scale`` is
-    the global ``(C,)`` row, split like the chains."""
-    return mesh_mod.run_sharded(
-        lambda c, b: run_segment_tempered(c, b, start_outer, spec, n_outer),
-        shards, mesh, beta_scale)
+    check_n(spec.N)
+    st, ys = segment.run(_SAMPLER, carry, start_outer, spec, n_outer,
+                         beta_scale=beta_scale)
+    return carry_of(st, carry.occ), ys

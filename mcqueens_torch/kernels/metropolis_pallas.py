@@ -23,8 +23,7 @@ chains-major state (:class:`SegmentState`), both updating it in place:
   * :func:`segment_reference` is its plain-torch twin (vectorised over
     chains, a Python loop over steps, the dense O(N^2) dE).
 
-:func:`segment_call` takes the twin only for CPU tensors and the kernel only
-for CUDA tensors; there is no fallback between them.
+:mod:`mcqueens_torch.kernels.segment` chooses one by the state's device.
 """
 
 from __future__ import annotations
@@ -32,13 +31,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import sys
 import math
 
 import torch
 
 from mcqueens_torch.chain.spec import ChainSpec
-from mcqueens_torch.core.schedules import chunk_betas
-from mcqueens_torch.dist import mesh as mesh_mod
 from mcqueens_torch.kernels import (_build, board_shared, delta_e, prng,
                                     segment, sizing)
 from mcqueens_torch.kernels.carry import BoardCarry
@@ -46,9 +44,10 @@ from mcqueens_torch.utils import profiling
 
 DEFAULT_BLOCK = 2048
 
-# Launches of the CUDA kernel in this process (read and reset by callers
-# that check the main path really ran on the card).
+# Launches of the CUDA kernel in this process (segment.launch counts them;
+# read and reset by callers that check the main path ran on the card).
 KERNEL_LAUNCHES = 0
+_SAMPLER = sys.modules[__name__]
 
 
 def _nns(N: int) -> int:
@@ -246,8 +245,21 @@ def launch_segment(lib, st: SegmentState, step0: int, n_inner: int,
     library (:func:`segment_cuda`) or its host emulation
     (:mod:`mcqueens_torch.kernels.host_emulation`, CPU tensors).  Returns
     the layout."""
-    _check(st, step0, n_inner, spec, beta)
-    C = st.energy.shape[0]
+    NN, C, nb = spec.N * spec.N, st.energy.shape[0], spec.n_bins
+    i32 = torch.int32
+    _build.check_args(st.heights.device, {
+        "heights": (st.heights, (C, NN), i32),
+        "best_heights": (st.best_heights, (C, NN), i32),
+        "accept_bins": (st.accept_bins, (C, nb), i32),
+        "total_bins": (st.total_bins, (C, nb), i32),
+        **{name: (getattr(st, name), (C,), i32) for name in _ROWS},
+        "beta": (beta, (n_inner,), torch.float32),
+    })
+    check_n(spec.N)
+    if C == 0:
+        raise ValueError("no chains")
+    if not 0 <= step0 <= 2 ** 31 - 1 - n_inner:
+        raise ValueError(f"step0={step0} + n_inner={n_inner} overflows int32")
     lay = forced or layout(spec.N, C, n_sm)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (
         st.heights, st.best_heights, st.energy, st.best_energy,
@@ -264,54 +276,8 @@ def launch_segment(lib, st: SegmentState, step0: int, n_inner: int,
     return lay
 
 
-def _check(st: SegmentState, step0: int, n_inner: int, spec: ChainSpec,
-           beta: torch.Tensor) -> None:
-    """Raise ``ValueError`` unless the state and betas fit a launch."""
-    NN, C, nb = spec.N * spec.N, st.energy.shape[0], spec.n_bins
-    i32 = torch.int32
-    _build.check_args(st.heights.device, {
-        "heights": (st.heights, (C, NN), i32),
-        "best_heights": (st.best_heights, (C, NN), i32),
-        "accept_bins": (st.accept_bins, (C, nb), i32),
-        "total_bins": (st.total_bins, (C, nb), i32),
-        **{name: (getattr(st, name), (C,), i32) for name in _ROWS},
-        "beta": (beta, (n_inner,), torch.float32),
-    })
-    check_n(spec.N)
-    if C == 0:
-        raise ValueError("no chains")
-    if not 0 <= step0 <= 2 ** 31 - 1 - n_inner:
-        raise ValueError(f"step0={step0} + n_inner={n_inner} overflows int32")
-
-
-def segment_cuda(st: SegmentState, step0: int, n_inner: int,
-                 spec: ChainSpec, beta: torch.Tensor, *,
-                 forced: Layout | None = None) -> None:
-    """Advance every chain by ``n_inner`` steps with the CUDA kernel
-    (asynchronous on the current stream; counts the launch), laid out by
-    :func:`layout` unless ``forced`` is given."""
-    global KERNEL_LAUNCHES
-    _check(st, step0, n_inner, spec, beta)
-    dev = st.heights.device
-    if dev.type != "cuda":
-        raise ValueError(f"segment_cuda: state on {dev}, not a CUDA device")
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        launch_segment(_build.load_library(), st, step0, n_inner, spec, beta,
-                       n_sm=n_sm, stream=stream, forced=forced)
-    KERNEL_LAUNCHES += 1
-
-
-def segment_call(st: SegmentState, step0: int, n_inner: int,
-                 spec: ChainSpec) -> None:
-    """One chunk of ``n_inner`` steps: the twin for CPU state, the CUDA
-    kernel for CUDA state, and an error for anything else."""
-    dev = st.heights.device
-    with profiling.span("mcq.launch"):
-        beta = chunk_betas(spec.schedule, step0, n_inner, dev)
-        segment.on_device("metropolis_pallas", dev, segment_reference,
-                          segment_cuda, st, step0, n_inner, spec, beta)
+# One launch of the CUDA kernel, counted (segment.launch).
+segment_cuda = functools.partial(segment.launch, _SAMPLER)
 
 
 def run_segment(carry: BoardCarry, start_outer: int, spec: ChainSpec,
@@ -319,21 +285,5 @@ def run_segment(carry: BoardCarry, start_outer: int, spec: ChainSpec,
     """``n_outer`` chunks of ``history_stride`` steps from chunk
     ``start_outer``; returns ``(carry, ys)`` with ``ys`` the ``(n_outer, C)``
     int32 energies after each chunk (one kernel launch per chunk)."""
-    stride = spec.history_stride
-    st = segment_state(carry)
-    ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
-                     device=st.energy.device)
-    for o in range(n_outer):
-        segment_call(st, (int(start_outer) + o) * stride, stride, spec)
-        ys[o].copy_(st.energy)
+    st, ys = segment.run(_SAMPLER, carry, start_outer, spec, n_outer)
     return carry_of(st, carry.block_seeds), ys
-
-
-def run_segment_sharded(shards, start_outer: int, spec: ChainSpec,
-                        n_outer: int, mesh):
-    """:func:`run_segment` over a chains mesh: each shard advances its own
-    chains, whose streams are keyed by their own seeds, so the result equals
-    an unsharded run's; returns the shard carries and ``ys`` ``(n_outer,
-    C)`` in shard order."""
-    return mesh_mod.run_sharded(
-        lambda c: run_segment(c, start_outer, spec, n_outer), shards, mesh)

@@ -4,19 +4,30 @@ Every sampler keeps its chains in a chains-major carry between segments and
 runs a launch on a working state that its CUDA kernel and the kernel's
 plain-torch twin both update in place.  This module holds the parts that do
 not depend on the sampler: the transposes between a carry and a
-chains-minor working state, the choice of the twin for CPU tensors and the
-kernel for CUDA tensors, with no fallback between them, the launch layout
-of the team kernels (a team of lanes a chain) with what an SM holds of it,
-and the cost model that lays out the per-chain ones.
+chains-minor working state; every sampler's launch path (:func:`call`,
+:func:`launch`) and chunk loop (:func:`run`), with the twin for CPU tensors
+and the kernel for CUDA tensors and no fallback between them; the launch
+layout of the team kernels (a team of lanes a chain) with what an SM holds
+of it, and the cost model that lays out the per-chain ones.
+
+A sampler is its module (``mod``), read when it is called: its
+``segment_state``, ``segment_reference`` (the twin), ``launch_segment``
+(argument checks, layout, and the call of the CUDA library or its host
+emulation) and ``KERNEL_LAUNCHES``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable
 
+import torch
+
+from mcqueens_torch.core.schedules import chunk_betas
 from mcqueens_torch.kernels import _build
+from mcqueens_torch.utils import profiling
 
 # An SM's limits on Hopper: resident threads, CTAs and 32-bit registers.
 SM_THREADS, SM_CTAS, SM_REGISTERS = 2048, 32, 65536
@@ -150,3 +161,80 @@ def on_device(name: str, dev, reference: Callable, cuda: Callable, *args,
     if dev.type == "cuda":
         return cuda(*args, **kw)
     raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
+
+
+class _OffCard:
+    """The library a launch of state off the card gets: ``launch_segment``
+    checks its arguments first, then finds its entry point refused."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def __getattr__(self, name):
+        raise ValueError(f"{name}: state on {self.dev}, not a CUDA device")
+
+
+def launch(mod, st, *args, **kw):
+    """``mod.launch_segment(lib, st, *args, n_sm=, stream=, **kw)`` on the
+    current stream of ``st``'s CUDA device (made current), counted in
+    ``mod.KERNEL_LAUNCHES``; returns what it returns.  State off the card
+    raises ``ValueError`` once its arguments pass the checks."""
+    dev = st.energy.device
+    if dev.type != "cuda":
+        mod.launch_segment(_OffCard(dev), st, *args, n_sm=1, **kw)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        out = mod.launch_segment(_build.load_library(), st, *args,
+                                 n_sm=n_sm, stream=stream, **kw)
+    mod.KERNEL_LAUNCHES += 1
+    return out
+
+
+def _choose(mod, st, *args, **kw):
+    on_device(mod.__name__, st.energy.device, mod.segment_reference,
+              functools.partial(launch, mod), st, *args, **kw)
+
+
+def call(mod, st, step0: int, n_inner: int, spec, **kw) -> None:
+    """One chunk of ``n_inner`` steps from global step ``step0`` on ``st``,
+    in place, in an ``mcq.launch`` span: its betas (:func:`chunk_betas`),
+    then the twin for CPU state or :func:`launch` for CUDA state."""
+    with profiling.span("mcq.launch"):
+        beta = chunk_betas(spec.schedule, step0, n_inner, st.energy.device)
+        _choose(mod, st, step0, n_inner, spec, beta, **kw)
+
+
+def call_scan(mod, st, start_outer: int, n_outer: int, spec):
+    """A scan sampler's segment of ``n_outer`` history chunks from chunk
+    ``start_outer``, as :func:`call`; returns its ``(n_outer, C)`` int32
+    energy rows, allocated in the span."""
+    dev, stride = st.energy.device, spec.history_stride
+    with profiling.span("mcq.launch"):
+        beta = chunk_betas(spec.schedule, start_outer * stride,
+                           n_outer * stride, dev)
+        ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
+                         device=dev)
+        _choose(mod, st, ys, start_outer, n_outer, spec, beta)
+    return ys
+
+
+def run(mod, carry, start_outer: int, spec, n_outer: int, beta_scale=None,
+        **kw):
+    """``n_outer`` chunks of ``history_stride`` steps from chunk
+    ``start_outer`` (:func:`call`, ``kw`` passed on) on a working state of
+    ``carry``; returns it and the ``(n_outer, C)`` int32 energies after
+    each chunk.  A ``beta_scale`` (tempered) scales chain ``c``'s beta."""
+    if beta_scale is not None:
+        kw["beta_scale"] = torch.as_tensor(
+            beta_scale, dtype=torch.float32,
+            device=carry.device).reshape(-1).contiguous()
+    stride = spec.history_stride
+    st = mod.segment_state(carry)
+    ys = torch.empty((n_outer, st.energy.shape[0]), dtype=torch.int32,
+                     device=st.energy.device)
+    for o in range(n_outer):
+        call(mod, st, (int(start_outer) + o) * stride, stride, spec, **kw)
+        ys[o].copy_(st.energy)
+    return st, ys
+

@@ -125,7 +125,7 @@ def run_tempered(
     The result's ``wall_time`` is the call's ``mcq.search`` span: init, the
     rounds and the drain (:func:`mcqueens_torch.utils.profiling.span`).
     """
-    dev = runner_mod._device(device)
+    dev = runner_mod.resolve_device(device)
     if mesh is not None:
         mesh = mesh_mod.check_mesh(mesh, dev)
     with profiling.span("mcq.search"):
@@ -134,7 +134,7 @@ def run_tempered(
             if spec.kernel != "pallas_shared":
                 raise ValueError(
                     "run_tempered requires kernel='pallas_shared'")
-            kmod = runner_mod._modules(spec)
+            kmod = runner_mod.sampler_module(spec)
             if exchange_interval < 1:
                 raise ValueError("exchange_interval must be >= 1")
             ladder = np.asarray(ladder, np.float32)
@@ -203,12 +203,11 @@ def run_tempered(
             with profiling.span("mcq.round"):
                 seg0 = r * exchange_interval
                 n_seg = min(exchange_interval, spec.n_outer - seg0)
-                if mesh is None:
-                    state, ys = kmod.run_segment_tempered(
-                        state, betas, seg0, spec, n_seg)
-                else:
-                    state, ys = kmod.run_segment_tempered_sharded(
-                        state, betas, seg0, spec, n_seg, mesh)
+                # On a mesh each shard's slice of the betas goes with it.
+                step = lambda c, b: kmod.run_segment_tempered(
+                    c, b, seg0, spec, n_seg)
+                state, ys = (step(state, betas) if mesh is None else
+                             mesh_mod.run_sharded(step, state, mesh, betas))
                 with profiling.span("mcq.read"):
                     hist[done:done + n_seg].copy_(ys)
                 history.append(rows[done:done + n_seg])
@@ -237,13 +236,13 @@ def run_tempered(
                                           seg_outer=exchange_interval,
                                           fingerprint=fp, extras=extras)
                 if verbose and (r + 1) % max(1, n_rounds // 10) == 0:
-                    e = runner_mod._field(state, "energy").reshape(-1)
-                    be = runner_mod._field(state, "best_energy").reshape(-1)
+                    e = runner_mod.host_field(state, "energy").reshape(-1)
+                    be = runner_mod.host_field(state, "best_energy").reshape(-1)
                     print(f"[tempering] round {r + 1}/{n_rounds}: "
                           f"mean E={e[:n_runs].mean():.2f} "
                           f"best={be[:n_runs].min()}")
                 if stop_at_energy is not None:
-                    be = runner_mod._field(
+                    be = runner_mod.host_field(
                         state, "best_energy").reshape(-1)[:n_runs]
                     if be.min() <= stop_at_energy:
                         if verbose:

@@ -116,7 +116,7 @@ def kernel_moves_per_sec(kernel: str, mcmc_type: str, chains: int, seg: int,
         init_mode="random", mcmc_type=mcmc_type, kernel=kernel,
         history_stride=seg,
     )
-    mod = runner_mod._modules(spec)
+    mod = runner_mod.sampler_module(spec)
     seeds = np.arange(chains, dtype=np.uint32)
     init = (seeds if kernel in ("pallas", "pallas_shared")
             else rng_mod.chain_keys_from_seeds(seeds, dev))

@@ -18,7 +18,7 @@ above it on the calling thread:
   restore, the ladder's betas, the mesh's shard copies;
 - ``mcq.round``: one segment of ``run_chains``, one round of
   ``run_tempered``;
-- ``mcq.launch``: one sampler launch (``segment_call``): its betas
+- ``mcq.launch``: one sampler launch (``kernels.segment.call``): its betas
   (``mcq.betas``, :func:`~mcqueens_torch.core.schedules.chunk_betas`) and
   the kernel's enqueue, or its plain-torch twin on the CPU;
 - ``mcq.transpose``: a carry's transpose into or out of a segment's

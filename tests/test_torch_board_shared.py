@@ -29,7 +29,7 @@ from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.cli import competition
 from mcqueens_torch.core import schedules
 from mcqueens_torch.dist import runner
-from mcqueens_torch.kernels import board_shared
+from mcqueens_torch.kernels import board_shared, segment
 from mcqueens_torch.kernels.carry import carry_from_numpy, carry_to_numpy
 from tests import _oracle
 from tests.test_torch_foundations import release_jax_executables  # noqa: F401
@@ -306,7 +306,7 @@ def test_cuda_request_without_gpu_raises():
     st = board_shared.SegmentState(**{
         k: v.to("meta") for k, v in vars(st).items()})
     with pytest.raises(ValueError, match="cpu or cuda"):
-        board_shared.segment_call(st, 0, 50, spec)
+        segment.call(board_shared, st, 0, 50, spec)
 
 
 # -- freeze mode: track_best=False and recover_best_heights ---------------

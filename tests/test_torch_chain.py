@@ -27,6 +27,7 @@ from mcqueens_torch.chain import board, full3d
 from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.core import rng, schedules
 from mcqueens_torch.dist import runner
+from mcqueens_torch.kernels import segment
 from tests import _oracle
 from tests.test_torch_foundations import release_jax_executables  # noqa: F401
 
@@ -311,7 +312,7 @@ def test_scan_wrappers_refuse_other_devices():
             k: None if v is None else v.to("meta")
             for k, v in vars(st).items()})
         with pytest.raises(ValueError, match="cpu or cuda"):
-            mod.segment_call(meta, 0, 1, sp)
+            segment.call_scan(mod, meta, 0, 1, sp)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             runner.run_chains(SEEDS, spec, device="cuda")

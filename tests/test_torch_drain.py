@@ -134,12 +134,14 @@ def old_tempered_result(spec, state, e0, chunks, betas, n_runs) -> dict:
 
 
 @contextlib.contextmanager
-def recorded(monkeypatch, mod, segment):
+def recorded(monkeypatch, mod, segment, tempered=False):
     """Record what the reference needs of a search: the first energies
-    (``mod.init_carry_batch``), each round's ``ys`` and betas (``mod.
-    <segment>``, the function the search calls) and the carry it drains."""
+    (``mod.init_carry_batch``), each round's ``ys`` and, ``tempered``,
+    betas (``segment``, the function the search calls, as :func:`_segment`
+    gives it) and the carry it drains."""
     rec = {"e0": None, "ys": [], "betas": [], "state": None, "copies": 0}
-    init, seg, drain = mod.init_carry_batch, getattr(mod, segment), \
+    owner, name = segment
+    init, seg, drain = mod.init_carry_batch, getattr(owner, name), \
         runner.drain
 
     def init_rec(*args, **kw):
@@ -148,9 +150,9 @@ def recorded(monkeypatch, mod, segment):
         return carry
 
     def seg_rec(*args):
-        if "tempered" in segment:
-            rec["betas"].append(
-                torch.as_tensor(args[1]).cpu().numpy().copy())
+        if tempered:
+            rec["betas"].append(torch.as_tensor(
+                args[1] if owner is mod else args[3]).cpu().numpy().copy())
         state, ys = seg(*args)
         rec["ys"].append(ys.cpu().numpy().copy())
         return state, ys
@@ -163,13 +165,13 @@ def recorded(monkeypatch, mod, segment):
         return out
 
     monkeypatch.setattr(mod, "init_carry_batch", init_rec)
-    monkeypatch.setattr(mod, segment, seg_rec)
+    monkeypatch.setattr(owner, name, seg_rec)
     monkeypatch.setattr(runner, "drain", drain_rec)
     try:
         yield rec
     finally:
         monkeypatch.setattr(mod, "init_carry_batch", init)
-        monkeypatch.setattr(mod, segment, seg)
+        monkeypatch.setattr(owner, name, seg)
         monkeypatch.setattr(runner, "drain", drain)
 
 
@@ -187,8 +189,11 @@ def _mesh(shards):
     return None if shards == 1 else mesh_mod.mesh_for("cpu", shards)
 
 
-def _segment(name, shards):
-    return name + ("_sharded" if shards > 1 else "")
+def _segment(mod, name, shards):
+    """The function a search calls for a segment, as ``(owner, name)``:
+    ``mod.<name>``, or ``mesh.run_sharded`` on a mesh of several shards
+    (the betas its fourth argument where the search is tempered)."""
+    return (mod, name) if shards == 1 else (mesh_mod, "run_sharded")
 
 
 def assert_same(got: dict, want: dict):
@@ -242,7 +247,8 @@ def test_chain_drain_matches_the_old_assembly(sampler, shards, monkeypatch):
     past the horizon and cut), every field as the parent built it."""
     mod = SAMPLERS[sampler][0]
     spec = _spec(sampler)
-    with recorded(monkeypatch, mod, _segment("run_segment", shards)) as rec:
+    with recorded(monkeypatch, mod,
+                  _segment(mod, "run_segment", shards)) as rec:
         got = runner.run_chains(SEEDS, spec, device="cpu",
                                 mesh=_mesh(shards), min_segments=2)
     assert len(rec["ys"]) == 2
@@ -261,7 +267,8 @@ def test_chain_drain_after_resume(sampler, shards, monkeypatch, tmp_path):
     mod = SAMPLERS[sampler][0]
     spec = _spec(sampler, n_steps=200)
     mesh = _mesh(shards)
-    with recorded(monkeypatch, mod, _segment("run_segment", shards)) as rec:
+    with recorded(monkeypatch, mod,
+                  _segment(mod, "run_segment", shards)) as rec:
         runner.run_chains(SEEDS, spec, device="cpu", mesh=mesh,
                           min_segments=4)
     want = old_chain_result(spec, rec["state"], rec["e0"], rec["ys"],
@@ -271,7 +278,8 @@ def test_chain_drain_after_resume(sampler, shards, monkeypatch, tmp_path):
                           checkpointer=KilledAfter(str(tmp_path), kill_at=2,
                                                    min_segments=4))
     ck = Checkpointer(str(tmp_path), min_segments=4)
-    with recorded(monkeypatch, mod, _segment("run_segment", shards)) as rec:
+    with recorded(monkeypatch, mod,
+                  _segment(mod, "run_segment", shards)) as rec:
         got = runner.run_chains(SEEDS, spec, device="cpu", mesh=mesh,
                                 checkpointer=ck)
     assert len(rec["ys"]) == 2  # only segments 2 and 3 ran
@@ -298,8 +306,8 @@ def test_tempered_drain_matches_the_old_assembly(sampler, shards, stop,
     parent built them."""
     mod = SAMPLERS[sampler][0]
     spec = _spec(sampler, n_steps=200, sched=CONST)
-    segment = _segment("run_segment_tempered", shards)
-    with recorded(monkeypatch, mod, segment) as rec:
+    segment = _segment(mod, "run_segment_tempered", shards)
+    with recorded(monkeypatch, mod, segment, tempered=True) as rec:
         got = _tempered(sampler, shards,
                         stop_at_energy=10 ** 6 if stop else None)
     assert len(rec["ys"]) == (1 if stop else 4)
@@ -317,12 +325,12 @@ def test_tempered_drain_after_resume(sampler, shards, monkeypatch, tmp_path):
     old assembly."""
     mod = SAMPLERS[sampler][0]
     spec = _spec(sampler, n_steps=200, sched=CONST)
-    segment = _segment("run_segment_tempered", shards)
-    with recorded(monkeypatch, mod, segment) as rec:
+    segment = _segment(mod, "run_segment_tempered", shards)
+    with recorded(monkeypatch, mod, segment, tempered=True) as rec:
         _tempered(sampler, shards)
     want = old_tempered_result(spec, rec["state"], rec["e0"], rec["ys"],
                                rec["betas"], 8)
-    real, calls = getattr(mod, segment), []
+    real, calls = getattr(*segment), []
 
     def dying(*args):
         if len(calls) == 2:
@@ -331,11 +339,11 @@ def test_tempered_drain_after_resume(sampler, shards, monkeypatch, tmp_path):
         return real(*args)
 
     ck = Checkpointer(str(tmp_path), tag="pt")
-    monkeypatch.setattr(mod, segment, dying)
+    monkeypatch.setattr(*segment, dying)
     with pytest.raises(Killed):
         _tempered(sampler, shards, checkpointer=ck)
-    monkeypatch.setattr(mod, segment, real)
-    with recorded(monkeypatch, mod, segment) as rec:
+    monkeypatch.setattr(*segment, real)
+    with recorded(monkeypatch, mod, segment, tempered=True) as rec:
         got = _tempered(sampler, shards, checkpointer=ck)
     assert len(rec["ys"]) == 2  # rounds 2 and 3
     assert_same(tempered_fields(got), want)
@@ -392,15 +400,15 @@ def test_card_drains_the_cells_shapes(case, monkeypatch):
     for i in range(5):
         seeds = 4096 * i + np.arange(4096, dtype=np.uint32)
         if case == "anneal":
-            with recorded(monkeypatch, mod, "run_segment") as rec:
+            with recorded(monkeypatch, mod, (mod, "run_segment")) as rec:
                 got = chain_fields(runner.run_chains(seeds, spec,
                                                      device="cuda"))
             want = old_chain_result(spec, rec["state"], rec["e0"],
                                     rec["ys"], 4096)
             fields = runner.CHAIN_FIELDS
         else:
-            segment = _segment("run_segment_tempered", shards)
-            with recorded(monkeypatch, mod, segment) as rec:
+            segment = _segment(mod, "run_segment_tempered", shards)
+            with recorded(monkeypatch, mod, segment, tempered=True) as rec:
                 got = tempered_fields(tempering.run_tempered(
                     seeds, spec, ladder, device="cuda", swap_seed=i,
                     mesh=mesh, record_betas=True))

@@ -27,7 +27,7 @@ from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.cli import competition
 from mcqueens_torch.core import schedules
 from mcqueens_torch.dist import runner
-from mcqueens_torch.kernels import full3d_pallas
+from mcqueens_torch.kernels import full3d_pallas, segment
 from mcqueens_torch.kernels.carry import (FULL3D_FIELDS, carry_from_numpy,
                                           carry_to_numpy)
 from tests import _oracle
@@ -232,7 +232,7 @@ def test_segment_call_refuses_other_devices_and_cuda_guards():
     meta = full3d_pallas.SegmentState(**{
         k: v.to("meta") for k, v in vars(st).items()})
     with pytest.raises(ValueError, match="cpu or cuda"):
-        full3d_pallas.segment_call(meta, 0, 50, spec)
+        segment.call(full3d_pallas, meta, 0, 50, spec)
     with pytest.raises(ValueError, match="occ"):
         full3d_pallas.segment_cuda(
             full3d_pallas.SegmentState(**{**vars(st), "occ": st.occ[:, :0]}),

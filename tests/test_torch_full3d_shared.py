@@ -33,7 +33,8 @@ from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.cli import competition
 from mcqueens_torch.core import energy, fastinit, schedules, tables
 from mcqueens_torch.dist import runner
-from mcqueens_torch.kernels import _build, full3d_pallas, full3d_shared
+from mcqueens_torch.kernels import (_build, full3d_pallas, full3d_shared,
+                                    segment)
 from mcqueens_torch.kernels.carry import (FULL3D_FIELDS, carry_from_numpy,
                                           carry_to_numpy)
 from tests import _oracle
@@ -318,7 +319,7 @@ def test_segment_call_refuses_other_devices():
     st = full3d_shared.SegmentState(**{
         k: v.to("meta") for k, v in vars(st).items()})
     with pytest.raises(ValueError, match="cpu or cuda"):
-        full3d_shared.segment_call(st, 0, 44, spec)
+        segment.call(full3d_shared, st, 0, 44, spec)
 
 
 # -- the CLI --------------------------------------------------------------

@@ -68,6 +68,28 @@ def cpu_mesh(n):
     return mesh.make_mesh([CPU] * n)
 
 
+def sharded_segments(mp, mod, name="run_segment", before=None):
+    """Record each sharded segment a search runs, as ``[shards, start]``:
+    the shard carries ``mesh.run_sharded`` gets and the start chunk each
+    shard's ``mod.<name>`` gets.  ``before(seen)`` runs ahead of each
+    segment (a test's kill)."""
+    seen, run_sharded, segment = [], mesh.run_sharded, getattr(mod, name)
+
+    def sharded(fn, shards, *args):
+        if before is not None:
+            before(seen)
+        seen.append([shards, None])
+        return run_sharded(fn, shards, *args)
+
+    def per_shard(carry, *args):
+        seen[-1][1] = args[-3]  # (..., start_outer, spec, n_outer)
+        return segment(carry, *args)
+
+    mp.setattr(mesh, "run_sharded", sharded)
+    mp.setattr(mod, name, per_shard)
+    return seen
+
+
 def jax_mesh(n):
     return jmesh.make_mesh(jax.devices()[:n])
 
@@ -196,16 +218,10 @@ def test_block_seeds_are_global(kernel_type, monkeypatch):
                      history_stride=50, **q)
     mod = MODULES[kernel_type]
     seeds = 40 + np.arange(512, dtype=np.uint32)
-    seen, real = [], mod.run_segment_sharded
-
-    def record(shards, *args):
-        seen.append(shards)
-        return real(shards, *args)
-
-    monkeypatch.setattr(mod, "run_segment_sharded", record)
-    got = runner.run_chains(seeds, spec, device="cpu", mesh=cpu_mesh(4))
-    monkeypatch.setattr(mod, "run_segment_sharded", real)
-    block_seeds = torch.cat([s.block_seeds for s in seen[0]]).reshape(-1)
+    with monkeypatch.context() as mp:
+        seen = sharded_segments(mp, mod)
+        got = runner.run_chains(seeds, spec, device="cpu", mesh=cpu_mesh(4))
+    block_seeds = torch.cat([s.block_seeds for s in seen[0][0]]).reshape(-1)
     np.testing.assert_array_equal(block_seeds.numpy(),
                                   40 + 7919 * np.arange(4))
     # Separately initialised shards: other block seeds, other trajectories.
@@ -342,8 +358,9 @@ def test_board_shared_sharded_matches_same_block_layout():
 
 def test_full3d_shared_sharded_matches_unsharded_and_jax():
     """tests/test_full3d_shared.py:122: 8 shards of block_size(1) chains,
-    run_segment_sharded on the split carry against run_segment on the whole
-    one and against the JAX package's sharded segment, every carry field."""
+    run_segment shard by shard (mesh.run_sharded) on the split carry against
+    run_segment on the whole one and against the JAX package's sharded
+    segment, every carry field."""
     n_dev, per_dev = 8, full3d_shared.block_size(1)
     jspec, spec = _specs(kernel="pallas_shared", mcmc_type="full_3d",
                          n_steps=150, history_stride=50)
@@ -357,8 +374,9 @@ def test_full3d_shared_sharded_matches_unsharded_and_jax():
                                            device=CPU)
     a, ys_a = full3d_shared.run_segment(carry, 0, spec, spec.n_outer)
     m = cpu_mesh(n_dev)
-    shards, ys_b = full3d_shared.run_segment_sharded(
-        mesh.shard_chains(carry, m), 0, spec, spec.n_outer, m)
+    shards, ys_b = mesh.run_sharded(
+        lambda c: full3d_shared.run_segment(c, 0, spec, spec.n_outer),
+        mesh.shard_chains(carry, m), m)
     b = mesh.gather_chains(shards)
     np.testing.assert_array_equal(ys_b.numpy(), ys_a.numpy())
     np.testing.assert_array_equal(ys_b.numpy(), np.asarray(jys))
@@ -451,16 +469,11 @@ def test_sharded_resume_and_files_match_jax(kernel, tmp_path, monkeypatch):
         np.testing.assert_array_equal(np.load(ck.chunk_path(i, fp)),
                                       np.load(jck.chunk_path(i, jfp)))
     mod = MODULES[f"{kernel}-board"]
-    starts, real = [], mod.run_segment_sharded
-
-    def record(shards, start, *args):
-        starts.append(start)
-        return real(shards, start, *args)
-
-    monkeypatch.setattr(mod, "run_segment_sharded", record)
+    seen = sharded_segments(monkeypatch, mod)
     got = runner.run_chains(seeds, spec, device="cpu", mesh=m,
                             checkpointer=Checkpointer(str(tmp_path / "torch"),
                                                       min_segments=4))
+    starts = [start for _, start in seen]
     assert starts == [2, 3]
     _same_results(want, got)
 
@@ -475,23 +488,24 @@ def test_tempered_sharded_resume(tmp_path, monkeypatch):
     ladder = tempering.geometric_ladder(0.5, 3.0, 4)
     kw = dict(device="cpu", swap_seed=5, mesh=cpu_mesh(8))
     want = tempering.run_tempered(seeds, spec, ladder, **kw)
-    real, calls = board_shared.run_segment_tempered_sharded, []
-
-    def dying(shards, betas, start, *args):
-        if len(calls) == 2:
+    def dying(seen):
+        if len(seen) == 2:
             raise Killed()
-        calls.append(start)
-        return real(shards, betas, start, *args)
 
     ck = Checkpointer(str(tmp_path), tag="pt")
-    monkeypatch.setattr(board_shared, "run_segment_tempered_sharded", dying)
-    with pytest.raises(Killed):
-        tempering.run_tempered(seeds, spec, ladder, checkpointer=ck, **kw)
+    with monkeypatch.context() as mp:
+        seen = sharded_segments(mp, board_shared, "run_segment_tempered",
+                                dying)
+        with pytest.raises(Killed):
+            tempering.run_tempered(seeds, spec, ladder, checkpointer=ck,
+                                   **kw)
+    calls = [start for _, start in seen]
     assert calls == [0, 1]
-    calls.clear()
-    monkeypatch.setattr(board_shared, "run_segment_tempered_sharded",
-                        lambda *a: calls.append(a[2]) or real(*a))
-    got = tempering.run_tempered(seeds, spec, ladder, checkpointer=ck, **kw)
+    with monkeypatch.context() as mp:
+        seen = sharded_segments(mp, board_shared, "run_segment_tempered")
+        got = tempering.run_tempered(seeds, spec, ladder, checkpointer=ck,
+                                     **kw)
+    calls = [start for _, start in seen]
     assert calls == [2, 3]
     with np.load(ck.path) as z:
         assert z["carry_energy"].shape == (1024, 1)
@@ -544,17 +558,12 @@ def test_experiments_tpu_mesh_shards_on_the_cpu(tmp_path, monkeypatch):
     }
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text(yaml.safe_dump(raw))
-    shards, real = [], metropolis_pallas.run_segment_sharded
-
-    def record(parts, *args):
-        shards.append(len(parts))
-        return real(parts, *args)
-
-    monkeypatch.setattr(metropolis_pallas, "run_segment_sharded", record)
+    seen = sharded_segments(monkeypatch, metropolis_pallas)
     pytest.importorskip("matplotlib")
     pytest.importorskip("pandas")
     _cli(exp_cli.main, ["--config", str(cfg), "--outdir",
                         str(tmp_path / "torch"), "--device", "cpu"])
+    shards = [len(parts) for parts, _ in seen]
     assert shards and set(shards) == {4}
     with pltpu.force_tpu_interpret_mode():
         _cli(jexp_cli.main, ["--config", str(cfg), "--outdir",
@@ -564,9 +573,10 @@ def test_experiments_tpu_mesh_shards_on_the_cpu(tmp_path, monkeypatch):
     assert [p.name for p in got] == [p.name for p in want] and got
     for g, w in zip(got, want):
         assert g.read_text() == w.read_text(), g.name
-    shards.clear()
+    seen.clear()
     _cli(exp_cli.main, ["--config", str(cfg), "--outdir",
                         str(tmp_path / "all"), "--device", "cpu", "--mesh"])
+    shards = [len(parts) for parts, _ in seen]
     assert shards and set(shards) == {1}
 
 

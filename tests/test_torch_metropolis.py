@@ -31,7 +31,7 @@ from mcqueens_torch.chain.spec import ChainSpec
 from mcqueens_torch.cli import competition
 from mcqueens_torch.core import schedules
 from mcqueens_torch.dist import runner
-from mcqueens_torch.kernels import delta_e, metropolis_pallas
+from mcqueens_torch.kernels import delta_e, metropolis_pallas, segment
 from mcqueens_torch.kernels.carry import (FIELDS, carry_from_numpy,
                                           carry_to_numpy)
 from tests import _oracle
@@ -257,7 +257,7 @@ def test_segment_call_refuses_other_devices_and_cuda_guards():
     meta = metropolis_pallas.SegmentState(**{
         k: v.to("meta") for k, v in vars(st).items()})
     with pytest.raises(ValueError, match="cpu or cuda"):
-        metropolis_pallas.segment_call(meta, 0, 50, spec)
+        segment.call(metropolis_pallas, meta, 0, 50, spec)
     # The CUDA wrapper checks its arguments before it builds anything.
     beta = torch.zeros(50)
     with pytest.raises(ValueError, match="beta"):

@@ -203,6 +203,7 @@ def _search(case, device="cpu"):
 
 SEARCH_CASES = [("pallas_shared", "board", 1), ("pallas", "board", 1),
                 ("tables", "board", 1), ("pallas_shared", "full_3d", 2),
+                ("pallas", "full_3d", 1), ("tables", "full_3d", 2),
                 "tempered"]
 
 

@@ -174,7 +174,7 @@ def test_repo_config_yaml_parses_to_the_scan_path():
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "config.yaml"))
     assert cfg.tpu.kernel == "tables" and cfg.tpu.history_stride == 1
-    assert runner._modules(ChainSpec(
+    assert runner.sampler_module(ChainSpec(
         N=4, n_steps=10, kernel=cfg.tpu.kernel,
         schedule=schedules.build_schedule("constant", 10,
                                           beta_const=1.0))) is board
